@@ -1,0 +1,117 @@
+"""FEMMesh: degree-1/2 Lagrange nodes over a tetrahedral mesh.
+
+Counterpart of ``meshfem_tpu/mesh/femmesh.py`` in the reference node order
+(vertices first, then edge nodes in sorted-edge order, ``femmesh.py:83-100``).
+Connectivity is numpy on the host; element geometry is a torch computation
+on the requested device.  The P2 edge numbering is the reference's numpy
+fallback (``np.unique`` of the sorted edge keys, ``femmesh.py:94``), which
+numbers edges exactly as the reference's native host core does (both sort
+the (min, max) vertex pairs).  Triangle meshes and the other node orders
+are not ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import config
+from ..fem import simplex
+from . import geometry as geom
+from .simplicial import TetMesh
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementGeometry:
+    """Per-element embedding data (torch tensors on one device)."""
+
+    grad_lambda: torch.Tensor   # [E, K+1, dim] barycentric gradients
+    volume: torch.Tensor        # [E] signed volumes
+
+
+class FEMMesh:
+    """P1/P2 FEM mesh over a tetrahedral complex embedded in R^3.
+
+    Host-side numpy connectivity, as in the reference:
+      * ``elem_nodes [E, n]`` element -> global node (vertices, then edge
+        nodes in GMSH local order);
+      * ``node_positions [N, 3]``;
+      * ``bdry_elems [B, 3]`` outward-wound boundary triangles,
+        ``bdry_elem_nodes [B, nb]`` and ``bdry_nodes [NB]``.
+    """
+
+    def __init__(self, V, F, degree: int = 1):
+        F = np.ascontiguousarray(F, dtype=np.int64)
+        V = np.atleast_2d(np.ascontiguousarray(V, dtype=np.float64))
+        K = F.shape[1] - 1
+        if K != 3 or V.shape[1] != 3:
+            raise NotImplementedError(
+                "this port carries tetrahedral meshes in 3D only; triangle "
+                "meshes are queued in ROADMAP.md (Queue 1, item 3)")
+        if degree not in (1, 2):
+            raise ValueError("degree must be 1 or 2 (like the reference)")
+        self.K = K
+        self.degree = degree
+        self.dim = V.shape[1]
+        self.V = V
+        self.F = F
+        self.cell = TetMesh.build(V, F)
+
+        nv = len(V)
+        if degree == 1:
+            self.num_edges = 0
+            self._edge_keys = np.empty(0, dtype=np.int64)
+            elem_nodes = F.copy()
+            node_pos = V.copy()
+        else:
+            pairs = np.asarray(simplex.simplex_edges(K))
+            ev = np.stack([F[:, pairs[:, 0]], F[:, pairs[:, 1]]], axis=-1)
+            ev = ev.reshape(-1, 2)
+            key = np.min(ev, axis=1) * nv + np.max(ev, axis=1)
+            uniq, inverse = np.unique(key, return_inverse=True)
+            self.num_edges = len(uniq)
+            self._edge_keys = uniq
+            edge_node = nv + inverse.reshape(len(F), -1)
+            elem_nodes = np.concatenate([F, edge_node], axis=1)
+            mids = 0.5 * (V[uniq // nv] + V[uniq % nv])
+            node_pos = np.concatenate([V, mids], axis=0)
+        self.elem_nodes = elem_nodes.astype(np.int64)
+        self.node_positions = node_pos
+        self.num_nodes = len(node_pos)
+
+        bdry = self.cell.boundary_faces()
+        self.bdry_elems = bdry.astype(np.int64)
+        self.bdry_elem_nodes = self._boundary_nodes_of(bdry)
+        self.bdry_nodes = np.unique(self.bdry_elem_nodes)
+
+    def _boundary_nodes_of(self, belems: np.ndarray) -> np.ndarray:
+        """Boundary triangle -> volume node indices (vertices, then edge
+        nodes for P2), GMSH local order on the boundary element."""
+        if self.degree == 1:
+            return belems.copy()
+        nv = len(self.V)
+        pairs = np.asarray(simplex.simplex_edges(self.K - 1))
+        ev = np.stack([belems[:, pairs[:, 0]], belems[:, pairs[:, 1]]],
+                      axis=-1)
+        key = np.min(ev, axis=-1) * nv + np.max(ev, axis=-1)
+        pos = np.searchsorted(self._edge_keys, key)
+        if not np.all(self._edge_keys[np.clip(pos, 0, self.num_edges - 1)]
+                      == key):
+            raise RuntimeError("boundary edge missing from volume edge table")
+        return np.concatenate([belems, nv + pos], axis=1)
+
+    @property
+    def num_elements(self) -> int:
+        return len(self.F)
+
+    def geometry(self, device=None) -> ElementGeometry:
+        """Float64 embedding of all elements on ``device`` (the CUDA device
+        by default)."""
+        dev = config.resolve_device(device)
+        X = torch.as_tensor(self.node_positions, dtype=config.REAL,
+                            device=dev)
+        corners = X[torch.as_tensor(self.F, device=dev)]   # vertices first
+        grad_lambda, volume = geom.simplex_geometry(corners, self.K)
+        return ElementGeometry(grad_lambda, volume)

@@ -1,0 +1,151 @@
+"""Exact per-element FEM matrices via reference-domain integral tables.
+
+Counterpart of ``meshfem_tpu/ops/element_matrices.py``.  On an affine
+simplex each element integral factors into a constant reference tensor
+(exact closed-form monomial integrals, computed once per (K, deg) on the
+host) times per-element geometry:
+
+    K_e = vol_e * sum_klab g_k^a g_l^b C_{cafb} T_grad[k, l, i, j]
+
+For a constant material the stiffness is ONE product
+``Ke = (gg * vol) @ M`` with ``gg [E, ((K+1) d)^2]`` the geometry outer
+products and ``M`` the fused constant tensor (``fused_matrix_for`` :160,
+``element_elasticity_fused`` :223).  That product is an XLA matmul in the
+reference, so here it is ``torch.matmul`` (TF32 off, ``config.py``).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..fem import shape_functions as sf
+from ..fem.flattening import flat_rows_cols, full_to_flat_map
+
+
+def _monomial_integral_factor(exps: np.ndarray, K: int) -> np.ndarray:
+    """int over the unit-volume K-simplex of prod lambda^alpha per row."""
+    out = np.empty(len(exps))
+    for r, e in enumerate(exps):
+        num = math.factorial(K) * np.prod([math.factorial(int(a)) for a in e])
+        out[r] = num / math.factorial(int(e.sum()) + K)
+    return out
+
+
+def _poly_product_integrals(expsA, coeffsA, expsB, coeffsB, K):
+    """[nA, nB] exact integrals int p_i q_j over the unit simplex."""
+    MA, MB = len(expsA), len(expsB)
+    fac = np.empty((MA, MB))
+    for m in range(MA):
+        for n in range(MB):
+            e = expsA[m] + expsB[n]
+            num = math.factorial(K) * np.prod(
+                [math.factorial(int(a)) for a in e])
+            fac[m, n] = num / math.factorial(int(e.sum()) + K)
+    return coeffsA.T @ fac @ coeffsB
+
+
+@functools.lru_cache(maxsize=None)
+def _basis_and_derivs(K: int, deg: int):
+    """(exps, coeffs, dexps, dcoeffs[v]): derivative polynomials w.r.t.
+    each barycentric coordinate over the degree-(deg-1) monomials."""
+    exps, coeffs = sf._lagrange_tables(K, deg)
+    exps = np.asarray(exps)
+    nv, n = K + 1, coeffs.shape[1]
+    dexps = sf._monomial_exponents(K, deg - 1)
+    index = {tuple(e): i for i, e in enumerate(dexps)}
+    dcoeffs = np.zeros((nv, len(dexps), n))
+    for v in range(nv):
+        for m, e in enumerate(exps):
+            if e[v] == 0:
+                continue
+            e2 = e.copy()
+            e2[v] -= 1
+            dcoeffs[v, index[tuple(e2)], :] += e[v] * coeffs[m, :]
+    return exps, coeffs, dexps, dcoeffs
+
+
+@functools.lru_cache(maxsize=None)
+def gradgrad_table(K: int, deg: int) -> np.ndarray:
+    """[K+1, K+1, n, n] exact int (dphi_i/dlam_k)(dphi_j/dlam_l)."""
+    _, _, dexps, dcoeffs = _basis_and_derivs(K, deg)
+    nv = K + 1
+    n = dcoeffs.shape[2]
+    T = np.empty((nv, nv, n, n))
+    for k in range(nv):
+        for l in range(nv):
+            T[k, l] = _poly_product_integrals(
+                dexps, dcoeffs[k], dexps, dcoeffs[l], K)
+    return T
+
+
+@functools.lru_cache(maxsize=None)
+def shape_grad_table(K: int, deg: int) -> np.ndarray:
+    """[K+1, n] exact int dphi_i/dlam_k (constant-strain loads)."""
+    _, _, dexps, dcoeffs = _basis_and_derivs(K, deg)
+    fac = _monomial_integral_factor(np.asarray(dexps), K)
+    return np.einsum("m,vmn->vn", fac, dcoeffs)
+
+
+def fused_matrix_for(D, K: int, deg: int) -> np.ndarray:
+    """The fused constant tensor M[(k,a,l,b), (i,c,j,f)] =
+    T[k,l,i,j] C[c,a,f,b] (float64 numpy) turning element stiffness into
+    ONE matmul: ``Ke = (gg @ M) * vol``."""
+    D_np = np.asarray(torch.as_tensor(D).detach().cpu(), dtype=np.float64)
+    dim = {1: 1, 3: 2, 6: 3}[D_np.shape[-1]]
+    f2f = full_to_flat_map(dim)
+    C_full = D_np[f2f[:, :, None, None], f2f[None, None, :, :]]
+    T = gradgrad_table(K, deg)
+    M = np.einsum("klij,cafb->kalbicjf", T, C_full)
+    nv, n = K + 1, T.shape[-1]
+    return M.reshape(nv * dim * nv * dim, n * dim * n * dim)
+
+
+def element_elasticity(grad_lambda, volume, D, deg: int):
+    """[E, n*dim, n*dim] elasticity stiffness, dofs interleaved
+    component-fastest (``dof = node * dim + comp``) like the reference
+    (``element_elasticity`` :262).  Only a constant ``D [fl, fl]`` is
+    ported; per-element material fields are queued in ROADMAP.md."""
+    if D.ndim != 2:
+        raise NotImplementedError("per-element material fields are queued "
+                                  "in ROADMAP.md (MaterialField)")
+    return element_elasticity_fused(grad_lambda, volume, D, deg)
+
+
+def element_elasticity_fused(grad_lambda, volume, D, deg: int):
+    """Stiffness of a CONSTANT material (``element_elasticity_fused``
+    :223): one batched outer product and one [E, gdim^2] x [gdim^2, (nd)^2]
+    matmul; the geometry temporary is freed before return."""
+    K = grad_lambda.shape[-2] - 1
+    dim = grad_lambda.shape[-1]
+    E = grad_lambda.shape[0]
+    n = gradgrad_table(K, deg).shape[-1]
+    M = torch.as_tensor(fused_matrix_for(D, K, deg), dtype=grad_lambda.dtype,
+                        device=grad_lambda.device)
+    gdim = (K + 1) * dim
+    gg = torch.einsum("eka,elb->ekalb", grad_lambda,
+                      grad_lambda).reshape(E, gdim * gdim)
+    Ke = torch.matmul(gg, M)
+    del gg
+    Ke.mul_(volume[:, None])
+    return Ke.reshape(E, n * dim, n * dim)
+
+
+def element_strain_matrix(grad_lambda, deg: int, quad_points):
+    """[E, Q, fl, n, dim] operator mapping nodal displacements u[e, n, dim]
+    to raw-Voigt strains at the barycentric points ``quad_points``."""
+    K = grad_lambda.shape[-2] - 1
+    dim = grad_lambda.shape[-1]
+    dN = torch.as_tensor(sf.grad_shape_np(K, deg, np.asarray(quad_points)),
+                         dtype=grad_lambda.dtype, device=grad_lambda.device)
+    gp = torch.einsum("qnk,ekd->eqnd", dN, grad_lambda)
+    r, c = flat_rows_cols(dim)
+    E_, Q, n, _ = gp.shape
+    B = gp.new_zeros((E_, Q, len(r), n, dim))
+    for a, (i, j) in enumerate(zip(r, c)):
+        B[:, :, a, :, i] += 0.5 * gp[..., j]
+        B[:, :, a, :, j] += 0.5 * gp[..., i]
+    return B

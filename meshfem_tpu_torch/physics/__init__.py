@@ -1,0 +1,2 @@
+from .materials import Material  # noqa: F401
+from .elasticity import ElasticitySimulator, von_mises  # noqa: F401

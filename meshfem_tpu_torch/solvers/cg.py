@@ -1,0 +1,118 @@
+"""Preconditioned conjugate gradients with constraint projection.
+
+Counterpart of ``meshfem_tpu/solvers/cg.py``: ``cg`` (:43) with its
+breakdown guard, stall and divergence detection and best-iterate return,
+``cg_operator`` (:224, the Jacobi Dirichlet solve) and ``mask_projector``.
+The ``while_loop`` becomes a Python loop whose scalars stay on the device;
+the loop reads ONE flag back per iteration (its continue condition), so
+the host waits on the device once per iteration and no more.  Vectors are
+updated in place where the reference rebinds them.  Dot products run in
+the vector's dtype, as the reference's do (``cg.py:33-40``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+# Plain CG on kappa ~ 1e7 systems can plateau for hundreds of iterations
+# and its residual oscillates by ~sqrt(kappa) between drops, so both guards
+# are generous (the reference's values).
+STALL_WINDOW = 2048      # iterations without a best-residual improvement
+DIVERGE_FACTOR = 1e10
+
+
+class CGResult(NamedTuple):
+    x: torch.Tensor
+    iters: int           # iterations (cumulative inner ones for refinement)
+    resnorm: float       # final residual norm (relative, for refinement)
+    rounds: int = 0      # refinement rounds (0 for a plain CG solve)
+
+
+def _dot(a, b):
+    """Inner product in the vector dtype (0-d tensor on the device)."""
+    return torch.vdot(a.reshape(-1), b.reshape(-1))
+
+
+def cg(A: Callable, b, *, M_inv: Callable | None = None,
+       project: Callable | None = None, tol: float = 1e-10,
+       maxiter: int = 1000) -> CGResult:
+    """Solve A x = b with PCG from x = 0.  ``project`` must be an
+    orthogonal projector onto the feasible subspace; it is applied to b and
+    every operator output, keeping all iterates feasible."""
+    if project is None:
+        project = lambda v: v
+    if M_inv is None:
+        M_inv = lambda v: v
+
+    b = project(b)
+    x = torch.zeros_like(b)
+    r = b.clone()
+    z = project(M_inv(r))
+    gamma = _dot(r, z)
+    stop2 = tol * tol * _dot(b, b)
+    p = z.clone()
+    rr = _dot(r, r)
+    rr_best = rr.clone()
+    x_best = x.clone()
+    stall = torch.zeros((), dtype=torch.int32, device=b.device)
+    k = 0
+    cont = (rr > stop2) & torch.isfinite(rr)
+    while k < maxiter and bool(cont):
+        Ap = project(A(p))
+        den = _dot(p, Ap)
+        # breakdown guard: non-positive / non-finite curvature means the
+        # solve hit the roundoff floor -- freeze the iterate and stop
+        good = torch.isfinite(den) & (den > 0)
+        alpha = torch.where(good, gamma / torch.where(good, den, 1.0), 0.0)
+        x.addcmul_(p, alpha)
+        r.addcmul_(Ap, alpha, value=-1.0)
+        z = project(M_inv(r))
+        gamma_new = torch.where(good, _dot(r, z), gamma)
+        p.mul_(gamma_new / gamma).add_(z)
+        gamma = gamma_new
+        # below the attainable residual floor the recursive residual
+        # decouples from the true one: keep the best iterate and stop
+        rr = _dot(r, r)
+        improved = rr < 0.999 * rr_best
+        x_best = torch.where(improved, x, x_best)
+        stall = torch.where(improved, 0, stall + 1)
+        rr_best = torch.minimum(rr, rr_best)
+        done = (~good) | (stall >= STALL_WINDOW) \
+            | (rr > DIVERGE_FACTOR * rr_best)
+        k += 1
+        cont = (rr > stop2) & (~done) & torch.isfinite(rr)
+    use_best = rr_best < rr
+    x = torch.where(use_best, x_best, x)
+    rnorm = torch.sqrt(torch.where(use_best, rr_best, rr))
+    return CGResult(x, k, float(rnorm))
+
+
+def mask_projector(free_mask):
+    """Projector zeroing fixed dofs (``free_mask`` broadcasts against the
+    vector)."""
+    def project(v):
+        return v * free_mask.to(v.dtype)
+
+    return project
+
+
+def cg_operator(op, b, diag, free_mask, fixed_values=None, *,
+                tol: float = 1e-11, maxiter: int = 10000) -> CGResult:
+    """Jacobi-preconditioned Dirichlet CG solve of ``op`` (``cg_operator``
+    :224): free_mask is 1.0/0.0 (or bool) over the dofs; fixed_values are
+    the values on the fixed dofs (default zero)."""
+    free = free_mask.to(b.dtype)
+    project = lambda v: v * free
+    safe = torch.where(diag > 0, diag, torch.ones_like(diag))
+    M_inv = lambda r: r / safe
+    if fixed_values is not None:
+        u_d = fixed_values * (1.0 - free)
+        rhs = b - op(u_d)
+    else:
+        u_d = None
+        rhs = b
+    res = cg(op, rhs, M_inv=M_inv, project=project, tol=tol, maxiter=maxiter)
+    x = res.x if u_d is None else res.x + u_d
+    return CGResult(x, res.iters, res.resnorm)

@@ -1,0 +1,61 @@
+"""Element-by-element operator ``A u = scatter(Ke @ gather(u))``.
+
+Counterpart of ``meshfem_tpu/sparse/ebe.py::EBEKernel`` (:30-118) for
+single-vector applies and the diagonal.  In the port it is the float64
+residual operator of iterative refinement: the gather is a plain index, the
+per-element product a batched matmul (XLA einsum / multiply-reduce in the
+reference), and the scatter runs on kernel B in float64 (``ScatterPlan``),
+deterministic where ``index_add_`` on CUDA would use float atomics.
+The multi-RHS apply is not ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .scatter import ScatterPlan
+
+
+@dataclasses.dataclass
+class EBEKernel:
+    """Symmetric EBE operator for scalar (d = 1) or vector dofs.
+
+    Ke: [E, n*d, n*d] (dof ``node * d + comp``); elem_dofs: [E, n] long;
+    applies to u of shape [N] (d = 1) or [N, d]."""
+
+    Ke: torch.Tensor
+    elem_dofs: torch.Tensor
+    num_dofs: int
+    vector_dim: int
+    plan: ScatterPlan
+
+    @classmethod
+    def build(cls, Ke, elem_dofs, num_dofs: int,
+              vector_dim: int = 1) -> "EBEKernel":
+        elem_dofs = torch.as_tensor(elem_dofs, dtype=torch.long,
+                                    device=Ke.device)
+        plan = ScatterPlan.build(elem_dofs.reshape(-1).cpu().numpy(),
+                                 num_dofs, Ke.device)
+        return cls(Ke, elem_dofs, num_dofs, vector_dim, plan)
+
+    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+        E, nd, _ = self.Ke.shape
+        n = self.elem_dofs.shape[1]
+        d = self.vector_dim
+        if u.shape != ((self.num_dofs,) if d == 1 else (self.num_dofs, d)):
+            raise ValueError(f"EBEKernel: u must be [N] or [N, d], got "
+                             f"{tuple(u.shape)} (multi-RHS is not ported)")
+        ue = u[self.elem_dofs].reshape(E, nd, 1)
+        fe = torch.bmm(self.Ke, ue)
+        return self.plan(fe.reshape(E * n) if d == 1
+                         else fe.reshape(E * n, d))
+
+    def diagonal(self) -> torch.Tensor:
+        E, nd, _ = self.Ke.shape
+        n = self.elem_dofs.shape[1]
+        d = self.vector_dim
+        de = torch.diagonal(self.Ke, dim1=1, dim2=2)
+        return self.plan(de.reshape(E * n) if d == 1
+                         else de.reshape(E * n, d))

@@ -1,0 +1,204 @@
+"""Routed element-by-element operator: the fast float32 general-mesh SpMV.
+
+Counterpart of ``meshfem_tpu/sparse/routed_ebe.py::RoutedEBE``.  An apply
+``A u = scatter(Ke @ gather(u))`` runs as three steps on component planes
+``[d, N]``:
+
+1. kernel A (``gather_planes``): slot <- node, one int32 index per slot
+   shared by the d planes;
+2. the element contraction: ``torch.bmm`` against the dense float32 ``Ke``
+   (an XLA einsum in the reference, ``routed_ebe.py:690``), or kernel C
+   (``qp_contract``) for the factored isotropic backend, which reads
+   grad_lambda and the volume instead of Ke;
+3. kernel B (``segment_sum_csr``): slots -> nodes in a fixed order.
+
+The reference's chain buckets, windows, superblocks, 128-lane padding and
+scatter ladder work around the TPU's lane-rigid gather and are not carried
+over: one gather index stream plus one destination-sorted CSR plan replace
+the whole plan set.  Slots are laid out element-fastest, ``s = a * E + e``
+(node ``a`` of element ``e``), so kernel C and the dense contraction read
+coalesced.
+
+The internal reordering is the reference's exactly (``routed_ebe.py:449-470``):
+elements along ``rcb_order`` of their centroids, nodes by first touch, so
+``order`` and ``rank`` equal the reference's integer for integer.
+``block_rhs``/``apply_block`` are not ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import config
+from ..kernels import gather_planes, qp_contract
+from ..mesh.reorder import rcb_order
+from ..ops.element_matrices import gradgrad_table
+from .scatter import ScatterPlan, _INT32_MAX
+
+_NO_BLOCK = ("multi-RHS apply_block/block_rhs are queued in ROADMAP.md "
+             "(Queue 1, item 8)")
+
+def _device_of(Ke, factor, device):
+    if device is not None:
+        return torch.device(device)
+    for t in (Ke, None if factor is None else factor[0]):
+        if isinstance(t, torch.Tensor):
+            return t.device
+    return config.default_device()
+
+
+@dataclasses.dataclass
+class RoutedEBE:
+    """Symmetric routed EBE operator (float32) for scalar or vector dofs.
+
+    Two contraction backends:
+
+    * dense: ``KeP [E, d*n, d*n]`` float32 with rows and columns ordered
+      component-major (``c * n + a``), matching the plane layout;
+    * factored isotropic (``g``/``vol``/``lam``/``mu`` set, ``KeP`` None):
+      ``vol Ke u`` from grad_lambda ``g [(K+1) d, E]`` and ``vol [E]``
+      through kernel C — 13 floats per element at P2/3D instead of 900.
+    """
+
+    ids: torch.Tensor                # [n*E] int32 slot -> internal node
+    plan: ScatterPlan                # slots -> internal nodes (CSR)
+    order: torch.Tensor | None       # [N] user dof held by internal slot i
+    rank: torch.Tensor | None        # [N] internal slot of user dof
+    num_dofs: int                    # nodes
+    vector_dim: int
+    num_elements: int
+    nodes_per_elem: int
+    KeP: torch.Tensor | None = None
+    g: torch.Tensor | None = None
+    vol: torch.Tensor | None = None
+    lam: float = 0.0
+    mu: float = 0.0
+    deg: int = 2
+
+    @classmethod
+    def build(cls, Ke, elem_dofs, num_dofs: int, vector_dim: int = 1,
+              coords=None, factor=None, device=None,
+              block_rhs: int | None = None) -> "RoutedEBE":
+        """Ke: [E, nd, nd] (node-major dofs ``a * d + c``); elem_dofs:
+        [E, n] node ids; num_dofs = number of NODES.
+
+        ``factor``: ``(grad_lambda [E, K+1, dim], volume [E], lam, mu,
+        deg)`` selects the factored isotropic contraction (Ke may be None).
+        ``coords`` ([num_dofs, dim] positions): reorder internally
+        (elements along RCB leaves, dofs by first touch); ``__call__`` then
+        works in the INTERNAL ordering and callers convert once each way
+        with :meth:`permute_in` / :meth:`permute_out`.  The device defaults
+        to that of the tensors given, else the CUDA device.  ``block_rhs``
+        (multi-RHS block plans) is not ported yet and raises."""
+        if block_rhs:
+            raise NotImplementedError(_NO_BLOCK)
+        dev = _device_of(Ke, factor, device)
+        elem_dofs = np.asarray(elem_dofs, dtype=np.int64)
+        E, n = elem_dofs.shape
+        d = vector_dim
+        N = int(num_dofs)
+        if N > _INT32_MAX or n * E > _INT32_MAX:
+            raise ValueError("mesh too large for int32 index streams")
+        eperm = None
+        if coords is not None:
+            cent = np.asarray(coords)[elem_dofs].mean(axis=1)
+            eperm = rcb_order(cent)
+            ed_sorted = elem_dofs[eperm]
+            uniq, first_pos = np.unique(ed_sorted.ravel(), return_index=True)
+            touched = uniq[np.argsort(first_pos)]
+            untouched = np.setdiff1d(np.arange(N, dtype=np.int64), uniq)
+            order_np = np.concatenate([touched, untouched])
+            rank_np = np.empty(N, np.int64)
+            rank_np[order_np] = np.arange(N)
+            elem_dofs = rank_np[ed_sorted]
+            order = torch.as_tensor(order_np, device=dev)
+            rank = torch.as_tensor(rank_np, device=dev)
+        else:
+            order = rank = None
+        slot_node = np.ascontiguousarray(elem_dofs.T).reshape(-1)  # a*E + e
+        ids = torch.as_tensor(slot_node.astype(np.int32), device=dev)
+        plan = ScatterPlan.build(slot_node, N, dev)
+        op = cls(ids=ids, plan=plan, order=order, rank=rank, num_dofs=N,
+                 vector_dim=d, num_elements=E, nodes_per_elem=n)
+        ep = None if eperm is None else torch.as_tensor(eperm, device=dev)
+        if factor is not None:
+            gl, volume, lam, mu, deg = factor
+            gl = torch.as_tensor(gl, device=dev).to(config.SOLVE)
+            volume = torch.as_tensor(volume, device=dev).to(config.SOLVE)
+            if ep is not None:
+                gl, volume = gl[ep], volume[ep]
+            K1 = gl.shape[1]
+            op.g = gl.permute(1, 2, 0).reshape(K1 * d, E).contiguous()
+            op.vol = volume.contiguous()
+            op.lam, op.mu, op.deg = float(lam), float(mu), int(deg)
+        else:
+            Ke = torch.as_tensor(Ke, device=dev)
+            if tuple(Ke.shape) != (E, n * d, n * d):
+                raise ValueError(f"Ke must be {(E, n * d, n * d)}")
+            Ke = Ke.to(config.SOLVE)
+            if ep is not None:
+                Ke = Ke[ep]
+            op.KeP = Ke.reshape(E, n, d, n, d).permute(0, 2, 1, 4, 3) \
+                .reshape(E, n * d, n * d).contiguous()
+        return op
+
+    # ------------------------------------------------------------------
+    def permute_in(self, u):
+        """User-ordered [N] / [N, d] -> internal ordering (identity when
+        built without coords)."""
+        return u if self.order is None else u[self.order]
+
+    def permute_out(self, y):
+        """Internal ordering -> user ordering."""
+        return y if self.rank is None else y[self.rank]
+
+    def _contract(self, ue):
+        """ue [d, n*E] gathered element values -> forces [d, n*E]."""
+        d, n, E = self.vector_dim, self.nodes_per_elem, self.num_elements
+        if self.KeP is not None:
+            fe = torch.bmm(self.KeP, ue.reshape(d * n, E).t().unsqueeze(-1))
+            return fe.reshape(E, d * n).t().contiguous().reshape(d, n * E)
+        return qp_contract(self.g, self.vol, ue.reshape(d, n, E), self.lam,
+                           self.mu).reshape(d, n * E)
+
+    def apply_planes(self, src: torch.Tensor) -> torch.Tensor:
+        """Plane-native apply: ``src [d, N] -> A src [d, N]`` (float32)."""
+        ue = gather_planes(src.to(config.SOLVE).contiguous(), self.ids)
+        return self.plan.sum_planes(self._contract(ue))
+
+    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+        """u [N] (d = 1) or [N, d] -> A u in the same layout (float32)."""
+        d = self.vector_dim
+        src = u.to(config.SOLVE).reshape(self.num_dofs, d).t()
+        return self.apply_planes(src).t().reshape(u.shape)
+
+    def diagonal_planes(self) -> torch.Tensor:
+        """Assembled operator diagonal (Jacobi) in plane layout [d, N]."""
+        d, n, E = self.vector_dim, self.nodes_per_elem, self.num_elements
+        if self.KeP is not None:
+            de = torch.diagonal(self.KeP, dim1=1, dim2=2).t()   # [d*n, E]
+        else:
+            # diag Ke[(a c)(a c)] = vol sum_kl T[klaa]
+            #                       (mu g_k.g_l + (lam + mu) g_kc g_lc)
+            K1 = self.g.shape[0] // d
+            gl = self.g.reshape(K1, d, E)
+            T = torch.as_tensor(gradgrad_table(K1 - 1, self.deg),
+                                dtype=gl.dtype, device=gl.device)
+            Taa = torch.einsum("klaa->kla", T)
+            G2 = torch.einsum("kce,mce->kme", gl, gl)
+            iso = self.mu * torch.einsum("kla,kle->ae", Taa, G2)
+            dirn = (self.lam + self.mu) * torch.einsum(
+                "kla,kce,lce->cae", Taa, gl, gl)
+            de = self.vol * (iso[None] + dirn)                  # [d, n, E]
+        return self.plan.sum_planes(de.contiguous().reshape(d, n * E))
+
+    def diagonal(self) -> torch.Tensor:
+        """Operator diagonal in the user layout [N] / [N, d]."""
+        dg = self.diagonal_planes()
+        return dg[0] if self.vector_dim == 1 else dg.t()
+
+    def apply_block(self, U):
+        raise NotImplementedError(_NO_BLOCK)

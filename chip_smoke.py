@@ -12,7 +12,10 @@ of which raises on failure:
    routed operator and the factored one (built as ``bench.py:363``);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes: A at 3 and 1 planes (exact), B in float32 (1e-5 of max|y|) and
-   float64 (1e-12), bit-identical across two runs, C (1e-5 of max|y|);
+   float64 (1e-12), bit-identical across two runs, C (1e-5 of max|y|),
+   D (1e-5 of max|y|, and 5e-6 against C on the same inputs), E (1e-5 of
+   max|Ke| against its plain version and against the simulator's float64
+   Ke);
 4. the main path: ``sim.solve(operator="routed", tol=1e-10)``, float32
    routed CG inside float64 iterative refinement.  Launch counts are zeroed
    just before the solve and read just after; the float64 relative residual
@@ -22,11 +25,27 @@ of which raises on failure:
    reference's switch), counted the same way, so kernel C runs on a path;
    a small clamped bar solved on the card (routed) against the port's
    float64 EBE solve on the CPU (u and von Mises to 1e-8);
-6. each kernel timed beside its bound, its plain version and one PyTorch
+6. the assembly path (kernel E): the float32 ``Ke`` of the bench mesh from
+   ``kernels.element_stiffness``, handed to ``RoutedEBE.build`` as
+   ``bench.py:266,320`` does; its apply against the operator built from
+   the float64 ``Ke`` (<= 5e-6 of max|y|), launches counted;
+7. the homogenization path at full width: ``homogenize(mesh,
+   Material.isotropic(3, 200, 0.3), tol=1e-10)`` on ``grid_tet(36,36,36)``
+   P2 with a spherical void of radius 0.3 (about 248k tets, 1.0 M dofs
+   after periodic identification), run three times with the launch counts
+   zeroed before each: dense (A, B, ``bmm``), ``MESHFEM_FACTORED=1`` (A, B,
+   C) and ``MESHFEM_FACTORED=1 MESHFEM_FACTORED_TQ=1`` (A, B, D).  Gates:
+   the block's float64 relative residual through the EBE operator,
+   translations projected, <= 1e-10 in the whole-block norm; ``Ch``
+   finite, symmetric, positive definite, softer than ``D``, under the
+   Voigt bound; the three ``Ch`` equal to 1e-7; then a small periodic cell
+   with a soft inclusion (``MaterialField``) solved routed on the card
+   against the float64 EBE block solve on the CPU (w and Ch to 1e-8);
+8. each kernel timed beside its bound, its plain version and one PyTorch
    call computing the same function (median of per-launch CUDA-event
-   times, L2 flushed before each launch), printed as one
-   ``{"kernels": [...]}`` line;
-7. last, ``{"ok": true, "device": {...}}``.
+   times, L2 flushed before each launch), A and B also at the 18 planes of
+   the block apply, printed as one ``{"kernels": [...]}`` line;
+9. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -39,6 +58,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -168,6 +188,156 @@ def drive_solve(sim, label, required):
     return u, res, wall, counts
 
 
+def void_cell(n):
+    """grid_tet(n, n, n) on the unit cube with the tets whose centroid lies
+    within 0.3 of the centre removed and the vertices renumbered: a
+    periodic cell with a spherical void."""
+    from meshfem_tpu_torch.mesh import generators
+
+    V, T = generators.grid_tet(n, n, n)
+    cent = V[T].mean(axis=1)
+    T2 = T[((cent - 0.5) ** 2).sum(axis=1) > 0.3 ** 2]
+    used = np.unique(T2)
+    remap = -np.ones(len(V), dtype=np.int64)
+    remap[used] = np.arange(len(used))
+    return V[used], remap[T2].astype(np.int32)
+
+
+def block_residual(sim, w):
+    """Float64 relative residual of the cell problems through the EBE
+    operator, translations projected: (whole-block norm, per column)."""
+    from meshfem_tpu_torch.analysis import homogenization as hom
+
+    X = torch.zeros((sim.num_dofs, sim.dim, w.shape[0]), dtype=torch.float64,
+                    device=sim.device)
+    X[sim._dof_map_t] = w.movedim(0, -1)
+    B = hom._project_translations(hom._cell_loads(sim))
+    R = hom._project_translations(B - sim.apply_K(X))
+    cols = (torch.linalg.norm(R.reshape(-1, R.shape[-1]), dim=0)
+            / torch.linalg.norm(B.reshape(-1, B.shape[-1]), dim=0))
+    return float(torch.linalg.norm(R) / torch.linalg.norm(B)), cols.tolist()
+
+
+def drive_homogenize(mesh, material, label, env, required):
+    """One counted run of the user's entry point ``homogenize`` under the
+    contraction switches ``env``: counts are zeroed just before and read
+    just after; each wrapper in ``required`` must have launched.  The block
+    CG is wrapped to record the inner iterations of every refinement
+    round."""
+    from meshfem_tpu_torch import kernels
+    from meshfem_tpu_torch.analysis import homogenization as hom
+    from meshfem_tpu_torch.solvers import cg as cg_mod
+
+    for k in ("MESHFEM_FACTORED", "MESHFEM_FACTORED_TQ"):
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    rounds, cg_seconds = [], []
+    inner = cg_mod.cg_block
+
+    def recording(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = inner(*args, **kw)
+        torch.cuda.synchronize()
+        cg_seconds.append(time.time() - t0)
+        rounds.append(int(res.iters))
+        return res
+
+    cg_mod.cg_block = recording
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = hom.homogenize(mesh, material, tol=1e-10)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    finally:
+        cg_mod.cg_block = inner
+        for k in env:
+            os.environ.pop(k, None)
+    stagnated = [str(c.message) for c in caught
+                 if "stagnated" in str(c.message)]
+    iters = sum(rounds)
+    cg_s = sum(cg_seconds)
+    log(f"{label}: homogenize {wall:.3f} s ({cg_s:.3f} s in the block CG, "
+        f"the rest set-up, f64 residuals and the tensor), {len(rounds)} "
+        f"refinement rounds {rounds}, {iters} block CG iterations, "
+        f"{cg_s / max(iters, 1) * 1e3:.4f} ms per block iteration (host "
+        f"clock around the block CG), launches {counts}")
+    for msg in stagnated:
+        log(f"{label}: WARNING {msg}")
+    for name in required:
+        if counts[name] == 0:
+            raise RuntimeError(f"{label}: {name} was not launched")
+    return res, dict(seconds=wall, block_cg_seconds=cg_s,
+                     block_iter_ms=cg_s / max(iters, 1) * 1e3,
+                     rounds=len(rounds), round_iters=rounds,
+                     inner_iters=iters, stagnated=bool(stagnated),
+                     launches=counts)
+
+
+def check_homogenized(sim, res, label, D, phi, gate):
+    """Residual and tensor gates of one homogenization run."""
+    Ch = res.Ch
+    relres, cols = block_residual(sim, res.w)
+    log(f"{label}: f64 block relative residual {relres:.3e} (columns "
+        + ", ".join(f"{c:.2e}" for c in cols) + ")")
+    if not relres <= gate:
+        raise RuntimeError(f"{label}: block residual {relres:.3e} > {gate}")
+    if tuple(Ch.shape) != (6, 6) or not bool(torch.isfinite(Ch).all()) \
+            or not bool(torch.isfinite(res.w).all()):
+        raise RuntimeError(f"{label}: Ch or w not finite")
+    scale = float(Ch.abs().max())
+    asym = float((Ch - Ch.t()).abs().max()) / scale
+    Cs = 0.5 * (Ch + Ch.t())
+    emin = float(torch.linalg.eigvalsh(Cs).min())
+    voigt = float(torch.linalg.eigvalsh((1.0 - phi) * D - Cs).min())
+    log(f"{label}: Ch[0,0] {float(Ch[0, 0]):.6f} (D[0,0] "
+        f"{float(D[0, 0]):.6f}), asymmetry {asym:.2e} of max|Ch|, min "
+        f"eigenvalue {emin:.4f}, min eig((1-phi) D - Ch) {voigt:.4f}")
+    if not asym <= 1e-8:
+        raise RuntimeError(f"{label}: Ch not symmetric: {asym:.3e}")
+    if not emin > 0:
+        raise RuntimeError(f"{label}: Ch not positive definite")
+    if not float(Ch[0, 0]) < float(D[0, 0]):
+        raise RuntimeError(f"{label}: the void did not soften the cell")
+    if not voigt >= -1e-8 * scale:
+        raise RuntimeError(f"{label}: Ch above the Voigt bound")
+    return relres, cols
+
+
+def small_cell_check(dev):
+    """grid_tet(4,4,4) P2 with a soft inclusion (MaterialField): routed on
+    the card against the float64 EBE block solve on the CPU."""
+    from meshfem_tpu_torch.analysis import homogenization as hom
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.physics import MaterialField
+
+    V, T = generators.grid_tet(4, 4, 4)
+    mesh = FEMMesh(V, T, degree=2)
+    cent = V[T].mean(axis=1)
+    young = np.where(((cent - 0.5) ** 2).sum(axis=1) < 0.09, 0.2, 2.0)
+    mat = MaterialField.isotropic_field(3, young, np.full(len(young), 0.3))
+    out = {}
+    for name, device, op in (("card", dev, "routed"), ("cpu", "cpu", "ebe")):
+        sim = hom.periodic_simulator(mesh, mat, device=device)
+        w, _ = hom.solve_cell_problems(sim, tol=1e-12, operator=op)
+        w = w - w.mean(dim=1, keepdim=True)
+        out[name] = (w.cpu(), hom.homogenized_tensor_stress_form(sim, w).cpu())
+    dw = float((out["card"][0] - out["cpu"][0]).abs().max()
+               / out["cpu"][0].abs().max())
+    dC = float((out["card"][1] - out["cpu"][1]).abs().max()
+               / out["cpu"][1].abs().max())
+    log(f"small periodic cell (grid_tet(4) P2, soft inclusion): card routed "
+        f"vs CPU f64 EBE: w {dw:.3e}, Ch {dC:.3e} of max")
+    if not (dw <= 1e-8 and dC <= 1e-8):
+        raise RuntimeError("small periodic cell disagrees with the CPU path")
+    return dw, dC
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -175,7 +345,11 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from meshfem_tpu_torch import kernels
     from meshfem_tpu_torch.fem import elasticity_tensor as et
+    from meshfem_tpu_torch.analysis import homogenization as hom
     from meshfem_tpu_torch.kernels import _build
+    from meshfem_tpu_torch.mesh import FEMMesh
+    from meshfem_tpu_torch.ops import element_matrices as em
+    from meshfem_tpu_torch.physics import Material
     from meshfem_tpu_torch.sparse.contract import qp_tables
     from meshfem_tpu_torch.sparse.routed_ebe import RoutedEBE
 
@@ -272,6 +446,38 @@ def main() -> int:
         raise RuntimeError(f"qp_contract disagrees with plain: {rel_c}")
     log(f"C qp_contract: max abs err {err_c:.3e}, {rel_c:.3e} of max|y|")
 
+    d_out = kernels.factored_contract(rkf.g, rkf.vol, ue, lam, mu)
+    d_ref = kernels.factored_contract_plain(rkf.g, rkf.vol, ue, lam, mu)
+    torch.cuda.synchronize()
+    err_d = float((d_out - d_ref).abs().max())
+    rel_d = err_d / float(d_ref.abs().max())
+    rel_dc = float((d_out - c_out).abs().max() / c_out.abs().max())
+    log(f"D factored_contract: max abs err {err_d:.3e}, {rel_d:.3e} of "
+        f"max|y| against plain; {rel_dc:.3e} against kernel C")
+    if not rel_d <= 1e-5:
+        raise RuntimeError(f"factored_contract disagrees with plain: {rel_d}")
+    if not rel_dc <= 5e-6:
+        raise RuntimeError(f"factored_contract disagrees with C: {rel_dc}")
+    del d_ref, c_ref
+
+    gl32 = sim.geom.grad_lambda.float().contiguous()
+    vol32 = sim.geom.volume.float().contiguous()
+    M32 = torch.as_tensor(em.fused_matrix_for(sim.D, 3, 2),
+                          dtype=torch.float32, device=dev)
+    Ke32 = kernels.element_stiffness(gl32, vol32, M32)
+    torch.cuda.synchronize()
+    e_ref = kernels.element_stiffness_plain(gl32, vol32, M32)
+    ke_max = float(e_ref.abs().max())
+    err_e = float((Ke32 - e_ref).abs().max())
+    err_e64 = float((Ke32 - sim.Ke.float()).abs().max())
+    del e_ref
+    log(f"E element_stiffness: max abs err {err_e:.3e} against plain, "
+        f"{err_e64:.3e} against the f64 Ke, max|Ke| {ke_max:.3e}")
+    if not (err_e <= 1e-5 * ke_max and err_e64 <= 1e-5 * ke_max):
+        raise RuntimeError("element_stiffness disagrees with its plain "
+                           "version or the f64 Ke")
+    del Ke32
+
     # -- 4. the main path: dense routed solve at full width ----------------
     u, res, wall, counts_dense = drive_solve(
         sim, "dense routed solve", ("gather_planes", "segment_sum_csr"))
@@ -330,9 +536,88 @@ def main() -> int:
         f"von Mises {vm_rel:.3e} of max")
     if not (rel_small <= 1e-8 and vm_rel <= 1e-8):
         raise RuntimeError("small-input solve disagrees with the CPU path")
+
+    # -- 6. the assembly path (kernel E) -----------------------------------
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    Ke32 = kernels.element_stiffness(gl32, vol32, M32)
+    rk32 = RoutedEBE.build(Ke32, sim.mesh.elem_nodes, N, 3,
+                           coords=sim.mesh.node_positions, device=dev)
+    y32 = rk32.apply_planes(inputs[0])
+    torch.cuda.synchronize()
+    wall_asm = time.time() - t0
+    counts_asm = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    rel_asm = float((y32 - yd).abs().max() / yd.abs().max())
+    log(f"assembly path: f32 Ke from kernel E -> RoutedEBE.build -> apply in "
+        f"{wall_asm:.3f} s; apply vs the operator built from the f64 Ke: "
+        f"{rel_asm:.3e} of max|y|; launches {counts_asm}")
+    if counts_asm["element_stiffness"] == 0:
+        raise RuntimeError("assembly path: element_stiffness not launched")
+    if not rel_asm <= 5e-6:
+        raise RuntimeError(f"assembly path disagrees: {rel_asm}")
+    summary.update(assembly_path_s=wall_asm, assembly_vs_f64_apply=rel_asm)
+    del Ke32, rk32, y32, yd, yf, small, small_cpu
+    sim._routed = None
+
+    # -- 7. the homogenization path at full width --------------------------
+    t0 = time.time()
+    cell = FEMMesh(*void_cell(BENCH_N), degree=2)
+    t_cell = time.time() - t0
+    mat = Material.isotropic(3, 200.0, 0.3)
+    D = mat.D.to(dev)
+    t0 = time.time()
+    hsim = hom.periodic_simulator(cell, mat)
+    torch.cuda.synchronize()
+    phi = 1.0 - float(hsim.geom.volume.sum())
+    Eh, Nh = cell.num_elements, hsim.num_dofs
+    log(f"periodic cell with a void: {Eh} tets, {cell.num_nodes} nodes, "
+        f"{Nh} periodic nodes, {3 * Nh} dofs, void share {phi:.4f}; host "
+        f"mesh {t_cell:.2f} s, reference simulator {time.time() - t0:.2f} s")
+    homog = {}
+    variants = (
+        ("dense", {}, ("gather_planes", "segment_sum_csr")),
+        ("factored", {"MESHFEM_FACTORED": "1"},
+         ("gather_planes", "segment_sum_csr", "qp_contract")),
+        ("factored_tq", {"MESHFEM_FACTORED": "1", "MESHFEM_FACTORED_TQ": "1"},
+         ("gather_planes", "segment_sum_csr", "factored_contract")))
+    Chs = {}
+    block_inputs = [torch.randn((Nh, 3, 6), generator=gen, device=dev)
+                    for _ in range(7)]
+    for name, env, required in variants:
+        label = f"homogenization ({name})"
+        hres, info = drive_homogenize(cell, mat, label, env, required)
+        gate = 1e-8 if info["stagnated"] else 1e-10
+        info["relres"], info["column_relres"] = check_homogenized(
+            hsim, hres, label, D, phi, gate)
+        Chs[name] = hres.Ch
+        del hres
+        # the block apply alone, timed with events on varied inputs
+        os.environ.update(env)
+        hsim._routed = None
+        hrk = hsim.routed_kernel(block_rhs=6)
+        info["block_apply_ms"] = median_apply_ms(hrk.apply_block,
+                                                 block_inputs)
+        for k in env:
+            os.environ.pop(k, None)
+        log(f"{label}: block apply (6 columns, 18 planes) "
+            f"{info['block_apply_ms']:.4f} ms (median of "
+            f"{len(block_inputs)} inputs)")
+        homog[name] = info
+    ch_scale = float(Chs["dense"].abs().max())
+    for name in ("factored", "factored_tq"):
+        dch = float((Chs[name] - Chs["dense"]).abs().max()) / ch_scale
+        log(f"Ch ({name}) vs Ch (dense): {dch:.3e} of max|Ch|")
+        homog[name]["Ch_vs_dense"] = dch
+        if not dch <= 1e-7:
+            raise RuntimeError(f"Ch of the {name} run differs: {dch}")
+    summary["homogenization"] = dict(
+        tets=Eh, dofs=3 * Nh, void_share=phi,
+        Ch=Chs["dense"].cpu().tolist(), runs=homog)
+    dw_small, dC_small = small_cell_check(dev)
+    summary.update(small_cell_w=dw_small, small_cell_Ch=dC_small)
     summary["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    # -- 6. kernels timed beside bound, plain version and library call -----
+    # -- 8. kernels timed beside bound, plain version and library call -----
     timer = Timer(dev)
     report = []
 
@@ -416,6 +701,132 @@ def main() -> int:
           (12 + 1 + 30 + 30) * E * 4, flops, max_rel_err=rel_c,
           library_call="torch.bmm with the dense f32 Ke",
           shape=f"g [12, {E}], vol [{E}], ue [3, 10, {E}] f32")
+
+    # D at the homogenization cell's shapes (the path that runs it)
+    hg, hvol = hrk.g, hrk.vol
+    ue_h = torch.randn((3, 10, Eh), generator=gen, device=dev)
+    dh = kernels.factored_contract(hg, hvol, ue_h, lam, mu)
+    dh_ref = kernels.factored_contract_plain(hg, hvol, ue_h, lam, mu)
+    err_dh = float((dh - dh_ref).abs().max())
+    rel_dh = err_dh / float(dh_ref.abs().max())
+    if not rel_dh <= 1e-5:
+        raise RuntimeError(f"factored_contract disagrees with plain at the "
+                           f"cell's shapes: {rel_dh}")
+    del dh, dh_ref
+    hsim._routed = None
+    hKeP = hsim.routed_kernel(block_rhs=6).KeP
+    ue_h_dense = ue_h.reshape(30, Eh).t().contiguous().unsqueeze(-1)
+    K1, nn = 4, 10
+    fma_d = (K1 * nn * 3 + 2 * (K1 * nn) ** 2 + 3 * K1 * K1 * nn * nn
+             + K1 * K1 * 3 + 3 * nn * (K1 * K1 + 3 * K1))
+    entry("factored_contract", "meshfem_tpu_torch/csrc/factored_contract.cu",
+          "meshfem_tpu/sparse/contract.py:91",
+          homog["factored_tq"]["launches"]["factored_contract"], err_dh,
+          lambda: kernels.factored_contract(hg, hvol, ue_h, lam, mu),
+          lambda: kernels.factored_contract_plain(hg, hvol, ue_h, lam, mu),
+          lambda: torch.bmm(hKeP, ue_h_dense),
+          (12 + 1 + 30 + 30) * Eh * 4, 2 * fma_d * Eh, max_rel_err=rel_dh,
+          vs_kernel_c=rel_dc, max_rel_err_bench_mesh=rel_d,
+          qp_contract_same_inputs_ms=timer(
+              lambda: kernels.qp_contract(hg, hvol, ue_h, lam, mu)),
+          library_call="torch.bmm with the dense f32 Ke",
+          shape=f"g [12, {Eh}], vol [{Eh}], ue [3, 10, {Eh}] f32")
+    ue_h_block = torch.randn((Eh, 30, 6), generator=gen, device=dev)
+    U64 = block_inputs[0].double()
+    summary["homogenization"].update(
+        dense_block_bmm_ms=timer(lambda: torch.bmm(hKeP, ue_h_block)),
+        dense_block_bmm_bound_ms=(hKeP.numel() + 2 * ue_h_block.numel()) * 4
+        / HBM_BYTES_PER_S * 1e3,
+        ebe64_block_apply_ms=median_apply_ms(
+            hsim.apply_K, [U64 * (1 + i) for i in range(5)]))
+    del hKeP, ue_h_dense, ue_h_block, U64
+    hsim._routed = None
+
+    gg32 = torch.einsum("eka,elb->ekalb", gl32, gl32).reshape(E, 144) \
+        * vol32[:, None]
+    entry("element_stiffness", "meshfem_tpu_torch/csrc/element_stiffness.cu",
+          "meshfem_tpu/kernels/element_stiffness.py:42",
+          counts_asm["element_stiffness"], err_e,
+          lambda: kernels.element_stiffness(gl32, vol32, M32),
+          lambda: kernels.element_stiffness_plain(gl32, vol32, M32),
+          lambda: em.element_elasticity_fused_apply(gl32, vol32, M32, 10),
+          (12 + 1 + 900) * E * 4 + M32.numel() * 4,
+          2 * 144 * 900 * E + 2 * 144 * E, max_abs_err_vs_f64=err_e64,
+          max_abs_Ke=ke_max,
+          matmul_only_ms=timer(lambda: torch.matmul(gg32, M32)),
+          library_call="ops.element_matrices.element_elasticity_fused_apply "
+                       "(einsum + torch.matmul, TF32 off)",
+          shape=f"grad_lambda [{E}, 4, 3], vol [{E}], M [144, 900] f32")
+    del gg32
+
+    # A and B at the 18 planes of the block apply (the cell's operator)
+    hids, Sh = hrk.ids, hrk.ids.shape[0]
+    hids_long = hids.long()
+    src18 = torch.randn((18, Nh), generator=gen, device=dev)
+    g18 = kernels.gather_planes(src18, hids)
+    if not torch.equal(g18, kernels.gather_planes_plain(src18, hids)):
+        raise RuntimeError("gather_planes (planes 18) != plain")
+    report[0].update(
+        planes18_ms=timer(lambda: kernels.gather_planes(src18, hids)),
+        planes18_plain_ms=timer(
+            lambda: kernels.gather_planes_plain(src18, hids), reps=5),
+        planes18_bound_ms=(Sh * 4 + 18 * Nh * 4 + 18 * Sh * 4)
+        / HBM_BYTES_PER_S * 1e3,
+        planes18_library_ms=timer(
+            lambda: torch.index_select(src18, 1, hids_long)),
+        planes18_shape=f"src [18, {Nh}] f32, ids [{Sh}] int32",
+        launches_homogenization={k: v["launches"]["gather_planes"]
+                                 for k, v in homog.items()})
+    hperm, hoffs = hrk.plan.perm, hrk.plan.offsets
+    s18 = kernels.segment_sum_csr(g18, hperm, hoffs)
+    s18_ref = kernels.segment_sum_csr_plain(g18, hperm, hoffs)
+    err_b18 = float((s18 - s18_ref).abs().max())
+    if not err_b18 <= 1e-5 * float(s18_ref.abs().max()):
+        raise RuntimeError(f"segment_sum_csr (planes 18) disagrees: "
+                           f"{err_b18}")
+    hplan64 = hsim._kernel.plan
+    d18 = torch.randn((18, hplan64.num_rows), generator=gen, device=dev,
+                      dtype=torch.float64)
+    r18 = kernels.segment_sum_csr(d18, hplan64.perm, hplan64.offsets)
+    r18_ref = kernels.segment_sum_csr_plain(d18, hplan64.perm,
+                                            hplan64.offsets)
+    err_b18_64 = float((r18 - r18_ref).abs().max())
+    if not err_b18_64 <= 1e-12 * float(r18_ref.abs().max()):
+        raise RuntimeError(f"segment_sum_csr f64 (planes 18) disagrees: "
+                           f"{err_b18_64}")
+    del s18, s18_ref, r18, r18_ref
+    acc18 = torch.zeros((18, Nh), device=dev)
+    acc18_64 = torch.zeros((18, Nh), device=dev, dtype=torch.float64)
+    hdst64 = hsim._kernel.elem_dofs.reshape(-1)
+    report[1].update(
+        planes18_ms=timer(lambda: kernels.segment_sum_csr(g18, hperm,
+                                                          hoffs)),
+        planes18_plain_ms=timer(lambda: kernels.segment_sum_csr_plain(
+            g18, hperm, hoffs), reps=5),
+        planes18_bound_ms=(18 * Sh * 4 + Sh * 4 + (Nh + 1) * 4
+                           + 18 * Nh * 4) / HBM_BYTES_PER_S * 1e3,
+        planes18_library_ms=timer(
+            lambda: acc18.index_add_(1, hids_long, g18)),
+        planes18_max_abs_err=err_b18,
+        planes18_f64_ms=timer(lambda: kernels.segment_sum_csr(
+            d18, hplan64.perm, hplan64.offsets)),
+        planes18_f64_plain_ms=timer(lambda: kernels.segment_sum_csr_plain(
+            d18, hplan64.perm, hplan64.offsets), reps=5),
+        planes18_f64_bound_ms=(18 * Sh * 8 + Sh * 4 + (Nh + 1) * 4
+                               + 18 * Nh * 8) / HBM_BYTES_PER_S * 1e3,
+        planes18_f64_library_ms=timer(
+            lambda: acc18_64.index_add_(1, hdst64, d18)),
+        planes18_f64_max_abs_err=err_b18_64,
+        planes18_shape=f"src [18, {Sh}] -> [18, {Nh}]",
+        launches_homogenization={k: v["launches"]["segment_sum_csr"]
+                                 for k, v in homog.items()})
+    for r in report[:2]:
+        log(f"{r['name']} at 18 planes: {r['planes18_ms']:.4f} ms (bound "
+            f"{r['planes18_bound_ms']:.4f} ms), plain "
+            f"{r['planes18_plain_ms']:.4f} ms, library "
+            f"{r['planes18_library_ms']:.4f} ms")
+    report[2]["launches_homogenization"] = \
+        homog["factored"]["launches"]["qp_contract"]
 
     ue_slots = ue.reshape(3, 10 * E)
     summary.update(

@@ -1,10 +1,13 @@
 """meshfem_tpu_torch — the PyTorch/CUDA port of meshfem_tpu for NVIDIA Hopper.
 
-This slice carries the routed P2 elasticity solve: mesh and P2 nodes,
-element geometry, element stiffness, the f64 EBE operator, the f32 routed
-operator on three hand-written CUDA kernels (``kernels/``: gather,
-segment-sum, quadrature-point contraction), Jacobi-preconditioned CG under
-f64 iterative refinement, and the strain/stress/von Mises fields.  The JAX
+It carries the routed P2 elasticity solve and periodic homogenization:
+mesh and P2 nodes, element geometry, periodic node matching, element
+stiffness (constant or per-element materials), the f64 EBE operator, the
+f32 routed operator with its multi-RHS block apply on hand-written CUDA
+kernels (``kernels/``: gather, segment-sum, the quadrature-point and the
+gradgrad-table contractions, f32 stiffness assembly), Jacobi / block-Jacobi
+/ Chebyshev preconditioned CG and block CG under f64 iterative refinement,
+the strain/stress/von Mises fields, and ``analysis.homogenization``.  The JAX
 package ``meshfem_tpu`` is the reference; this package imports nothing of
 it and nothing of JAX.
 """

@@ -1,9 +1,10 @@
-"""Constant isotropic elasticity tensors in flattened (Voigt) form.
+"""Isotropic elasticity tensors in flattened (Voigt) form, constant or
+per element.
 
 Counterpart of ``meshfem_tpu/fem/elasticity_tensor.py`` for what this slice
 uses: ``isotropic_lame``, ``isotropic``, ``lame_parameters``, ``to_full`` and
-``double_contract``.  A tensor is a ``[fl, fl]`` float64 torch tensor ``D``
-of raw components; contracting with a flattened strain inserts the shear
+``double_contract``.  A tensor is a ``[fl, fl]`` (or, per element,
+``[E, fl, fl]``) float64 torch tensor ``D`` of raw components; contracting with a flattened strain inserts the shear
 doubler: ``stress = D @ (S * strain)`` (``ElasticityTensor.hh:460-466``).
 """
 
@@ -19,22 +20,28 @@ def _dim_of(D) -> int:
     return {1: 1, 3: 2, 6: 3}[D.shape[-1]]
 
 
-def isotropic_lame(dim: int, lam: float, mu: float,
-                   dtype=torch.float64) -> torch.Tensor:
-    """D for ``lambda tr(e) I + 2 mu e`` (``setIsotropicLame``)."""
+def isotropic_lame(dim: int, lam, mu, dtype=torch.float64) -> torch.Tensor:
+    """D for ``lambda tr(e) I + 2 mu e`` (``setIsotropicLame``); ``lam`` and
+    ``mu`` are floats or broadcastable arrays (a batch of tensors)."""
     fl = flat_len(dim)
-    D = torch.zeros((fl, fl), dtype=dtype)
-    D[:dim, :dim] = lam
+    lam = torch.as_tensor(lam, dtype=dtype)
+    mu = torch.as_tensor(mu, dtype=dtype)
+    lam, mu = torch.broadcast_tensors(lam, mu)
+    D = torch.zeros(lam.shape + (fl, fl), dtype=dtype, device=lam.device)
+    D[..., :dim, :dim] = lam[..., None, None]
     for i in range(dim):
-        D[i, i] += 2.0 * mu
+        D[..., i, i] += 2.0 * mu
     for s in range(dim, fl):
-        D[s, s] = mu
+        D[..., s, s] = mu
     return D
 
 
-def isotropic(dim: int, E: float, nu: float, dtype=torch.float64):
-    """D from Young's modulus and Poisson ratio; 2D uses the plane-stress
-    lambda (``setIsotropic``, ``ElasticityTensor.hh:100-118``)."""
+def isotropic(dim: int, E, nu, dtype=torch.float64):
+    """D from Young's modulus and Poisson ratio (floats or per-element
+    arrays); 2D uses the plane-stress lambda (``setIsotropic``,
+    ``ElasticityTensor.hh:100-118``)."""
+    E = torch.as_tensor(E, dtype=dtype)
+    nu = torch.as_tensor(nu, dtype=dtype)
     mu = E / (2.0 + 2.0 * nu)
     if dim == 2:
         lam = (nu * E) / (1.0 - nu * nu)
@@ -64,12 +71,13 @@ def lame_parameters(D, rtol: float = 1e-9):
 
 def to_full(D):
     """[..., fl, fl] -> [..., d, d, d, d] full rank-4 components."""
-    f2f = torch.as_tensor(full_to_flat_map(_dim_of(D)))
+    f2f = torch.as_tensor(full_to_flat_map(_dim_of(D)), device=D.device)
     return D[..., f2f[:, :, None, None], f2f[None, None, :, :]]
 
 
 def double_contract(D, strain_flat):
-    """stress = C : strain for flattened raw-component symmetric strains."""
+    """stress = C : strain for flattened raw-component symmetric strains;
+    ``D`` and the strain broadcast over leading (element) axes."""
     S = torch.as_tensor(shear_doubler(_dim_of(D)), dtype=D.dtype,
                         device=D.device)
     return torch.einsum("...ab,...b->...a", D, S * strain_flat)

@@ -4,12 +4,14 @@ Counterpart of ``meshfem_tpu/fem/shape_functions.py``: the degree-``deg``
 basis on the barycentric lattice ``alpha / deg`` comes from inverting the
 Vandermonde matrix of homogeneous barycentric monomials.  Node order is
 GMSH-consistent: vertices, then edge nodes in edge order.  This slice needs
-P1/P2 bases and their barycentric gradients (``grad_shape_np`` :137).
+P1/P2 bases, their barycentric gradients (``grad_shape_np`` :137) and
+their exact integrals (``integrated_shape_np`` :176).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 
@@ -100,3 +102,14 @@ def grad_shape_np(K: int, deg: int, lambdas) -> np.ndarray:
             dmono[..., m] = term
         grads[..., v] = dmono @ coeffs
     return grads
+
+
+@functools.lru_cache(maxsize=None)
+def integrated_shape_np(K: int, deg: int) -> np.ndarray:
+    """Exact integrals of each shape function over a unit-volume simplex:
+    int prod lambda_i^{a_i} dV = K! prod(a_i!) / (|a| + K)!."""
+    exps, coeffs = _lagrange_tables(K, deg)
+    factors = np.array([
+        math.factorial(K) * np.prod([math.factorial(int(a)) for a in e])
+        / math.factorial(int(e.sum()) + K) for e in exps])
+    return factors @ coeffs

@@ -14,22 +14,25 @@ import torch
 from . import config
 from .mesh.femmesh import FEMMesh
 from .physics.elasticity import ElasticitySimulator
-from .physics.materials import Material
+from .physics.materials import Material, MaterialField
 from .sparse.routed_ebe import RoutedEBE
 
 
 def simulator_from_arrays(arrays: dict, device=None) -> ElasticitySimulator:
-    """ElasticitySimulator from ``V``, ``T``, ``degree``, ``D`` and
-    optionally ``dirichlet_mask``, ``dirichlet_values``, ``neumann_load``
-    and ``Ke`` (shares the exact element stiffness instead of
-    re-assembling it)."""
+    """ElasticitySimulator from ``V``, ``T``, ``degree``, ``D`` (constant
+    [fl, fl] or per element [E, fl, fl]) and optionally ``dof_map`` (a
+    periodic node -> dof map), ``dirichlet_mask``, ``dirichlet_values``,
+    ``neumann_load`` and ``Ke`` (shares the exact element stiffness instead
+    of re-assembling it)."""
     mesh = FEMMesh(arrays["V"], arrays["T"], degree=int(arrays["degree"]))
     D = torch.tensor(np.asarray(arrays["D"]), dtype=config.REAL)
     Ke = arrays.get("Ke")
     if Ke is not None:
         Ke = torch.tensor(np.asarray(Ke), dtype=config.REAL)
-    sim = ElasticitySimulator(mesh, Material(mesh.dim, D), device=device,
-                              Ke=Ke)
+    material = Material(mesh.dim, D) if D.ndim == 2 \
+        else MaterialField(mesh.dim, D)
+    sim = ElasticitySimulator(mesh, material, device=device, Ke=Ke,
+                              dof_map=arrays.get("dof_map"))
     if "dirichlet_mask" in arrays:
         sim.dirichlet_mask[:] = np.asarray(arrays["dirichlet_mask"], bool)
     if "dirichlet_values" in arrays:
@@ -44,7 +47,8 @@ def simulator_from_arrays(arrays: dict, device=None) -> ElasticitySimulator:
 def routed_from_arrays(arrays: dict, device=None) -> RoutedEBE:
     """RoutedEBE from ``elem_dofs``, ``num_dofs``, ``vector_dim`` and
     optionally ``coords``, plus either ``Ke`` (dense backend) or
-    ``grad_lambda``, ``volume``, ``lam``, ``mu``, ``deg`` (factored)."""
+    ``grad_lambda``, ``volume``, ``lam``, ``mu``, ``deg`` (factored), and
+    ``block_rhs`` (the right-hand-side count recorded for ``apply_block``)."""
     dev = config.resolve_device(device)
     factor = None
     if "grad_lambda" in arrays:
@@ -60,4 +64,4 @@ def routed_from_arrays(arrays: dict, device=None) -> RoutedEBE:
                            int(arrays["num_dofs"]),
                            int(arrays["vector_dim"]),
                            coords=arrays.get("coords"), factor=factor,
-                           device=dev)
+                           device=dev, block_rhs=arrays.get("block_rhs"))

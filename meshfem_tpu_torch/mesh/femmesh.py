@@ -29,6 +29,8 @@ class ElementGeometry:
 
     grad_lambda: torch.Tensor   # [E, K+1, dim] barycentric gradients
     volume: torch.Tensor        # [E] signed volumes
+    bdry_normal: torch.Tensor   # [B, dim] outward unit normals
+    bdry_volume: torch.Tensor   # [B] boundary element measures
 
 
 class FEMMesh:
@@ -106,6 +108,13 @@ class FEMMesh:
     def num_elements(self) -> int:
         return len(self.F)
 
+    @property
+    def num_boundary_elements(self) -> int:
+        return len(self.bdry_elems)
+
+    def bbox(self) -> geom.BBox:
+        return geom.BBox.of(self.V)
+
     def geometry(self, device=None) -> ElementGeometry:
         """Float64 embedding of all elements on ``device`` (the CUDA device
         by default)."""
@@ -114,4 +123,6 @@ class FEMMesh:
                             device=dev)
         corners = X[torch.as_tensor(self.F, device=dev)]   # vertices first
         grad_lambda, volume = geom.simplex_geometry(corners, self.K)
-        return ElementGeometry(grad_lambda, volume)
+        bcorners = X[torch.as_tensor(self.bdry_elems, device=dev)]
+        normal, bvol = geom.boundary_normals(bcorners)
+        return ElementGeometry(grad_lambda, volume, normal, bvol)

@@ -1,5 +1,6 @@
-"""Batched simplex embedding (counterpart of
-``meshfem_tpu/mesh/geometry.py::simplex_geometry`` :52).
+"""Bounding boxes, batched simplex embedding and boundary normals
+(counterparts of ``BBox`` :21, ``simplex_geometry`` :52 and
+``boundary_normals`` :87 in ``meshfem_tpu/mesh/geometry.py``).
 
 One vectorized, autograd-differentiable computation over all elements:
 constant barycentric gradients and signed volumes.  The 2x2 / 3x3 inverses
@@ -10,9 +11,43 @@ rounding.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
+import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class BBox:
+    """Axis-aligned bounding box (numpy, host side)."""
+
+    min: np.ndarray
+    max: np.ndarray
+
+    @classmethod
+    def of(cls, points) -> "BBox":
+        p = np.asarray(points)
+        return cls(p.min(axis=0), p.max(axis=0))
+
+    @property
+    def dimensions(self) -> np.ndarray:
+        return self.max - self.min
+
+    @property
+    def center(self) -> np.ndarray:
+        return 0.5 * (self.min + self.max)
+
+    def volume(self) -> float:
+        return float(np.prod(self.dimensions))
+
+    def union(self, other: "BBox") -> "BBox":
+        return BBox(np.minimum(self.min, other.min),
+                    np.maximum(self.max, other.max))
+
+    def contains(self, points, tol: float = 0.0) -> np.ndarray:
+        p = np.asarray(points)
+        return np.all((p >= self.min - tol) & (p <= self.max + tol), axis=-1)
 
 
 def _det(A):
@@ -61,3 +96,16 @@ def simplex_geometry(X, K: int):
     grads = _inv(J, det).transpose(-1, -2)         # grad lambda_{j>=1}
     grad0 = -grads.sum(dim=-2, keepdim=True)
     return torch.cat([grad0, grads], dim=-2), volume
+
+
+def boundary_normals(Xb):
+    """Outward unit normals and areas of boundary triangles with corner
+    positions ``Xb [..., 3, 3]``, oriented by the stored (outward) winding.
+    Returns (normal [..., 3], measure [...])."""
+    if Xb.shape[-1] != 3:
+        raise ValueError("this port carries boundary triangles in 3D only")
+    e1 = Xb[..., 1, :] - Xb[..., 0, :]
+    e2 = Xb[..., 2, :] - Xb[..., 0, :]
+    c = torch.linalg.cross(e1, e2)
+    nrm = torch.linalg.norm(c, dim=-1)
+    return c / torch.clamp(nrm[..., None], min=1e-300), 0.5 * nrm

@@ -107,12 +107,37 @@ def fused_matrix_for(D, K: int, deg: int) -> np.ndarray:
 def element_elasticity(grad_lambda, volume, D, deg: int):
     """[E, n*dim, n*dim] elasticity stiffness, dofs interleaved
     component-fastest (``dof = node * dim + comp``) like the reference
-    (``element_elasticity`` :262).  Only a constant ``D [fl, fl]`` is
-    ported; per-element material fields are queued in ROADMAP.md."""
-    if D.ndim != 2:
-        raise NotImplementedError("per-element material fields are queued "
-                                  "in ROADMAP.md (MaterialField)")
-    return element_elasticity_fused(grad_lambda, volume, D, deg)
+    (``element_elasticity`` :262).  ``D``: a constant ``[fl, fl]`` (the fused
+    single matmul) or per-element ``[E, fl, fl]`` (the batched einsum)."""
+    if D.ndim == 2:
+        return element_elasticity_fused(grad_lambda, volume, D, deg)
+    K = grad_lambda.shape[-2] - 1
+    dim = grad_lambda.shape[-1]
+    T = torch.as_tensor(gradgrad_table(K, deg), dtype=grad_lambda.dtype,
+                        device=grad_lambda.device)
+    n = T.shape[-1]
+    f2f = torch.as_tensor(full_to_flat_map(dim), device=grad_lambda.device)
+    D = D.to(dtype=grad_lambda.dtype, device=grad_lambda.device)
+    C = D[..., f2f[:, :, None, None], f2f[None, None, :, :]]   # [E,d,d,d,d]
+    H = torch.einsum("eka,elb,ecafb->eklcf", grad_lambda, grad_lambda, C)
+    Ke = torch.einsum("klij,eklcf->eicjf", T, H)
+    Ke = volume[:, None, None, None, None] * Ke
+    return Ke.reshape(-1, n * dim, n * dim)
+
+
+def element_elasticity_fused_apply(grad_lambda, volume, M, n: int):
+    """Fused assembly given the precomputed matrix ``M [((K+1) d)^2,
+    (n d)^2]`` (``fused_matrix_for``), counterpart of
+    ``element_elasticity_fused_apply`` :174: the volume is folded into the
+    small Gram operand and the product is one ``torch.matmul`` (TF32 off).
+    It stays the default assembly; ``kernels.element_stiffness`` is its
+    hand-written float32 drop-in."""
+    E, K1, dim = grad_lambda.shape
+    gdim = K1 * dim
+    gg = torch.einsum("eka,elb->ekalb", grad_lambda,
+                      grad_lambda).reshape(E, gdim * gdim)
+    Ke = torch.matmul(gg * volume[:, None], M)
+    return Ke.reshape(E, n * dim, n * dim)
 
 
 def element_elasticity_fused(grad_lambda, volume, D, deg: int):

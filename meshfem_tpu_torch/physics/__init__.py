@@ -1,2 +1,2 @@
-from .materials import Material  # noqa: F401
+from .materials import Material, MaterialField  # noqa: F401
 from .elasticity import ElasticitySimulator, von_mises  # noqa: F401

@@ -2,7 +2,8 @@
 
 Counterpart of ``meshfem_tpu/solvers/cg.py``: ``cg`` (:43) with its
 breakdown guard, stall and divergence detection and best-iterate return,
-``cg_operator`` (:224, the Jacobi Dirichlet solve) and ``mask_projector``.
+``cg_operator`` (:224, the Jacobi Dirichlet solve), ``mask_projector`` and
+``cg_block`` (:309, all right-hand sides of a block at once).
 The ``while_loop`` becomes a Python loop whose scalars stay on the device;
 the loop reads ONE flag back per iteration (its continue condition), so
 the host waits on the device once per iteration and no more.  Vectors are
@@ -90,10 +91,14 @@ def cg(A: Callable, b, *, M_inv: Callable | None = None,
 
 
 def mask_projector(free_mask):
-    """Projector zeroing fixed dofs (``free_mask`` broadcasts against the
-    vector)."""
+    """Projector zeroing fixed dofs.  ``free_mask`` broadcasts against the
+    vector from the LEADING axes (trailing multi-RHS axes are appended), so
+    one mask serves [Nd, d] and block [Nd, d, m] vectors alike."""
     def project(v):
-        return v * free_mask.to(v.dtype)
+        m = free_mask.to(v.dtype)
+        if v.dim() > m.dim():
+            m = m.reshape(m.shape + (1,) * (v.dim() - m.dim()))
+        return v * m
 
     return project
 
@@ -116,3 +121,66 @@ def cg_operator(op, b, diag, free_mask, fixed_values=None, *,
     res = cg(op, rhs, M_inv=M_inv, project=project, tol=tol, maxiter=maxiter)
     x = res.x if u_d is None else res.x + u_d
     return CGResult(x, res.iters, res.resnorm)
+
+
+BLOCK_CHUNK = 1024       # iterations between cg_block's stagnation checks
+
+
+def cg_block(A: Callable, B, *, M_inv: Callable | None = None,
+             project: Callable | None = None, tol: float = 1e-10,
+             maxiter: int = 10000) -> CGResult:
+    """Block PCG (``cg_block`` :309): solve A X = B for ALL columns of
+    ``B [..., m]`` at once with per-column step sizes (independent Krylov
+    spaces, one shared operator apply).  Converged columns freeze (their
+    alpha and beta are zeroed); a column whose curvature is non-positive or
+    non-finite freezes too.  Every ``BLOCK_CHUNK`` iterations the loop stops
+    if no column's residual improved since the last check (columns stuck at
+    their roundoff floor).  ``resnorm`` is the per-column residual norms
+    [m] (a tensor); the loop reads ONE flag back per iteration."""
+    if project is None:
+        project = lambda v: v
+    if M_inv is None:
+        M_inv = lambda v: v
+    axes = tuple(range(B.dim() - 1))
+
+    def cdot(a, b):
+        return torch.sum(a * b, dim=axes)             # [m]
+
+    B = project(B)
+    x = torch.zeros_like(B)
+    r = B.clone()
+    z = project(M_inv(r))
+    gamma = cdot(r, z)
+    stop2 = tol * tol * cdot(B, B)
+    p = z.clone()
+    rr = cdot(r, r)
+    one = torch.ones_like(gamma)
+
+    def live_any(rr):
+        return bool(((rr > stop2) & torch.isfinite(rr)).any())
+
+    k = 0
+    prev_rr = None
+    while True:
+        limit = min(k + BLOCK_CHUNK, maxiter)
+        while k < limit and live_any(rr):
+            Ap = project(A(p))
+            den = cdot(p, Ap)
+            good = torch.isfinite(den) & (den > 0)
+            live = ((rr > stop2) & good).to(x.dtype)
+            alpha = live * gamma / torch.where(den > 0, den, one)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = project(M_inv(r))
+            gamma_new = cdot(r, z)
+            beta = live * gamma_new / torch.where(gamma != 0, gamma, one)
+            p = z + beta * p
+            gamma = torch.where(live > 0, gamma_new, gamma)
+            rr = cdot(r, r)
+            k += 1
+        if k >= maxiter or not live_any(rr):
+            break
+        if prev_rr is not None and bool((rr >= 0.999 * prev_rr).all()):
+            break
+        prev_rr = rr
+    return CGResult(x, k, torch.sqrt(rr))

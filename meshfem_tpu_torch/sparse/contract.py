@@ -1,5 +1,5 @@
-"""Quadrature tables of the quadrature-point isotropic element contraction
-(the factored routed backend).
+"""Constant tables of the two factored isotropic element contractions (the
+factored routed backends).
 
 Counterpart of ``meshfem_tpu/sparse/contract.py::qp_tables`` (:216).  For a
 constant isotropic material on affine simplices ``f = vol Ke u`` follows
@@ -7,8 +7,9 @@ from grad_lambda and the volume alone, as strain -> stress -> force at the
 points of the degree-2(deg-1) rule, one pass being exact (asserted against
 the gradgrad table).  The contraction itself (the reference's
 ``qp_contract`` :309) is kernel C, ``kernels.qp_contract``, which builds its
-tables here.  The TQ-table form (``_factored_kernel``) is not ported
-(ROADMAP).
+tables here.  The TQ-table form (``_factored_kernel`` :91, the reference's
+``factored_contract`` :326) is kernel D, ``kernels.factored_contract``; its
+table comes from ``factored_tables``.
 """
 
 from __future__ import annotations
@@ -34,3 +35,12 @@ def qp_tables(K: int, deg: int):
         raise AssertionError("quadrature rule not exact for the gradgrad "
                              "table")
     return dN, W
+
+
+@functools.lru_cache(maxsize=None)
+def factored_tables(K: int, deg: int) -> np.ndarray:
+    """The gradgrad table ``T[k, l, i, j]`` in float32, [K+1, K+1, n, n]
+    (counterpart of ``factored_tables`` :66).  The reference pads and
+    re-blocks it three times (TM1, TM2, TQ) for the TPU's matrix unit; the
+    Hopper kernel indexes the one unpadded table."""
+    return np.ascontiguousarray(gradgrad_table(K, deg), dtype=np.float32)

@@ -1,12 +1,13 @@
 """Element-by-element operator ``A u = scatter(Ke @ gather(u))``.
 
-Counterpart of ``meshfem_tpu/sparse/ebe.py::EBEKernel`` (:30-118) for
-single-vector applies and the diagonal.  In the port it is the float64
+Counterpart of ``meshfem_tpu/sparse/ebe.py::EBEKernel`` (:30-118): single-
+vector and multi-RHS applies and the diagonal.  In the port it is the float64
 residual operator of iterative refinement: the gather is a plain index, the
 per-element product a batched matmul (XLA einsum / multiply-reduce in the
 reference), and the scatter runs on kernel B in float64 (``ScatterPlan``),
-deterministic where ``index_add_`` on CUDA would use float atomics.
-The multi-RHS apply is not ported yet (ROADMAP).
+deterministic where ``index_add_`` on CUDA would use float atomics.  A
+block ``u [N, d, m]`` is one batched matmul and one segment sum over
+``d * m`` planes.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ class EBEKernel:
     """Symmetric EBE operator for scalar (d = 1) or vector dofs.
 
     Ke: [E, n*d, n*d] (dof ``node * d + comp``); elem_dofs: [E, n] long;
-    applies to u of shape [N] (d = 1) or [N, d]."""
+    applies to u of shape [N] (d = 1) or [N, d], or to a block of m
+    right-hand sides [N, m] (d = 1) / [N, d, m]."""
 
     Ke: torch.Tensor
     elem_dofs: torch.Tensor
@@ -44,13 +46,16 @@ class EBEKernel:
         E, nd, _ = self.Ke.shape
         n = self.elem_dofs.shape[1]
         d = self.vector_dim
-        if u.shape != ((self.num_dofs,) if d == 1 else (self.num_dofs, d)):
-            raise ValueError(f"EBEKernel: u must be [N] or [N, d], got "
-                             f"{tuple(u.shape)} (multi-RHS is not ported)")
-        ue = u[self.elem_dofs].reshape(E, nd, 1)
+        single = (self.num_dofs,) if d == 1 else (self.num_dofs, d)
+        if tuple(u.shape[:len(single)]) != single \
+                or u.dim() > len(single) + 1:
+            raise ValueError(f"EBEKernel: u must be {single} or "
+                             f"{single + ('m',)}, got {tuple(u.shape)}")
+        m = u.shape[-1] if u.dim() > len(single) else 1
+        ue = u[self.elem_dofs].reshape(E, nd, m)
         fe = torch.bmm(self.Ke, ue)
-        return self.plan(fe.reshape(E * n) if d == 1
-                         else fe.reshape(E * n, d))
+        y = self.plan(fe.reshape(E * n, d * m))
+        return y.reshape(u.shape)
 
     def diagonal(self) -> torch.Tensor:
         E, nd, _ = self.Ke.shape

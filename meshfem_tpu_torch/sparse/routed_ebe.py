@@ -9,7 +9,9 @@ Counterpart of ``meshfem_tpu/sparse/routed_ebe.py::RoutedEBE``.  An apply
 2. the element contraction: ``torch.bmm`` against the dense float32 ``Ke``
    (an XLA einsum in the reference, ``routed_ebe.py:690``), or kernel C
    (``qp_contract``) for the factored isotropic backend, which reads
-   grad_lambda and the volume instead of Ke;
+   grad_lambda and the volume instead of Ke, or kernel D
+   (``factored_contract``, the gradgrad-table form of the same product)
+   when ``MESHFEM_FACTORED_TQ=1``, read as the reference reads it (:720);
 3. kernel B (``segment_sum_csr``): slots -> nodes in a fixed order.
 
 The reference's chain buckets, windows, superblocks, 128-lane padding and
@@ -22,24 +24,28 @@ coalesced.
 The internal reordering is the reference's exactly (``routed_ebe.py:449-470``):
 elements along ``rcb_order`` of their centroids, nodes by first touch, so
 ``order`` and ``rank`` equal the reference's integer for integer.
-``block_rhs``/``apply_block`` are not ported yet (ROADMAP).
+
+``apply_block`` (reference :787-850) sends all m columns and d components
+of a block through ONE gather and ONE segment sum as ``d * m`` planes,
+plane ``p = c * m + j``.  Kernel A's one index stream already serves any
+number of planes, so no second plan set is built; ``block_rhs`` is only
+recorded (``bm``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from .. import config
-from ..kernels import gather_planes, qp_contract
+from ..kernels import factored_contract, gather_planes, qp_contract
 from ..mesh.reorder import rcb_order
 from ..ops.element_matrices import gradgrad_table
 from .scatter import ScatterPlan, _INT32_MAX
 
-_NO_BLOCK = ("multi-RHS apply_block/block_rhs are queued in ROADMAP.md "
-             "(Queue 1, item 8)")
 
 def _device_of(Ke, factor, device):
     if device is not None:
@@ -60,7 +66,8 @@ class RoutedEBE:
       component-major (``c * n + a``), matching the plane layout;
     * factored isotropic (``g``/``vol``/``lam``/``mu`` set, ``KeP`` None):
       ``vol Ke u`` from grad_lambda ``g [(K+1) d, E]`` and ``vol [E]``
-      through kernel C — 13 floats per element at P2/3D instead of 900.
+      through kernel C (or D) — 13 floats per element at P2/3D instead
+      of 900.
     """
 
     ids: torch.Tensor                # [n*E] int32 slot -> internal node
@@ -77,6 +84,7 @@ class RoutedEBE:
     lam: float = 0.0
     mu: float = 0.0
     deg: int = 2
+    bm: int = 0                      # RHS count asked for at build
 
     @classmethod
     def build(cls, Ke, elem_dofs, num_dofs: int, vector_dim: int = 1,
@@ -92,9 +100,8 @@ class RoutedEBE:
         works in the INTERNAL ordering and callers convert once each way
         with :meth:`permute_in` / :meth:`permute_out`.  The device defaults
         to that of the tensors given, else the CUDA device.  ``block_rhs``
-        (multi-RHS block plans) is not ported yet and raises."""
-        if block_rhs:
-            raise NotImplementedError(_NO_BLOCK)
+        is recorded as ``bm``: :meth:`apply_block` needs no plans of its
+        own."""
         dev = _device_of(Ke, factor, device)
         elem_dofs = np.asarray(elem_dofs, dtype=np.int64)
         E, n = elem_dofs.shape
@@ -122,7 +129,8 @@ class RoutedEBE:
         ids = torch.as_tensor(slot_node.astype(np.int32), device=dev)
         plan = ScatterPlan.build(slot_node, N, dev)
         op = cls(ids=ids, plan=plan, order=order, rank=rank, num_dofs=N,
-                 vector_dim=d, num_elements=E, nodes_per_elem=n)
+                 vector_dim=d, num_elements=E, nodes_per_elem=n,
+                 bm=int(block_rhs or 0))
         ep = None if eperm is None else torch.as_tensor(eperm, device=dev)
         if factor is not None:
             gl, volume, lam, mu, deg = factor
@@ -161,8 +169,11 @@ class RoutedEBE:
         if self.KeP is not None:
             fe = torch.bmm(self.KeP, ue.reshape(d * n, E).t().unsqueeze(-1))
             return fe.reshape(E, d * n).t().contiguous().reshape(d, n * E)
-        return qp_contract(self.g, self.vol, ue.reshape(d, n, E), self.lam,
-                           self.mu).reshape(d, n * E)
+        kernel = (factored_contract
+                  if os.environ.get("MESHFEM_FACTORED_TQ") == "1"
+                  else qp_contract)
+        return kernel(self.g, self.vol, ue.reshape(d, n, E).contiguous(),
+                      self.lam, self.mu).reshape(d, n * E)
 
     def apply_planes(self, src: torch.Tensor) -> torch.Tensor:
         """Plane-native apply: ``src [d, N] -> A src [d, N]`` (float32)."""
@@ -200,5 +211,26 @@ class RoutedEBE:
         dg = self.diagonal_planes()
         return dg[0] if self.vector_dim == 1 else dg.t()
 
-    def apply_block(self, U):
-        raise NotImplementedError(_NO_BLOCK)
+    def apply_block(self, U: torch.Tensor) -> torch.Tensor:
+        """Multi-RHS apply: ``U [N, d, m] -> A U`` (also ``[N, m]`` when
+        d == 1), float32.  One gather and one segment sum serve all
+        ``d * m`` planes.  Dense backend: ONE ``torch.bmm`` of ``KeP`` with
+        ``[E, d*n, m]``, so the stiffness is read once for all columns (an
+        XLA einsum in the reference, :840).  Factored backend: the
+        contraction kernel per column, as the reference runs it (:844)."""
+        d, n, E = self.vector_dim, self.nodes_per_elem, self.num_elements
+        N = self.num_dofs
+        m = U.shape[-1]
+        src = U.to(config.SOLVE).reshape(N, d, m).permute(1, 2, 0) \
+            .reshape(d * m, N).contiguous()              # plane p = c*m + j
+        ue = gather_planes(src, self.ids).reshape(d, m, n, E)
+        if self.KeP is not None:
+            fem = torch.bmm(self.KeP,
+                            ue.permute(3, 0, 2, 1).reshape(E, d * n, m))
+            fe = fem.reshape(E, d, n, m).permute(1, 3, 2, 0)
+        else:
+            fe = torch.stack(
+                [self._contract(ue[:, j].reshape(d, n * E))
+                 .reshape(d, n, E) for j in range(m)], dim=1)
+        y = self.plan.sum_planes(fe.reshape(d * m, n * E).contiguous())
+        return y.reshape(d, m, N).permute(2, 0, 1).reshape(U.shape)

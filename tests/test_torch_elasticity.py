@@ -144,8 +144,12 @@ def test_solve_scope_raises():
     sim, _ = _clamped_bar(FEMMesh, ElasticitySimulator, Material, "cpu")
     with pytest.raises(NotImplementedError):
         sim.solve(operator="structured")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        sim.solve(operator="routed", precond="twolevel")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        sim.solve(operator="routed", precond="amg")
     with pytest.raises(NotImplementedError):
-        sim.solve(operator="routed", precond="block")
+        sim.solve(operator="ebe", x0=torch.zeros(sim.num_dofs, 3))
 
 
 _STANDALONE = r"""
@@ -163,6 +167,10 @@ sys.meta_path.insert(0, Block())
 import numpy as np, torch
 from meshfem_tpu_torch.mesh import FEMMesh, generators
 from meshfem_tpu_torch.physics import ElasticitySimulator, Material
+from meshfem_tpu_torch.analysis import homogenization as hom
+import meshfem_tpu_torch.mesh.periodic, meshfem_tpu_torch.solvers.precond
+import meshfem_tpu_torch.kernels.factored, meshfem_tpu_torch.interop
+from meshfem_tpu_torch.kernels import element_stiffness, factored_contract
 V, T = generators.bar_tet(6, 2, 2)
 mesh = FEMMesh(V, T, degree=2)
 sim = ElasticitySimulator(mesh, Material.isotropic(3, 200.0, 0.3),
@@ -177,6 +185,10 @@ for op in ("routed", "ebe"):
     u, _ = sim.solve(operator=op, tol=1e-10)
     out[op] = u.numpy().tolist()
     out[op + "_vm"] = sim.von_mises_field(u).numpy().tolist()
+mat = Material.isotropic(3, 5.0, 0.3)
+cell = FEMMesh(*generators.grid_tet(2, 2, 2), degree=1)
+out["Ch_err"] = float((hom.homogenize(cell, mat, tol=1e-12, device="cpu").Ch
+                       - mat.D).abs().max())
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "meshfem_tpu" or m.startswith("meshfem_tpu."))
 out["loaded"] = bad
@@ -193,6 +205,7 @@ def test_port_stands_alone(reference_solution):
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
+    assert out["Ch_err"] < 1e-9        # the uniform cell homogenizes to D
     for op in ("routed", "ebe"):
         assert _rel(out[op], u_ref) < 1e-8
         assert _rel(out[op + "_vm"], vm_ref) < 1e-8

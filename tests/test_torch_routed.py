@@ -112,9 +112,17 @@ def test_routed_without_coords_keeps_numbering(problem):
 
 
 def test_apply_block_not_ported(problem):
-    _, sim, _ = problem
+    """Once a NotImplementedError; now ``apply_block`` and
+    ``routed_kernel(block_rhs=...)`` are ported: the block apply equals the
+    single-vector apply column by column (1e-6 of max|y|, the reference's
+    own consistency check, ``tests/test_routed_factored.py:60-64``)."""
+    _, sim, u = problem
     sim._routed = None
-    with pytest.raises(NotImplementedError):
-        sim.routed_kernel().apply_block(torch.zeros(sim.num_dofs, 3, 2))
-    with pytest.raises(NotImplementedError):
-        sim.routed_kernel(block_rhs=6)
+    rk = sim.routed_kernel(block_rhs=2)
+    assert rk.bm == 2
+    U = torch.as_tensor(np.stack([u, u[::-1].copy()], axis=-1))
+    yb = rk.apply_block(U)
+    yc = torch.stack([rk(U[..., j]) for j in range(2)], dim=-1)
+    assert yb.shape == U.shape
+    assert _rel(yb.numpy(), yc.numpy()) < 1e-6
+    assert sim.routed_kernel(block_rhs=6).bm == 6     # rebuilt on a new count

@@ -15,20 +15,25 @@ of which raises on failure:
    float64 (1e-12), bit-identical across two runs, C (1e-5 of max|y|),
    D (1e-5 of max|y|, and 5e-6 against C on the same inputs), E (1e-5 of
    max|Ke| against its plain version and against the simulator's float64
-   Ke);
-4. the main path: ``sim.solve(operator="routed", tol=1e-10)``, float32
-   routed CG inside float64 iterative refinement.  Launch counts are zeroed
-   just before the solve and read just after; the float64 relative residual
-   through the port's EBE operator must be <= 1e-10;
+   Ke, and again at the same size on seeded random gradients and volumes,
+   which excite every term of the product where a Kuhn grid's few distinct
+   gradients do not);
+4. the main path: ``sim.routed_kernel()`` (the dense operator, whose
+   float32 ``Ke`` kernel E assembles) and ``sim.solve(operator="routed",
+   tol=1e-10)``, float32 routed CG inside float64 iterative refinement.
+   Launch counts are zeroed just before the two and read just after; the
+   float64 relative residual through the port's EBE operator must be
+   <= 1e-10;
 5. the factored backend: its apply against the dense apply (<= 5e-6 of
    max|y|), then the same solve with ``MESHFEM_FACTORED=1`` (the
    reference's switch), counted the same way, so kernel C runs on a path;
    a small clamped bar solved on the card (routed) against the port's
    float64 EBE solve on the CPU (u and von Mises to 1e-8);
-6. the assembly path (kernel E): the float32 ``Ke`` of the bench mesh from
-   ``kernels.element_stiffness``, handed to ``RoutedEBE.build`` as
-   ``bench.py:266,320`` does; its apply against the operator built from
-   the float64 ``Ke`` (<= 5e-6 of max|y|), launches counted;
+6. the assembly path composed by hand as ``bench.py:266,320`` does (the
+   package's own is ``routed_kernel``, counted in phases 4 and 7): the
+   float32 ``Ke`` of the bench mesh from ``kernels.element_stiffness``,
+   handed to ``RoutedEBE.build``; its apply against an operator built from
+   the float64 ``Ke`` cast to float32 (<= 5e-6 of max|y|), launches counted;
 7. the homogenization path at full width: ``homogenize(mesh,
    Material.isotropic(3, 200, 0.3), tol=1e-10)`` on ``grid_tet(36,36,36)``
    P2 with a spherical void of radius 0.3 (about 248k tets, 1.0 M dofs
@@ -44,7 +49,12 @@ of which raises on failure:
 8. each kernel timed beside its bound, its plain version and one PyTorch
    call computing the same function (median of per-launch CUDA-event
    times, L2 flushed before each launch), A and B also at the 18 planes of
-   the block apply, printed as one ``{"kernels": [...]}`` line;
+   the block apply, printed as one ``{"kernels": [...]}`` line.  A bound
+   counts what the FUNCTION needs from its inputs (each byte once; the
+   fewest operations a known algorithm does), so D shares kernel C's and
+   E's operations are those of the material-first contraction; the time
+   the kernel's own algorithm needs at the peak rate is printed beside it
+   as ``algorithm_ops_ms``;
 9. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
@@ -168,18 +178,25 @@ def check_solution(sim, u, label):
 
 
 def drive_solve(sim, label, required):
-    """One counted run of the user's entry point ``sim.solve``: counts are
+    """One counted run of the user's entry points ``sim.routed_kernel`` (the
+    operator is built anew, timed apart) and ``sim.solve``: counts are
     zeroed just before and read just after; each wrapper in ``required``
     must have launched."""
     from meshfem_tpu_torch import kernels
 
+    sim._routed = None
     kernels.reset_launch_counts()
+    t0 = time.time()
+    sim.routed_kernel()
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
     t0 = time.time()
     u, res = sim.solve(operator="routed", tol=1e-10)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
-    log(f"{label}: solve {wall:.3f} s, {res.rounds} refinement rounds, "
+    log(f"{label}: operator built in {t_build:.3f} s; "
+        f"solve {wall:.3f} s, {res.rounds} refinement rounds, "
         f"{res.iters} inner CG iterations, relres {res.resnorm:.3e}, "
         f"launches {counts}")
     for name in required:
@@ -477,10 +494,25 @@ def main() -> int:
         raise RuntimeError("element_stiffness disagrees with its plain "
                            "version or the f64 Ke")
     del Ke32
+    gl_r = torch.randn((E, 4, 3), generator=gen, device=dev)
+    vol_r = torch.rand((E,), generator=gen, device=dev) + 0.5
+    e_out = kernels.element_stiffness(gl_r, vol_r, M32)
+    e_ref = kernels.element_stiffness_plain(gl_r, vol_r, M32)
+    torch.cuda.synchronize()
+    err_e_rand = float((e_out - e_ref).abs().max())
+    ke_max_rand = float(e_ref.abs().max())
+    del e_out, e_ref, gl_r, vol_r
+    log(f"E element_stiffness on seeded random gradients and volumes "
+        f"[{E}]: max abs err {err_e_rand:.3e} against plain, max|Ke| "
+        f"{ke_max_rand:.3e} ({err_e_rand / ke_max_rand:.3e} of it)")
+    if not err_e_rand <= 1e-5 * ke_max_rand:
+        raise RuntimeError("element_stiffness disagrees with its plain "
+                           "version on random inputs")
 
     # -- 4. the main path: dense routed solve at full width ----------------
     u, res, wall, counts_dense = drive_solve(
-        sim, "dense routed solve", ("gather_planes", "segment_sum_csr"))
+        sim, "dense routed solve",
+        ("gather_planes", "segment_sum_csr", "element_stiffness"))
     check_solution(sim, u, "dense routed solve")
     inputs = [torch.randn((3, N), generator=gen, device=dev)
               for _ in range(9)]
@@ -506,14 +538,13 @@ def main() -> int:
     if not rel_fd <= 5e-6:
         raise RuntimeError(f"factored apply disagrees with dense: {rel_fd}")
     os.environ["MESHFEM_FACTORED"] = "1"
-    sim._routed = None
-    if sim.routed_kernel().KeP is not None:
-        raise RuntimeError("isotropic material did not take the factored "
-                           "backend")
     uf, resf, wallf, counts_fact = drive_solve(
         sim, "factored routed solve",
         ("gather_planes", "segment_sum_csr", "qp_contract"))
     os.environ.pop("MESHFEM_FACTORED", None)
+    if sim.routed_kernel().KeP is not None:
+        raise RuntimeError("isotropic material did not take the factored "
+                           "backend")
     check_solution(sim, uf, "factored routed solve")
     du = float((uf - u).abs().max() / u.abs().max())
     log(f"factored vs dense solution: {du:.3e} of max|u|")
@@ -547,7 +578,11 @@ def main() -> int:
     torch.cuda.synchronize()
     wall_asm = time.time() - t0
     counts_asm = {w.__name__: w.launches for w in kernels.WRAPPERS}
-    rel_asm = float((y32 - yd).abs().max() / yd.abs().max())
+    rk64 = RoutedEBE.build(sim.Ke, sim.mesh.elem_nodes, N, 3,
+                           coords=sim.mesh.node_positions, device=dev)
+    y64 = rk64.apply_planes(inputs[0])
+    del rk64
+    rel_asm = float((y32 - y64).abs().max() / y64.abs().max())
     log(f"assembly path: f32 Ke from kernel E -> RoutedEBE.build -> apply in "
         f"{wall_asm:.3f} s; apply vs the operator built from the f64 Ke: "
         f"{rel_asm:.3e} of max|y|; launches {counts_asm}")
@@ -556,7 +591,7 @@ def main() -> int:
     if not rel_asm <= 5e-6:
         raise RuntimeError(f"assembly path disagrees: {rel_asm}")
     summary.update(assembly_path_s=wall_asm, assembly_vs_f64_apply=rel_asm)
-    del Ke32, rk32, y32, yd, yf, small, small_cpu
+    del Ke32, rk32, y32, y64, yd, yf, small, small_cpu
     sim._routed = None
 
     # -- 7. the homogenization path at full width --------------------------
@@ -575,7 +610,8 @@ def main() -> int:
         f"mesh {t_cell:.2f} s, reference simulator {time.time() - t0:.2f} s")
     homog = {}
     variants = (
-        ("dense", {}, ("gather_planes", "segment_sum_csr")),
+        ("dense", {},
+         ("gather_planes", "segment_sum_csr", "element_stiffness")),
         ("factored", {"MESHFEM_FACTORED": "1"},
          ("gather_planes", "segment_sum_csr", "qp_contract")),
         ("factored_tq", {"MESHFEM_FACTORED": "1", "MESHFEM_FACTORED_TQ": "1"},
@@ -622,9 +658,14 @@ def main() -> int:
     report = []
 
     def entry(name, source, replaces, launches, err, fn, plain, library,
-              nbytes, flops, **extra):
+              nbytes, flops, algorithm_flops=None, **extra):
+        """``flops``: the fewest operations a known algorithm needs for the
+        function on these inputs (the bound's); ``algorithm_flops``: what
+        the kernel's own algorithm does, where that is more."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
+        if algorithm_flops is not None:
+            extra["algorithm_ops_ms"] = algorithm_flops / F32_FLOP_PER_S * 1e3
         d = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches, max_abs_err=err, ms=timer(fn),
                  plain_ms=timer(plain, reps=5), bound_ms=max(t_bytes, t_ops),
@@ -690,8 +731,11 @@ def main() -> int:
           f64_max_abs_err=err_b64)
 
     Q, nn, K1 = qp_tables(3, 2)[0].shape
-    flops = E * Q * (2 * nn * 3 * K1 + 2 * 9 * nn + 3 + 1 + 9 * 4 + 3 * 2
-                     + 2 * nn * 9)
+    # the quadrature form, per element: the fewest operations known for
+    # f = vol Ke u from (g, vol, u); kernels C and D both compute it
+    qp_flops = Q * (2 * nn * 3 * K1 + 2 * 9 * nn + 3 + 1 + 9 * 4 + 3 * 2
+                    + 2 * nn * 9)
+    flops = E * qp_flops
     ue_dense = ue.reshape(30, E).t().contiguous().unsqueeze(-1)
     entry("qp_contract", "meshfem_tpu_torch/csrc/qp_contract.cu",
           "meshfem_tpu/sparse/contract.py:232", counts_fact["qp_contract"],
@@ -725,7 +769,8 @@ def main() -> int:
           lambda: kernels.factored_contract(hg, hvol, ue_h, lam, mu),
           lambda: kernels.factored_contract_plain(hg, hvol, ue_h, lam, mu),
           lambda: torch.bmm(hKeP, ue_h_dense),
-          (12 + 1 + 30 + 30) * Eh * 4, 2 * fma_d * Eh, max_rel_err=rel_dh,
+          (12 + 1 + 30 + 30) * Eh * 4, qp_flops * Eh,
+          algorithm_flops=2 * fma_d * Eh, max_rel_err=rel_dh,
           vs_kernel_c=rel_dc, max_rel_err_bench_mesh=rel_d,
           qp_contract_same_inputs_ms=timer(
               lambda: kernels.qp_contract(hg, hvol, ue_h, lam, mu)),
@@ -746,13 +791,21 @@ def main() -> int:
         * vol32[:, None]
     entry("element_stiffness", "meshfem_tpu_torch/csrc/element_stiffness.cu",
           "meshfem_tpu/kernels/element_stiffness.py:42",
-          counts_asm["element_stiffness"], err_e,
+          counts_dense["element_stiffness"], err_e,
           lambda: kernels.element_stiffness(gl32, vol32, M32),
           lambda: kernels.element_stiffness_plain(gl32, vol32, M32),
           lambda: em.element_elasticity_fused_apply(gl32, vol32, M32, 10),
           (12 + 1 + 900) * E * 4 + M32.numel() * 4,
-          2 * 144 * 900 * E + 2 * 144 * E, max_abs_err_vs_f64=err_e64,
-          max_abs_Ke=ke_max,
+          # material first, table second: H[k,l,c,f] = g_ka g_lb C_cafb
+          # (144 x 9 FMAs), Ke = vol T[k,l,i,j] H[k,l,c,f] (900 x 16 FMAs)
+          (2 * (144 * 9 + 900 * 16) + 900) * E,
+          algorithm_flops=2 * 144 * 900 * E + 2 * 144 * E,
+          max_abs_err_vs_f64=err_e64, max_abs_Ke=ke_max,
+          max_abs_err_random_inputs=err_e_rand,
+          max_abs_Ke_random_inputs=ke_max_rand,
+          launches_assembly_path=counts_asm["element_stiffness"],
+          launches_homogenization={k: v["launches"]["element_stiffness"]
+                                   for k, v in homog.items()},
           matmul_only_ms=timer(lambda: torch.matmul(gg32, M32)),
           library_call="ops.element_matrices.element_elasticity_fused_apply "
                        "(einsum + torch.matmul, TF32 off)",

@@ -14,10 +14,14 @@
 // register-tiled float32 FMA loop (no tensor cores: the reference asks for
 // full float32, and TF32 would leave ~1e-3 error in the operator).
 //
-// Bound on the H100: operations.  2 gdim^2 (n d)^2 flops per element:
-// 72.6 GFLOP at the bench size (E = 279,936, P2 tets), ~1.08 ms at the
-// 67 TFLOP/s float32 rate, against ~0.30 ms for the 1.0 GB it writes at
-// 3.35 TB/s.
+// Bound on the H100: memory, ~0.30 ms for the 1.0 GB it writes at the
+// bench size (E = 279,936, P2 tets) at 3.35 TB/s.  The function itself
+// needs few operations: contracting the material into the Gram block first
+// (H[k,l,c,f], 1,296 multiply-adds) and the table second (900 x 16) gives
+// Ke in ~15.7k multiply-adds per element, ~0.13 ms at the 67 TFLOP/s
+// float32 rate.  The ONE-product form kept here from the TPU kernel does
+// 2 gdim^2 (n d)^2 flops per element, 72.6 GFLOP and ~1.08 ms at that rate:
+// that is this algorithm's own arithmetic time, not a bound of the function.
 //
 // Design: a block of 256 threads owns a tile of 128 elements x 64 columns
 // of Ke.  M has 144 x 900 floats (518 KB), more than an SM's shared memory,

@@ -24,11 +24,14 @@
 // Layout (kernel C's): g [K1 * d, E] (row k * d + b), vol [E],
 // ue [d, n, E] -> fe [d, n, E]; element index fastest.
 //
-// Bound on the H100: operations.  Per element at dim 3 / deg 2 the table
-// form does ~8.9k multiply-adds (120 for d1, 1,600 each for m1 and m2,
-// 4,800 for q, 48 for G2, 720 for f), ~75 us at the bench size at the
-// 67 TFLOP/s float32 rate, against ~24 us for its 73 floats per element
-// at 3.35 TB/s.  It is five times kernel C's arithmetic for the same
+// Bound on the H100: memory, as for kernel C, which computes the same
+// function of the same inputs: 73 floats per element move (~24 us at the
+// bench size at 3.35 TB/s) and the quadrature form needs ~1.6k
+// multiply-adds per element.  The TABLE form chosen here does ~8.9k per
+// element at dim 3 / deg 2 (120 for d1, 1,600 each for m1 and m2, 4,800
+// for q, 48 for G2, 720 for f), ~75 us at the bench size at the 67 TFLOP/s
+// float32 rate: that is this algorithm's own arithmetic time, not a bound
+// of the function.  It is five times kernel C's arithmetic for the same
 // result; it stays as the reference keeps its TQ kernel, behind a switch.
 //
 // Design: ~200 live values per element are too many for one thread, so

@@ -4,9 +4,12 @@ assembly ``Ke[e] = vol_e (g_e (x) g_e) @ M``.
 Replaces ``meshfem_tpu/kernels/element_stiffness.py::_asm_kernel`` (:42),
 the float32 drop-in for ``ops.element_matrices.
 element_elasticity_fused_apply`` (which stays the default assembly, as in
-the reference).  Bound on the H100: operations (2 gdim^2 (n d)^2 flops per
-element, 72.6 GFLOP and ~1.08 ms at the bench size at the 67 TFLOP/s
-float32 rate, against ~0.30 ms to write 1.0 GB).  The product is a
+the reference).  Bound on the H100: memory (~0.30 ms to write 1.0 GB at
+the bench size; the function needs ~15.7k multiply-adds per element when
+the material is contracted before the table, ~0.13 ms).  The one-product
+form kept here does 2 gdim^2 (n d)^2 flops per element, 72.6 GFLOP and
+~1.08 ms at the 67 TFLOP/s float32 rate: the algorithm's own arithmetic
+time, not a bound.  The product is a
 register-tiled float32 FMA loop over column tiles of M held in shared
 memory, no tensor cores (TF32 would leave ~1e-3 operator error); design
 notes are in ``csrc/element_stiffness.cu``.

@@ -11,11 +11,13 @@
 Replaces ``meshfem_tpu/sparse/contract.py::_factored_kernel`` (:91), the
 TQ-table backend of the routed operator (``MESHFEM_FACTORED_TQ=1``).  Same
 layouts as kernel C, so ``RoutedEBE._contract`` switches between the two on
-the environment variable alone.  Bound on the H100: operations (~8.9k
-multiply-adds per element at dim 3 / deg 2, ~75 us at the bench size at
-the 67 TFLOP/s float32 rate, against ~24 us for its bytes).  Four warps
-share 32 elements with u, g, d1, m1, m2 and the table in shared memory;
-design notes are in ``csrc/factored_contract.cu``.
+the environment variable alone.  Bound on the H100: memory, as for kernel
+C (the same function of the same inputs: ~24 us for its bytes at the bench
+size).  The table form's own arithmetic, ~8.9k multiply-adds per element at
+dim 3 / deg 2, takes ~75 us at the 67 TFLOP/s float32 rate; that is the
+chosen algorithm's time, not a bound of the function.  Four warps share 32
+elements with u, g, d1, m1, m2 and the table in shared memory; design
+notes are in ``csrc/factored_contract.cu``.
 
 Layout: ``g [K1*d, E]`` (row ``k*d + b``), ``vol [E]``, ``ue [d, n, E]`` ->
 ``fe [d, n, E]``.

@@ -10,7 +10,10 @@ for the routed P2 solve and periodic homogenization:
   scatter runs on kernel B;
 * ``routed_kernel``: the float32 routed operator on kernels A-D, dense or
   (``MESHFEM_FACTORED`` set, isotropic material) factored, read exactly as
-  the reference reads it (``elasticity.py:142-149``);
+  the reference reads it (``elasticity.py:142-149``); the dense operator's
+  float32 ``Ke`` of a constant material is assembled in float32 by kernel E
+  (``kernels.element_stiffness``), as ``bench.py:266,320`` feeds
+  ``RoutedEBE.build``;
 * ``solve``: ``operator="routed"`` runs preconditioned float32 CG inside
   float64 iterative refinement (``_solve_routed`` :660);
   ``operator="ebe"`` the float64 CG (:521-574); ``precond`` is 'jacobi',
@@ -35,6 +38,7 @@ import torch
 from .. import config
 from ..fem import elasticity_tensor as et
 from ..fem.flattening import flat_to_sym
+from ..kernels import element_stiffness
 from ..mesh.femmesh import FEMMesh
 from ..ops import element_matrices as em
 from ..solvers import cg as cg_mod
@@ -82,6 +86,7 @@ class ElasticitySimulator:
         if bool((self.geom.volume <= 0).any()):
             raise ValueError("mesh has non-positive element volumes "
                              "(reference rejects these too)")
+        self._Ke_shared = Ke is not None
         if Ke is None:
             self.Ke = em.element_elasticity(self.geom.grad_lambda,
                                             self.geom.volume, self.D,
@@ -124,12 +129,12 @@ class ElasticitySimulator:
         reordered), built lazily.  With ``MESHFEM_FACTORED`` set and a
         constant isotropic material it takes the factored contraction
         (kernel C, or D with ``MESHFEM_FACTORED_TQ=1``).  ``block_rhs``:
-        the operator records that many right-hand sides (``bm``) for
-        ``apply_block``, and is rebuilt when the cached one records another
-        count, as in the reference (:125-127)."""
-        if (self._routed is not None and block_rhs
-                and self._routed.bm != block_rhs):
-            self._routed = None
+        the right-hand-side count recorded on the operator (``bm``).  The
+        reference rebuilds its plan sets for a new count (:125-127); here
+        ``apply_block`` takes any count through the same plans, so the
+        cached operator is kept."""
+        if self._routed is not None and block_rhs:
+            self._routed.bm = int(block_rhs)
         if self._routed is None:
             # dof coordinates: position of (a) node carrying each dof
             pos = np.zeros((self.num_dofs, self.mesh.node_positions.shape[1]))
@@ -141,11 +146,27 @@ class ElasticitySimulator:
                     factor = (self.geom.grad_lambda, self.geom.volume,
                               lm[0], lm[1], self.mesh.degree)
             self._routed = RoutedEBE.build(
-                None if factor is not None else self.Ke,
+                None if factor is not None else self._routed_Ke(),
                 self.elem_dofs.cpu().numpy(), self.num_dofs, self.dim,
                 coords=pos, factor=factor, device=self.device,
                 block_rhs=block_rhs)
         return self._routed
+
+    def _routed_Ke(self):
+        """``Ke`` for the dense routed operator.  A constant material's is
+        assembled in float32 by ``kernels.element_stiffness`` (kernel E on
+        the card) from the float32 geometry and the fused matrix, the
+        assembly ``bench.py:266`` hands to ``RoutedEBE.build``; a material
+        field's, or a ``Ke`` shared from elsewhere, is the float64 one
+        (cast by ``build``)."""
+        if self.D.ndim != 2 or self._Ke_shared:
+            return self.Ke
+        f32 = config.SOLVE
+        M = torch.as_tensor(
+            em.fused_matrix_for(self.D, self.mesh.K, self.mesh.degree),
+            dtype=f32, device=self.device)
+        return element_stiffness(self.geom.grad_lambda.to(f32).contiguous(),
+                                 self.geom.volume.to(f32).contiguous(), M)
 
     def _routed_auto(self) -> bool:
         """Routed operator by default on CUDA for meshes past

@@ -125,4 +125,56 @@ def test_apply_block_not_ported(problem):
     yc = torch.stack([rk(U[..., j]) for j in range(2)], dim=-1)
     assert yb.shape == U.shape
     assert _rel(yb.numpy(), yc.numpy()) < 1e-6
-    assert sim.routed_kernel(block_rhs=6).bm == 6     # rebuilt on a new count
+    # a new count is recorded on the SAME operator (no plan depends on it)
+    rk6 = sim.routed_kernel(block_rhs=6)
+    assert rk6 is rk and rk6.bm == 6
+    U5 = torch.as_tensor(np.stack([u * (j + 1) for j in range(5)], axis=-1))
+    y5 = rk6.apply_block(U5)
+    y1 = rk6(U5[..., 0])
+    assert _rel(y5[..., 3].numpy(), 4 * y1.numpy()) < 1e-6
+
+
+def test_dense_routed_Ke_assembled_by_element_stiffness(problem, monkeypatch):
+    """A constant material's dense routed operator takes its float32 ``Ke``
+    from ``kernels.element_stiffness`` (one call per build), and it equals
+    the float64 ``Ke`` cast to float32 to 1e-6 of max|Ke|; a ``Ke`` shared
+    from elsewhere, and a material field's, skip the assembly."""
+    from meshfem_tpu_torch.physics import MaterialField
+    from meshfem_tpu_torch.physics import elasticity as el
+
+    _, sim, u = problem
+    calls = []
+    inner = el.element_stiffness
+
+    def recording(gl, vol, M):
+        calls.append((gl.dtype, tuple(M.shape)))
+        return inner(gl, vol, M)
+
+    monkeypatch.setattr(el, "element_stiffness", recording)
+    monkeypatch.delenv("MESHFEM_FACTORED", raising=False)
+    sim._routed = None
+    rk = sim.routed_kernel()
+    assert calls == [(torch.float32, (144, 900))]
+    E = sim.mesh.num_elements
+    Ke32 = rk.KeP.reshape(E, 3, 10, 3, 10).permute(0, 2, 1, 4, 3) \
+        .reshape(E, 30, 30)
+    # build() sorted the elements along its RCB order: compare as sets of
+    # per-element norms and through the apply
+    assert _rel(np.sort(Ke32.reshape(E, -1).norm(dim=1).numpy()),
+                np.sort(sim.Ke.float().reshape(E, -1).norm(dim=1).numpy())) \
+        < 1e-6
+    y = rk.permute_out(rk(rk.permute_in(torch.as_tensor(u))))
+    assert _rel(y.numpy(), sim.apply_K(torch.as_tensor(u).double()).numpy()) \
+        < TOL
+
+    shared = ElasticitySimulator(sim.mesh, sim.D, device="cpu", Ke=sim.Ke)
+    shared.routed_kernel()
+    young = np.full(E, 2.3)
+    field = ElasticitySimulator(
+        sim.mesh, MaterialField.isotropic_field(3, young, np.full(E, 0.31)),
+        device="cpu")
+    yf = field.routed_kernel()(torch.as_tensor(u))
+    assert len(calls) == 1
+    assert _rel(yf.numpy(), sim.routed_kernel()(torch.as_tensor(u)).numpy()) \
+        < TOL
+    sim._routed = None

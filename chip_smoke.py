@@ -11,8 +11,13 @@ of which raises on failure:
    clamped and the far face loaded in -y (``bench.py:397-404``), its dense
    routed operator and the factored one (built as ``bench.py:363``);
 3. hold each kernel against its plain PyTorch version at the main path's
-   shapes: A at 3 and 1 planes (exact), B in float32 (1e-5 of max|y|) and
-   float64 (1e-12), bit-identical across two runs, C (1e-5 of max|y|),
+   shapes: A in planes at 3 and 1 planes and in rows at 3 and 18 values a
+   node, from node rows and from planes (exact), B in float32 (1e-5 of
+   max|y|) and float64 (1e-12), bit-identical across two runs, B in rows
+   equal bit for bit to B in planes on the same contributions (f32 at 3
+   and 18 values a node through the operator's two plans, f64 through the
+   EBE plan) and to 1e-5 / 1e-12 of max|y| of its plain version, C (1e-5
+   of max|y|),
    D (1e-5 of max|y|, and 5e-6 against C on the same inputs), E (1e-5 of
    max|Ke| against its plain version and against the simulator's float64
    Ke, and again at the same size on seeded random gradients and volumes,
@@ -21,9 +26,10 @@ of which raises on failure:
 4. the main path: ``sim.routed_kernel()`` (the dense operator, whose
    float32 ``Ke`` kernel E assembles) and ``sim.solve(operator="routed",
    tol=1e-10)``, float32 routed CG inside float64 iterative refinement.
-   Launch counts are zeroed just before the two and read just after; the
-   float64 relative residual through the port's EBE operator must be
-   <= 1e-10;
+   Launch counts are zeroed just before the two and read just after; every
+   routed apply must have launched kernel A in rows (one ``gather_rows``
+   each) and no kernel in planes; the float64 relative residual through
+   the port's EBE operator must be <= 1e-10;
 5. the factored backend: its apply against the dense apply (<= 5e-6 of
    max|y|), then the same solve with ``MESHFEM_FACTORED=1`` (the
    reference's switch), counted the same way, so kernel C runs on a path;
@@ -38,7 +44,8 @@ of which raises on failure:
    Material.isotropic(3, 200, 0.3), tol=1e-10)`` on ``grid_tet(36,36,36)``
    P2 with a spherical void of radius 0.3 (about 248k tets, 1.0 M dofs
    after periodic identification), run three times with the launch counts
-   zeroed before each: dense (A, B, ``bmm``), ``MESHFEM_FACTORED=1`` (A, B,
+   zeroed before each: dense (A and B in rows, ``bmm``; every block apply
+   in rows, none in planes), ``MESHFEM_FACTORED=1`` (A and B in planes,
    C) and ``MESHFEM_FACTORED=1 MESHFEM_FACTORED_TQ=1`` (A, B, D).  Gates:
    the block's float64 relative residual through the EBE operator,
    translations projected, <= 1e-10 in the whole-block norm; ``Ch``
@@ -46,16 +53,29 @@ of which raises on failure:
    Voigt bound; the three ``Ch`` equal to 1e-7; then a small periodic cell
    with a soft inclusion (``MaterialField``) solved routed on the card
    against the float64 EBE block solve on the CPU (w and Ch to 1e-8);
-8. each kernel timed beside its bound, its plain version and one PyTorch
+8. the probe path: kernel F (``route_window``) at the shapes of
+   ``experiments/probe_route.py`` (NV = 7,530, NT = 2,797, CHAIN = 4, its
+   seed), counted, against its plain version (exact);
+9. the stage table: the dense block apply (periodic cell, 6 columns) and
+   the dense single apply (bench mesh) in node rows as the package runs
+   them (A, ``bmm``, B), beside the component-planes layout the dense
+   applies ran in before, composed by hand from the planes kernels, a
+   component-major copy of ``KeP`` and the layout copies it made; each
+   stage timed with CUDA events (warm L2, as inside CG), and the whole
+   apply; the two layouts' results agree to 1e-6 of max|y|;
+10. each kernel timed beside its bound, its plain version and one PyTorch
    call computing the same function (median of per-launch CUDA-event
-   times, L2 flushed before each launch), A and B also at the 18 planes of
-   the block apply, printed as one ``{"kernels": [...]}`` line.  A bound
+   times, L2 flushed before each launch, the call queued before its first
+   event fires), A and B in planes also at the 18
+   planes of the factored block apply, A and B in rows at 3 and 18 values
+   a node (B in f32 and f64), F beside kernel A on the same count of
+   routed values, printed as one ``{"kernels": [...]}`` line.  A bound
    counts what the FUNCTION needs from its inputs (each byte once; the
    fewest operations a known algorithm does), so D shares kernel C's and
    E's operations are those of the material-first contraction; the time
    the kernel's own algorithm needs at the peak rate is printed beside it
    as ``algorithm_ops_ms``;
-9. last, ``{"ok": true, "device": {...}}``.
+11. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -76,6 +96,7 @@ import torch
 BENCH_N = 36                  # grid_tet(36, 36, 36), bench.py's size
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
+F64_FLOP_PER_S = 34e12        # H100 SXM float64, outside the tensor cores
 
 
 def log(*args):
@@ -85,7 +106,13 @@ def log(*args):
 class Timer:
     """Device time of one call: the median over ``reps`` launches, each
     between two CUDA events, with the 50 MB L2 flushed before each launch
-    (the bounds count every byte once from device memory)."""
+    (the bounds count every byte once from device memory).  The card spins
+    for ~1 ms after the flush, so the host has queued the call before the
+    first event fires: the events time the device, not the host's Python
+    and launch path (tens of microseconds on a busy host, as much as a
+    small kernel)."""
+
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self, device):
         self.flush_buf = torch.empty(128 << 20, dtype=torch.int8,
@@ -99,6 +126,7 @@ class Timer:
             self.flush_buf.zero_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(self.SPIN_CYCLES)
             s.record()
             fn()
             e.record()
@@ -123,6 +151,82 @@ def median_apply_ms(apply, inputs):
         times.append(s.elapsed_time(e))
     times.sort()
     return times[len(times) // 2]
+
+
+def stage_ms(stages, inputs):
+    """Device time of each stage of a hand-composed apply and of the whole
+    sequence: an event between consecutive stages, warm L2 (as inside CG),
+    the median over ``inputs`` after one warm-up sequence.  ``stages`` is a
+    list of (name, function of the previous stage's result)."""
+    per, whole = [[] for _ in stages], []
+    for i, x in enumerate([inputs[0]] + list(inputs)):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(
+            len(stages) + 1)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for k, (_, fn) in enumerate(stages):
+            x = fn(x)
+            ev[k + 1].record()
+        ev[-1].synchronize()
+        if i == 0:
+            continue
+        for k in range(len(stages)):
+            per[k].append(ev[k].elapsed_time(ev[k + 1]))
+        whole.append(ev[0].elapsed_time(ev[-1]))
+    med = lambda v: sorted(v)[len(v) // 2]
+    return {name: med(v) for (name, _), v in zip(stages, per)}, med(whole), x
+
+
+class ApplyCounter:
+    """Counts the routed operator's applies (``apply_planes``,
+    ``apply_block``, ``__call__``; one nested in another counts once) while
+    active, by wrapping the class's methods."""
+
+    NAMES = ("apply_planes", "apply_block", "__call__")
+
+    def __init__(self):
+        self.count = 0
+        self._depth = 0
+
+    def _wrap(self, fn):
+        def counted(op, *args, **kw):
+            self.count += self._depth == 0
+            self._depth += 1
+            try:
+                return fn(op, *args, **kw)
+            finally:
+                self._depth -= 1
+        return counted
+
+    def __enter__(self):
+        from meshfem_tpu_torch.sparse.routed_ebe import RoutedEBE
+
+        self._saved = {k: getattr(RoutedEBE, k) for k in self.NAMES}
+        for k, fn in self._saved.items():
+            setattr(RoutedEBE, k, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        from meshfem_tpu_torch.sparse.routed_ebe import RoutedEBE
+
+        for k, fn in self._saved.items():
+            setattr(RoutedEBE, k, fn)
+
+
+def check_rows_path(label, counts, applies):
+    """A dense path: each routed apply launched kernel A in rows once and
+    kernel B in rows, and no apply launched a kernel in planes (B in rows
+    also carries the f64 residuals and the diagonal, so it counts more)."""
+    log(f"{label}: {applies} routed applies; gather_rows "
+        f"{counts['gather_rows']}, segment_sum_rows "
+        f"{counts['segment_sum_rows']}, gather_planes "
+        f"{counts['gather_planes']}, segment_sum_csr "
+        f"{counts['segment_sum_csr']}")
+    if not (applies > 0 and counts["gather_rows"] == applies
+            and counts["segment_sum_rows"] >= applies
+            and counts["gather_planes"] == 0
+            and counts["segment_sum_csr"] == 0):
+        raise RuntimeError(f"{label}: not every apply ran in node rows")
 
 
 def clamped_problem(size, device):
@@ -185,16 +289,17 @@ def drive_solve(sim, label, required):
     from meshfem_tpu_torch import kernels
 
     sim._routed = None
-    kernels.reset_launch_counts()
-    t0 = time.time()
-    sim.routed_kernel()
-    torch.cuda.synchronize()
-    t_build = time.time() - t0
-    t0 = time.time()
-    u, res = sim.solve(operator="routed", tol=1e-10)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    with ApplyCounter() as applies:
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        sim.routed_kernel()
+        torch.cuda.synchronize()
+        t_build = time.time() - t0
+        t0 = time.time()
+        u, res = sim.solve(operator="routed", tol=1e-10)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
     log(f"{label}: operator built in {t_build:.3f} s; "
         f"solve {wall:.3f} s, {res.rounds} refinement rounds, "
         f"{res.iters} inner CG iterations, relres {res.resnorm:.3e}, "
@@ -202,7 +307,7 @@ def drive_solve(sim, label, required):
     for name in required:
         if counts[name] == 0:
             raise RuntimeError(f"{label}: {name} was not launched")
-    return u, res, wall, counts
+    return u, res, wall, counts, applies.count
 
 
 def void_cell(n):
@@ -262,7 +367,8 @@ def drive_homogenize(mesh, material, label, env, required):
 
     cg_mod.cg_block = recording
     try:
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings(record=True) as caught, \
+                ApplyCounter() as applies:
             warnings.simplefilter("always")
             kernels.reset_launch_counts()
             torch.cuda.synchronize()
@@ -293,7 +399,7 @@ def drive_homogenize(mesh, material, label, env, required):
                      block_iter_ms=cg_s / max(iters, 1) * 1e3,
                      rounds=len(rounds), round_iters=rounds,
                      inner_iters=iters, stagnated=bool(stagnated),
-                     launches=counts)
+                     launches=counts, applies=applies.count)
 
 
 def check_homogenized(sim, res, label, D, phi, gate):
@@ -426,6 +532,20 @@ def main() -> int:
             err_a = float((out - ref).abs().max())
     log(f"A gather_planes: planes 3 and 1 equal to the plain version "
         f"(ids [{S}] int32, src [3, {N}])")
+    ids_em = rk.ids_em
+    for P in (3, 18):
+        rows_src = torch.randn((N, P), generator=gen, device=dev)
+        for src, planes_in in ((rows_src, False),
+                               (rows_src.t().contiguous(), True)):
+            out = kernels.gather_rows(src, ids_em, planes_in=planes_in)
+            ref = kernels.gather_rows_plain(src, ids_em, planes_in)
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"gather_rows ({P} values, planes_in "
+                                   f"{planes_in}) != plain")
+    err_a_rows = float((out - ref).abs().max())
+    del rows_src, src, out, ref
+    log(f"A gather_rows: 3 and 18 values a node, from node rows and from "
+        f"planes, equal to the plain version (ids_em [{S}] int32)")
 
     perm, offs = rk.plan.perm, rk.plan.offsets
     fsrc = torch.randn((3, S), generator=gen, device=dev)
@@ -453,6 +573,46 @@ def main() -> int:
     log(f"B segment_sum_csr: f32 max abs err {err_b:.3e} (max|y| "
         f"{float(bref.abs().max()):.3e}), f64 {err_b64:.3e}; bit-identical "
         f"across two runs in both")
+
+    # B in rows: the operator's element-major plan against its slot-major
+    # one (f32), the EBE plan in rows against the same plan in planes (f64)
+    perm_em = rk.plan_em.perm
+    err_rows = {}
+    for P in (3, 18):
+        fp = fsrc if P == 3 else torch.randn((P, S), generator=gen,
+                                             device=dev)
+        fr = fp.reshape(P, 10, E).permute(2, 1, 0).reshape(S, P)
+        yp = kernels.segment_sum_csr(fp, perm, offs)
+        yr = kernels.segment_sum_rows(fr, perm_em, offs, planes_out=True)
+        yr_rows = kernels.segment_sum_rows(fr, perm_em, offs)
+        if not (torch.equal(yr, yp) and torch.equal(yr_rows.t(), yp)):
+            raise RuntimeError(f"segment_sum_rows f32 ({P} values) != "
+                               f"segment_sum_csr bit for bit")
+        ref = kernels.segment_sum_rows_plain(fr, perm_em, offs)
+        err_rows[("f32", P)] = float((yr_rows - ref).abs().max())
+        if not err_rows[("f32", P)] <= 1e-5 * float(ref.abs().max()):
+            raise RuntimeError(f"segment_sum_rows f32 ({P} values) "
+                               f"disagrees: {err_rows[('f32', P)]}")
+        dp = dsrc if P == 3 else torch.randn(
+            (P, plan64.num_rows), generator=gen, device=dev,
+            dtype=torch.float64)
+        dr = dp.t().contiguous()
+        yp = kernels.segment_sum_csr(dp, plan64.perm, plan64.offsets)
+        yr_rows = kernels.segment_sum_rows(dr, plan64.perm, plan64.offsets)
+        if not torch.equal(yr_rows.t(), yp):
+            raise RuntimeError(f"segment_sum_rows f64 ({P} values) != "
+                               f"segment_sum_csr bit for bit")
+        ref = kernels.segment_sum_rows_plain(dr, plan64.perm, plan64.offsets)
+        err_rows[("f64", P)] = float((yr_rows - ref).abs().max())
+        if not err_rows[("f64", P)] <= 1e-12 * float(ref.abs().max()):
+            raise RuntimeError(f"segment_sum_rows f64 ({P} values) "
+                               f"disagrees: {err_rows[('f64', P)]}")
+    del fp, fr, yp, yr, yr_rows, ref, dp, dr
+    log("B segment_sum_rows: equal bit for bit to segment_sum_csr on the "
+        "same contributions (f32 through the operator's element-major and "
+        "slot-major plans, f64 through the EBE plan, 3 and 18 values a "
+        "node); max abs err against plain " + ", ".join(
+            f"{t} {P}: {e:.3e}" for (t, P), e in err_rows.items()))
 
     ue = torch.randn((3, 10, E), generator=gen, device=dev)
     c_out = kernels.qp_contract(rkf.g, rkf.vol, ue, lam, mu)
@@ -510,9 +670,10 @@ def main() -> int:
                            "version on random inputs")
 
     # -- 4. the main path: dense routed solve at full width ----------------
-    u, res, wall, counts_dense = drive_solve(
+    u, res, wall, counts_dense, applies_dense = drive_solve(
         sim, "dense routed solve",
-        ("gather_planes", "segment_sum_csr", "element_stiffness"))
+        ("gather_rows", "segment_sum_rows", "element_stiffness"))
+    check_rows_path("dense routed solve", counts_dense, applies_dense)
     check_solution(sim, u, "dense routed solve")
     inputs = [torch.randn((3, N), generator=gen, device=dev)
               for _ in range(9)]
@@ -538,7 +699,7 @@ def main() -> int:
     if not rel_fd <= 5e-6:
         raise RuntimeError(f"factored apply disagrees with dense: {rel_fd}")
     os.environ["MESHFEM_FACTORED"] = "1"
-    uf, resf, wallf, counts_fact = drive_solve(
+    uf, resf, wallf, counts_fact, _ = drive_solve(
         sim, "factored routed solve",
         ("gather_planes", "segment_sum_csr", "qp_contract"))
     os.environ.pop("MESHFEM_FACTORED", None)
@@ -611,7 +772,7 @@ def main() -> int:
     homog = {}
     variants = (
         ("dense", {},
-         ("gather_planes", "segment_sum_csr", "element_stiffness")),
+         ("gather_rows", "segment_sum_rows", "element_stiffness")),
         ("factored", {"MESHFEM_FACTORED": "1"},
          ("gather_planes", "segment_sum_csr", "qp_contract")),
         ("factored_tq", {"MESHFEM_FACTORED": "1", "MESHFEM_FACTORED_TQ": "1"},
@@ -622,6 +783,8 @@ def main() -> int:
     for name, env, required in variants:
         label = f"homogenization ({name})"
         hres, info = drive_homogenize(cell, mat, label, env, required)
+        if name == "dense":
+            check_rows_path(label, info["launches"], info["applies"])
         gate = 1e-8 if info["stagnated"] else 1e-10
         info["relres"], info["column_relres"] = check_homogenized(
             hsim, hres, label, D, phi, gate)
@@ -653,34 +816,143 @@ def main() -> int:
     summary.update(small_cell_w=dw_small, small_cell_Ch=dC_small)
     summary["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    # -- 8. kernels timed beside bound, plain version and library call -----
+    # -- 8. the probe path: kernel F at experiments/probe_route.py's shapes -
+    NV, NT, CHAIN = 7530, 2797, 4
+    prng = np.random.default_rng(0)                  # the probe's inputs
+    px = torch.as_tensor(prng.standard_normal((NT, 128)).astype(np.float32),
+                         device=dev)
+    pwin0 = torch.as_tensor(prng.integers(0, NT - CHAIN, NV)
+                            .astype(np.int32), device=dev)
+    pwidx = torch.as_tensor(prng.integers(0, CHAIN, (NV, 8, 128))
+                            .astype(np.int32), device=dev)
+    plidx = torch.as_tensor(prng.integers(0, 128, (NV, 8, 128))
+                            .astype(np.int32), device=dev)
+    kernels.reset_launch_counts()
+    f_out = kernels.route_window(px, pwin0, pwidx, plidx, CHAIN)
+    torch.cuda.synchronize()
+    counts_probe = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    f_ref = kernels.route_window_plain(px, pwin0, pwidx, plidx, CHAIN)
+    if counts_probe["route_window"] != 1 or not torch.equal(f_out, f_ref):
+        raise RuntimeError("route_window disagrees with its plain version")
+    err_f = float((f_out - f_ref).abs().max())
+    del f_out, f_ref
+    log(f"F route_window: NV {NV}, NT {NT}, CHAIN {CHAIN} "
+        f"({NV * 1024} routed values) equal to the plain version; launches "
+        f"{counts_probe['route_window']}")
+
+    # -- 9. the stage table: node rows against the former planes layout -----
+    hsim._routed = None
+    hrk_d = hsim.routed_kernel(block_rhs=6)          # dense, as phase 7 ran
+    stage_table = {}
+
+    def layouts(label, op, inputs, m, planes_io):
+        """The dense apply in node rows (the package's, and its three
+        stages) beside the planes layout composed by hand."""
+        d, n, E_, N_ = 3, 10, op.num_elements, op.num_dofs
+        KeC = op.KeP.view(E_, n, d, n, d).permute(0, 2, 1, 4, 3) \
+            .reshape(E_, n * d, n * d)               # component-major copy
+        if planes_io:                                # [d, N] planes in/out
+            rows = [("A rows", lambda x: kernels.gather_rows(
+                        x, op.ids_em, planes_in=True)),
+                    ("bmm", lambda ue: torch.bmm(op.KeP,
+                                                 ue.view(E_, n * d, 1))),
+                    ("B rows", lambda fe: op.plan_em.sum_rows(
+                        fe.view(E_ * n, d), planes_out=True))]
+            planes = [("A planes", lambda x: kernels.gather_planes(x,
+                                                                  op.ids)),
+                      ("copy to bmm operand", lambda ue: ue.reshape(
+                          d * n, E_).t().contiguous().unsqueeze(-1)),
+                      ("bmm", lambda x: torch.bmm(KeC, x)),
+                      ("copy from bmm", lambda fe: fe.reshape(
+                          E_, d * n).t().contiguous().reshape(d, n * E_)),
+                      ("B planes", op.plan.sum_planes)]
+            package = op.apply_planes
+        else:                                        # U [N, d, m] in/out
+            rows = [("A rows", lambda U: kernels.gather_rows(
+                        U.view(N_, d * m), op.ids_em)),
+                    ("bmm", lambda ue: torch.bmm(op.KeP,
+                                                 ue.view(E_, n * d, m))),
+                    ("B rows", lambda fe: op.plan_em.sum_rows(
+                        fe.view(E_ * n, d * m)).view(N_, d, m))]
+            planes = [("copy U to planes", lambda U: U.permute(1, 2, 0)
+                       .reshape(d * m, N_).contiguous()),
+                      ("A planes", lambda x: kernels.gather_planes(x,
+                                                                  op.ids)),
+                      ("copy to bmm operand", lambda ue: ue.reshape(
+                          d, m, n, E_).permute(3, 0, 2, 1)
+                       .reshape(E_, d * n, m)),
+                      ("bmm", lambda x: torch.bmm(KeC, x)),
+                      ("copy from bmm", lambda fe: fe.reshape(
+                          E_, d, n, m).permute(1, 3, 2, 0)
+                       .reshape(d * m, n * E_)),
+                      ("B planes", op.plan.sum_planes),
+                      # the planes apply returned this as a strided view (no copy)
+                      ("view as [N, d, m]", lambda y: y.reshape(
+                          d, m, N_).permute(2, 0, 1))]
+            package = op.apply_block
+        out = {}
+        for name, stages in (("rows", rows), ("planes", planes)):
+            per, whole, y = stage_ms(stages, inputs)
+            out[name] = dict(stages=per, stage_sum_ms=sum(per.values()),
+                             sequence_ms=whole)
+            out[name + "_y"] = y
+        out["rows"]["apply_ms"] = median_apply_ms(package, inputs)
+        out["rows"]["stage_share"] = (out["rows"]["stage_sum_ms"]
+                                      / out["rows"]["apply_ms"])
+        y_rows, y_planes = out.pop("rows_y"), out.pop("planes_y")
+        out["rows_vs_planes"] = float((y_rows - y_planes).abs().max()
+                                      / y_planes.abs().max())
+        del KeC
+        for name in ("rows", "planes"):
+            r = out[name]
+            log(f"{label}, {name}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["stages"].items())
+                + f" ms; stages {r['stage_sum_ms']:.4f} ms, sequence "
+                f"{r['sequence_ms']:.4f} ms")
+        log(f"{label}: the package's apply (rows) {out['rows']['apply_ms']:.4f}"
+            f" ms, its three stages {out['rows']['stage_share']:.3f} of it; "
+            f"rows vs planes {out['rows_vs_planes']:.3e} of max|y|")
+        if not out["rows_vs_planes"] <= 1e-6:
+            raise RuntimeError(f"{label}: the two layouts disagree")
+        return out
+
+    stage_table["block_apply"] = layouts(
+        "dense block apply (cell, 6 columns)", hrk_d, block_inputs, 6, False)
+    stage_table["single_apply"] = layouts(
+        "dense single apply (bench mesh)", rk, inputs, 1, True)
+    summary["stage_table"] = stage_table
+
+    # -- 10. kernels timed beside bound, plain version and library call ----
     timer = Timer(dev)
     report = []
 
     def entry(name, source, replaces, launches, err, fn, plain, library,
-              nbytes, flops, algorithm_flops=None, **extra):
+              nbytes, flops, algorithm_flops=None, flop_rate=F32_FLOP_PER_S,
+              **extra):
         """``flops``: the fewest operations a known algorithm needs for the
-        function on these inputs (the bound's); ``algorithm_flops``: what
-        the kernel's own algorithm does, where that is more."""
+        function on these inputs (the bound's), at ``flop_rate``;
+        ``algorithm_flops``: what the kernel's own algorithm does, where
+        that is more; ``library``: None where no one PyTorch call computes
+        the function."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOP_PER_S * 1e3
+        t_ops = flops / flop_rate * 1e3
         if algorithm_flops is not None:
             extra["algorithm_ops_ms"] = algorithm_flops / F32_FLOP_PER_S * 1e3
         d = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches, max_abs_err=err, ms=timer(fn),
                  plain_ms=timer(plain, reps=5), bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
-                 library_ms=timer(library))
+                 library_ms=None if library is None else timer(library))
         d.update(extra)
         report.append(d)
+        lib_ms = "none" if library is None else f"{d['library_ms']:.4f} ms"
         log(f"{name}: {d['ms']:.4f} ms (bound {d['bound_ms']:.4f} ms by "
             f"{d['bound_by']}), plain {d['plain_ms']:.4f} ms, library "
-            f"{d['library_ms']:.4f} ms, max abs err {err:.3e}, launches "
-            f"{launches}")
+            f"{lib_ms}, max abs err {err:.3e}, launches {launches}")
 
     ids_long = ids.long()
     entry("gather_planes", "meshfem_tpu_torch/csrc/gather_planes.cu",
-          "meshfem_tpu/sparse/route.py:139", counts_dense["gather_planes"],
+          "meshfem_tpu/sparse/route.py:139", counts_fact["gather_planes"],
           err_a, lambda: kernels.gather_planes(src3, ids),
           lambda: kernels.gather_planes_plain(src3, ids),
           lambda: torch.index_select(src3, 1, ids_long),
@@ -693,7 +965,7 @@ def main() -> int:
           planes1_bound_ms=(S * 4 + N * 4 + S * 4) / HBM_BYTES_PER_S * 1e3,
           planes1_library_ms=timer(
               lambda: torch.index_select(src3[:1], 1, ids_long)),
-          launches_factored=counts_fact["gather_planes"],
+          launches_path="factored clamped solve",
           library_call="torch.index_select",
           shape=f"src [3, {N}] f32, ids [{S}] int32")
 
@@ -701,7 +973,7 @@ def main() -> int:
     acc64 = torch.zeros((3, N), device=dev, dtype=torch.float64)
     dst64 = sim._kernel.elem_dofs.reshape(-1)
     entry("segment_sum_csr", "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
-          "meshfem_tpu/sparse/route.py:162", counts_dense["segment_sum_csr"],
+          "meshfem_tpu/sparse/route.py:162", counts_fact["segment_sum_csr"],
           err_b, lambda: kernels.segment_sum_csr(fsrc, perm, offs),
           lambda: kernels.segment_sum_csr_plain(fsrc, perm, offs),
           lambda: acc32.index_add_(1, ids_long, fsrc),
@@ -709,7 +981,7 @@ def main() -> int:
           also_replaces="meshfem_tpu/sparse/route.py:207 (_reduce_kernel, "
                         "1 plane); the SumPlan ladder "
                         "(meshfem_tpu/sparse/routed_ebe.py:74-123)",
-          launches_factored=counts_fact["segment_sum_csr"],
+          launches_path="factored clamped solve",
           library_call="Tensor.index_add_ (float atomics, not "
                        "deterministic)",
           shape=f"src [3, {S}] f32 -> [3, {N}]",
@@ -736,7 +1008,7 @@ def main() -> int:
     qp_flops = Q * (2 * nn * 3 * K1 + 2 * 9 * nn + 3 + 1 + 9 * 4 + 3 * 2
                     + 2 * nn * 9)
     flops = E * qp_flops
-    ue_dense = ue.reshape(30, E).t().contiguous().unsqueeze(-1)
+    ue_dense = ue.permute(2, 1, 0).reshape(E, 30, 1)    # node-major a*3+c
     entry("qp_contract", "meshfem_tpu_torch/csrc/qp_contract.cu",
           "meshfem_tpu/sparse/contract.py:232", counts_fact["qp_contract"],
           err_c, lambda: kernels.qp_contract(rkf.g, rkf.vol, ue, lam, mu),
@@ -757,9 +1029,8 @@ def main() -> int:
         raise RuntimeError(f"factored_contract disagrees with plain at the "
                            f"cell's shapes: {rel_dh}")
     del dh, dh_ref
-    hsim._routed = None
-    hKeP = hsim.routed_kernel(block_rhs=6).KeP
-    ue_h_dense = ue_h.reshape(30, Eh).t().contiguous().unsqueeze(-1)
+    hKeP = hrk_d.KeP
+    ue_h_dense = ue_h.permute(2, 1, 0).reshape(Eh, 30, 1)
     K1, nn = 4, 10
     fma_d = (K1 * nn * 3 + 2 * (K1 * nn) ** 2 + 3 * K1 * K1 * nn * nn
              + K1 * K1 * 3 + 3 * nn * (K1 * K1 + 3 * K1))
@@ -785,7 +1056,6 @@ def main() -> int:
         ebe64_block_apply_ms=median_apply_ms(
             hsim.apply_K, [U64 * (1 + i) for i in range(5)]))
     del hKeP, ue_h_dense, ue_h_block, U64
-    hsim._routed = None
 
     gg32 = torch.einsum("eka,elb->ekalb", gl32, gl32).reshape(E, 144) \
         * vol32[:, None]
@@ -881,9 +1151,147 @@ def main() -> int:
     report[2]["launches_homogenization"] = \
         homog["factored"]["launches"]["qp_contract"]
 
-    ue_slots = ue.reshape(3, 10 * E)
+    del g18, d18, acc18, acc18_64
+    # A and B in node rows: the dense applies' layout
+    ids_em_long = ids_em.long()
+    u3rows = src3.t().contiguous()
+    entry("gather_rows", "meshfem_tpu_torch/csrc/gather_planes.cu",
+          "meshfem_tpu/sparse/route.py:139", counts_dense["gather_rows"],
+          err_a_rows,
+          lambda: kernels.gather_rows(src3, ids_em, planes_in=True),
+          lambda: kernels.gather_rows_plain(src3, ids_em, True),
+          lambda: torch.index_select(src3.t(), 0, ids_em_long),
+          S * 4 + 3 * N * 4 + 3 * S * 4, 0,
+          also_replaces="meshfem_tpu/sparse/route.py:187 (_copy_kernel)",
+          mode="rows out [S, 3] from planes [3, N], as apply_planes runs it",
+          launches_path="dense clamped solve",
+          rows_in_ms=timer(lambda: kernels.gather_rows(u3rows, ids_em)),
+          rows_in_library_ms=timer(
+              lambda: torch.index_select(u3rows, 0, ids_em_long)),
+          library_call="torch.index_select (dim 0 of the [N, 3] view)",
+          shape=f"src [3, {N}] f32, ids_em [{S}] int32")
+    h_ids_em = hrk_d.ids_em
+    h_ids_em_long = h_ids_em.long()
+    U18 = block_inputs[0].reshape(Nh, 18)
+    g18r = kernels.gather_rows(U18, h_ids_em)
+    if not torch.equal(g18r, kernels.gather_rows_plain(U18, h_ids_em)):
+        raise RuntimeError("gather_rows (18 values a node, cell) != plain")
+    entry("gather_rows/18", "meshfem_tpu_torch/csrc/gather_planes.cu",
+          "meshfem_tpu/sparse/route.py:139",
+          homog["dense"]["launches"]["gather_rows"], 0.0,
+          lambda: kernels.gather_rows(U18, h_ids_em),
+          lambda: kernels.gather_rows_plain(U18, h_ids_em),
+          lambda: torch.index_select(U18, 0, h_ids_em_long),
+          Sh * 4 + 18 * Nh * 4 + 18 * Sh * 4, 0,
+          mode="rows [Nh, 18] -> [Sh, 18], as apply_block runs it",
+          launches_path="dense homogenize", library_call="torch.index_select",
+          shape=f"U [{Nh}, 18] f32, ids_em [{Sh}] int32")
+
+    perm_em, h_perm_em = rk.plan_em.perm, hrk_d.plan_em.perm
+    rows3 = fsrc.reshape(3, 10, E).permute(2, 1, 0).reshape(S, 3)
+    acc_r3 = torch.zeros((N, 3), device=dev)
+    entry("segment_sum_rows", "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
+          "meshfem_tpu/sparse/route.py:162", counts_dense["segment_sum_rows"],
+          err_rows[("f32", 3)],
+          lambda: kernels.segment_sum_rows(rows3, perm_em, offs,
+                                           planes_out=True),
+          lambda: kernels.segment_sum_rows_plain(rows3, perm_em, offs, True),
+          lambda: acc_r3.index_add_(0, ids_em_long, rows3),
+          3 * S * 4 + S * 4 + (N + 1) * 4 + 3 * N * 4, 3 * S,
+          also_replaces="meshfem_tpu/sparse/route.py:207 (_reduce_kernel)",
+          mode="rows [S, 3] -> planes [3, N], as apply_planes runs it",
+          launches_path="dense clamped solve, f32 and f64 together",
+          library_call="Tensor.index_add_ (float atomics, not "
+                       "deterministic)",
+          shape=f"src [{S}, 3] f32 -> [3, {N}]")
+    err_b18r = float((kernels.segment_sum_rows(g18r, h_perm_em, hoffs)
+                      - kernels.segment_sum_rows_plain(g18r, h_perm_em,
+                                                       hoffs)).abs().max())
+    acc_r18 = torch.zeros((Nh, 18), device=dev)
+    entry("segment_sum_rows/18", "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
+          "meshfem_tpu/sparse/route.py:162",
+          homog["dense"]["launches"]["segment_sum_rows"], err_b18r,
+          lambda: kernels.segment_sum_rows(g18r, h_perm_em, hoffs),
+          lambda: kernels.segment_sum_rows_plain(g18r, h_perm_em, hoffs),
+          lambda: acc_r18.index_add_(0, h_ids_em_long, g18r),
+          18 * Sh * 4 + Sh * 4 + (Nh + 1) * 4 + 18 * Nh * 4, 18 * Sh,
+          mode="rows [Sh, 18] -> rows [Nh, 18], as apply_block runs it",
+          launches_path="dense homogenize, f32 and f64 together",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"src [{Sh}, 18] f32 -> [{Nh}, 18]")
+    rows64 = dsrc.t().contiguous()
+    R64 = plan64.num_rows
+    acc_r64 = torch.zeros((N, 3), device=dev, dtype=torch.float64)
+    entry("segment_sum_rows/f64", "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
+          "meshfem_tpu/sparse/route.py:162 (f64: the XLA scatter of "
+          "meshfem_tpu/sparse/scatter.py)", counts_dense["segment_sum_rows"],
+          err_rows[("f64", 3)],
+          lambda: plan64.sum_rows(rows64),
+          lambda: kernels.segment_sum_rows_plain(rows64, plan64.perm,
+                                                 plan64.offsets),
+          lambda: acc_r64.index_add_(0, dst64, rows64),
+          3 * R64 * 8 + R64 * 4 + (N + 1) * 4 + 3 * N * 8, 3 * R64,
+          flop_rate=F64_FLOP_PER_S,
+          mode="f64 rows [R, 3] -> rows [N, 3]: the EBE residual apply",
+          launches_path="dense clamped solve, f32 and f64 together",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"src [{R64}, 3] f64 -> [{N}, 3]")
+    hR64 = hplan64.num_rows
+    rows64_18 = torch.randn((hR64, 18), generator=gen, device=dev,
+                            dtype=torch.float64)
+    r18r = kernels.segment_sum_rows(rows64_18, hplan64.perm, hplan64.offsets)
+    r18r_ref = kernels.segment_sum_rows_plain(rows64_18, hplan64.perm,
+                                              hplan64.offsets)
+    err_b18r64 = float((r18r - r18r_ref).abs().max())
+    if not err_b18r64 <= 1e-12 * float(r18r_ref.abs().max()):
+        raise RuntimeError(f"segment_sum_rows f64 (18 values a node, cell) "
+                           f"disagrees: {err_b18r64}")
+    del r18r, r18r_ref
+    acc_r64_18 = torch.zeros((Nh, 18), device=dev, dtype=torch.float64)
+    entry("segment_sum_rows/f64/18",
+          "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
+          "meshfem_tpu/sparse/route.py:162 (f64: the XLA scatter of "
+          "meshfem_tpu/sparse/scatter.py)",
+          homog["dense"]["launches"]["segment_sum_rows"], err_b18r64,
+          lambda: hplan64.sum_rows(rows64_18),
+          lambda: kernels.segment_sum_rows_plain(rows64_18, hplan64.perm,
+                                                 hplan64.offsets),
+          lambda: acc_r64_18.index_add_(0, hdst64, rows64_18),
+          18 * hR64 * 8 + hR64 * 4 + (Nh + 1) * 4 + 18 * Nh * 8, 18 * hR64,
+          flop_rate=F64_FLOP_PER_S,
+          mode="f64 rows [R, 18] -> rows [Nh, 18]: the block residual",
+          launches_path="dense homogenize, f32 and f64 together",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"src [{hR64}, 18] f64 -> [{Nh}, 18]")
+
+    # F, and kernel A on the same count of routed values
+    n_vals = NV * 1024
+    ids_same = ids_em[:n_vals // 3].contiguous()
+    entry("route_window", "meshfem_tpu_torch/csrc/route_window.cu",
+          "experiments/probe_route.py:22", counts_probe["route_window"],
+          err_f, lambda: kernels.route_window(px, pwin0, pwidx, plidx, CHAIN),
+          lambda: kernels.route_window_plain(px, pwin0, pwidx, plidx, CHAIN),
+          None, NT * 128 * 4 + NV * 4 + 3 * n_vals * 4, 0,
+          launches_path="the probe phase (8)",
+          kernel_a_same_values_ms=timer(lambda: kernels.gather_rows(
+              src3, ids_same, planes_in=True)),
+          library_call=None,
+          shape=f"x [{NT}, 128], win0 [{NV}], widx/lidx/out [{NV}, 8, 128]")
+    f = report[-1]
+    f["routed_values"] = n_vals
+    f["values_per_s"] = n_vals / (f["ms"] * 1e-3)
+    f["kernel_a_values_per_s"] = n_vals / (f["kernel_a_same_values_ms"]
+                                           * 1e-3)
+    log(f"route_window: {f['values_per_s'] / 1e9:.1f} Gvalues/s; kernel A "
+        f"(rows from planes, 3 values a slot) on the same {n_vals} values "
+        f"{f['kernel_a_same_values_ms']:.4f} ms, "
+        f"{f['kernel_a_values_per_s'] / 1e9:.1f} Gvalues/s")
+    for r in report:
+        if r["name"].startswith(("gather_rows", "segment_sum_rows")):
+            log(f"{r['name']}: {r['ms'] / r['library_ms']:.3f} x its library "
+                f"call, {r['ms'] / r['bound_ms']:.3f} x its bound")
+
     summary.update(
-        dense_contract_ms=timer(lambda: rk._contract(ue_slots)),
         dense_bmm_ms=timer(lambda: torch.bmm(rk.KeP, ue_dense)),
         dense_bmm_bound_ms=rk.KeP.numel() * 4 / HBM_BYTES_PER_S * 1e3,
         cg_iter_ms=wall / max(res.iters, 1) * 1e3,

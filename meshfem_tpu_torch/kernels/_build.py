@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("gather_planes.cu", "segment_sum_csr.cu", "qp_contract.cu",
-           "factored_contract.cu", "element_stiffness.cu")
+           "factored_contract.cu", "element_stiffness.cu",
+           "route_window.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -99,16 +100,19 @@ def load() -> ctypes.CDLL:
         P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_float)
         lib.gather_planes_f32.argtypes = [P, P, P, I, L, L, P]
-        for fn in (lib.segment_sum_csr_f32, lib.segment_sum_csr_f64):
-            fn.argtypes = [P, P, P, P, I, L, L, P]
+        lib.gather_rows_f32.argtypes = [P, P, P, I, L, L, L, I, P]
+        for fn in (lib.segment_sum_f32, lib.segment_sum_f64):
+            fn.argtypes = [P, P, P, P, I, L, L, L, L, L, P]
         lib.qp_set_tables.argtypes = [I, P, I, P, I]
         lib.qp_contract_f32.argtypes = [I, P, P, P, P, F, F, L, P]
         lib.factored_contract_f32.argtypes = [I, P, P, P, P, P, F, F, L, P]
         lib.element_stiffness_f32.argtypes = [P, P, P, P, I, I, L, P]
-        for fn in (lib.gather_planes_f32, lib.segment_sum_csr_f32,
-                   lib.segment_sum_csr_f64, lib.qp_set_tables,
-                   lib.qp_contract_f32, lib.factored_contract_f32,
-                   lib.element_stiffness_f32):
+        lib.route_window_f32.argtypes = [P, P, P, P, P, I, L, L, I, P]
+        for fn in (lib.gather_planes_f32, lib.gather_rows_f32,
+                   lib.segment_sum_f32, lib.segment_sum_f64,
+                   lib.qp_set_tables, lib.qp_contract_f32,
+                   lib.factored_contract_f32, lib.element_stiffness_f32,
+                   lib.route_window_f32):
             fn.restype = I
         _lib = lib
         return _lib

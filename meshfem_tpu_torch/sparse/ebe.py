@@ -5,9 +5,11 @@ vector and multi-RHS applies and the diagonal.  In the port it is the float64
 residual operator of iterative refinement: the gather is a plain index, the
 per-element product a batched matmul (XLA einsum / multiply-reduce in the
 reference), and the scatter runs on kernel B in float64 (``ScatterPlan``),
-deterministic where ``index_add_`` on CUDA would use float atomics.  A
-block ``u [N, d, m]`` is one batched matmul and one segment sum over
-``d * m`` planes.
+deterministic where ``index_add_`` on CUDA would use float atomics.  The
+element forces ``fe [E*n, d*m]`` (rows ``e * n + a``, the bmm's own
+layout) are summed as rows straight into ``[N, d*m]``: a block
+``u [N, d, m]`` is one batched matmul and one segment sum, with no
+transpose.
 """
 
 from __future__ import annotations

@@ -1,34 +1,44 @@
 """Routed element-by-element operator: the fast float32 general-mesh SpMV.
 
 Counterpart of ``meshfem_tpu/sparse/routed_ebe.py::RoutedEBE``.  An apply
-``A u = scatter(Ke @ gather(u))`` runs as three steps on component planes
-``[d, N]``:
+``A u = scatter(Ke @ gather(u))`` runs as three launches:
 
-1. kernel A (``gather_planes``): slot <- node, one int32 index per slot
-   shared by the d planes;
+1. kernel A, slot <- node, one int32 index per slot shared by all values
+   of the node;
 2. the element contraction: ``torch.bmm`` against the dense float32 ``Ke``
    (an XLA einsum in the reference, ``routed_ebe.py:690``), or kernel C
    (``qp_contract``) for the factored isotropic backend, which reads
    grad_lambda and the volume instead of Ke, or kernel D
    (``factored_contract``, the gradgrad-table form of the same product)
    when ``MESHFEM_FACTORED_TQ=1``, read as the reference reads it (:720);
-3. kernel B (``segment_sum_csr``): slots -> nodes in a fixed order.
+3. kernel B, slots -> nodes in a fixed order.
 
-The reference's chain buckets, windows, superblocks, 128-lane padding and
-scatter ladder work around the TPU's lane-rigid gather and are not carried
-over: one gather index stream plus one destination-sorted CSR plan replace
-the whole plan set.  Slots are laid out element-fastest, ``s = a * E + e``
-(node ``a`` of element ``e``), so kernel C and the dense contraction read
-coalesced.
+The two backends keep their data in the layout their contraction reads:
+
+* dense: NODE ROWS.  ``KeP`` keeps ``Ke``'s node-major dof order
+  (``a * d + c``); slots are element-major (``ids_em``, ``s = e * n + a``),
+  so kernel A's rows output ``[E*n, d*m]`` IS the ``bmm`` operand
+  ``[E, n*d, m]`` and the ``bmm`` result is kernel B's rows input.
+  ``apply_block`` reads ``U [N, d, m]`` and writes ``[N, d, m]`` as they
+  lie; ``apply_planes`` reads and writes the CG's ``[d, N]`` planes through
+  kernel A's and B's strides.  No layout copy on either;
+* factored: component PLANES ``[d, n*E]``, slots element-fastest
+  (``ids``, ``s = a * E + e``), which kernels C and D read coalesced.
+
+``plan_em`` is ``plan`` with each slot ``a * E + e`` renumbered
+``e * n + a``, so both layouts sum every node's contributions in the same
+order.  The reference's chain buckets, windows, superblocks, 128-lane
+padding and scatter ladder work around the TPU's lane-rigid gather and are
+not carried over.
 
 The internal reordering is the reference's exactly (``routed_ebe.py:449-470``):
 elements along ``rcb_order`` of their centroids, nodes by first touch, so
 ``order`` and ``rank`` equal the reference's integer for integer.
 
 ``apply_block`` (reference :787-850) sends all m columns and d components
-of a block through ONE gather and ONE segment sum as ``d * m`` planes,
-plane ``p = c * m + j``.  Kernel A's one index stream already serves any
-number of planes, so no second plan set is built; ``block_rhs`` is only
+of a block through ONE gather and ONE segment sum as ``d * m`` values a
+node (``c * m + j``).  Kernel A's one index stream already serves any
+number of values, so no second plan set is built; ``block_rhs`` is only
 recorded (``bm``).
 """
 
@@ -41,7 +51,8 @@ import numpy as np
 import torch
 
 from .. import config
-from ..kernels import factored_contract, gather_planes, qp_contract
+from ..kernels import (factored_contract, gather_planes, gather_rows,
+                       qp_contract)
 from ..mesh.reorder import rcb_order
 from ..ops.element_matrices import gradgrad_table
 from .scatter import ScatterPlan, _INT32_MAX
@@ -62,16 +73,18 @@ class RoutedEBE:
 
     Two contraction backends:
 
-    * dense: ``KeP [E, d*n, d*n]`` float32 with rows and columns ordered
-      component-major (``c * n + a``), matching the plane layout;
+    * dense: ``KeP [E, n*d, n*d]`` float32 in ``Ke``'s node-major dof
+      order (``a * d + c``), matching the node-row layout;
     * factored isotropic (``g``/``vol``/``lam``/``mu`` set, ``KeP`` None):
       ``vol Ke u`` from grad_lambda ``g [(K+1) d, E]`` and ``vol [E]``
       through kernel C (or D) — 13 floats per element at P2/3D instead
       of 900.
     """
 
-    ids: torch.Tensor                # [n*E] int32 slot -> internal node
-    plan: ScatterPlan                # slots -> internal nodes (CSR)
+    ids: torch.Tensor                # [n*E] int32 slot a*E + e -> node
+    plan: ScatterPlan                # slots a*E + e -> internal nodes (CSR)
+    ids_em: torch.Tensor             # [E*n] int32 slot e*n + a -> node
+    plan_em: ScatterPlan             # plan over slots e*n + a, same order
     order: torch.Tensor | None       # [N] user dof held by internal slot i
     rank: torch.Tensor | None        # [N] internal slot of user dof
     num_dofs: int                    # nodes
@@ -128,9 +141,13 @@ class RoutedEBE:
         slot_node = np.ascontiguousarray(elem_dofs.T).reshape(-1)  # a*E + e
         ids = torch.as_tensor(slot_node.astype(np.int32), device=dev)
         plan = ScatterPlan.build(slot_node, N, dev)
-        op = cls(ids=ids, plan=plan, order=order, rank=rank, num_dofs=N,
-                 vector_dim=d, num_elements=E, nodes_per_elem=n,
-                 bm=int(block_rhs or 0))
+        ids_em = torch.as_tensor(elem_dofs.reshape(-1).astype(np.int32),
+                                 device=dev)
+        s = torch.arange(n * E, device=dev)
+        plan_em = plan.renumbered(s % E * n + s // E)   # a*E + e -> e*n + a
+        op = cls(ids=ids, plan=plan, ids_em=ids_em, plan_em=plan_em,
+                 order=order, rank=rank, num_dofs=N, vector_dim=d,
+                 num_elements=E, nodes_per_elem=n, bm=int(block_rhs or 0))
         ep = None if eperm is None else torch.as_tensor(eperm, device=dev)
         if factor is not None:
             gl, volume, lam, mu, deg = factor
@@ -147,10 +164,7 @@ class RoutedEBE:
             if tuple(Ke.shape) != (E, n * d, n * d):
                 raise ValueError(f"Ke must be {(E, n * d, n * d)}")
             Ke = Ke.to(config.SOLVE)
-            if ep is not None:
-                Ke = Ke[ep]
-            op.KeP = Ke.reshape(E, n, d, n, d).permute(0, 2, 1, 4, 3) \
-                .reshape(E, n * d, n * d).contiguous()
+            op.KeP = (Ke if ep is None else Ke[ep]).contiguous()
         return op
 
     # ------------------------------------------------------------------
@@ -164,46 +178,62 @@ class RoutedEBE:
         return y if self.rank is None else y[self.rank]
 
     def _contract(self, ue):
-        """ue [d, n*E] gathered element values -> forces [d, n*E]."""
+        """Factored backend: ue [d, n*E] gathered element values -> forces
+        [d, n*E] (kernel C, or D under ``MESHFEM_FACTORED_TQ=1``)."""
         d, n, E = self.vector_dim, self.nodes_per_elem, self.num_elements
-        if self.KeP is not None:
-            fe = torch.bmm(self.KeP, ue.reshape(d * n, E).t().unsqueeze(-1))
-            return fe.reshape(E, d * n).t().contiguous().reshape(d, n * E)
         kernel = (factored_contract
                   if os.environ.get("MESHFEM_FACTORED_TQ") == "1"
                   else qp_contract)
         return kernel(self.g, self.vol, ue.reshape(d, n, E).contiguous(),
                       self.lam, self.mu).reshape(d, n * E)
 
+    def _dense(self, src, planes_in: bool, planes_out: bool):
+        """Dense backend on P = d*m values a node: kernel A (rows) -> one
+        ``bmm`` with the node-major ``KeP`` -> kernel B (rows).  src [N, P]
+        node rows or [P, N] planes; returns the same choice of layout."""
+        E, nd = self.num_elements, self.nodes_per_elem * self.vector_dim
+        ue = gather_rows(src, self.ids_em, planes_in=planes_in)  # [E*n, P]
+        m = ue.shape[1] // self.vector_dim
+        fe = torch.bmm(self.KeP, ue.view(E, nd, m))
+        return self.plan_em.sum_rows(fe.view(ue.shape), planes_out)
+
     def apply_planes(self, src: torch.Tensor) -> torch.Tensor:
         """Plane-native apply: ``src [d, N] -> A src [d, N]`` (float32)."""
-        ue = gather_planes(src.to(config.SOLVE).contiguous(), self.ids)
-        return self.plan.sum_planes(self._contract(ue))
+        src = src.to(config.SOLVE).contiguous()
+        if self.KeP is not None:
+            return self._dense(src, planes_in=True, planes_out=True)
+        return self.plan.sum_planes(self._contract(gather_planes(src,
+                                                                 self.ids)))
 
     def __call__(self, u: torch.Tensor) -> torch.Tensor:
         """u [N] (d = 1) or [N, d] -> A u in the same layout (float32)."""
         d = self.vector_dim
-        src = u.to(config.SOLVE).reshape(self.num_dofs, d).t()
-        return self.apply_planes(src).t().reshape(u.shape)
+        src = u.to(config.SOLVE).reshape(self.num_dofs, d)
+        if self.KeP is not None:
+            y = self._dense(src.contiguous(), planes_in=False,
+                            planes_out=False)
+            return y.reshape(u.shape)
+        return self.apply_planes(src.t()).t().reshape(u.shape)
 
     def diagonal_planes(self) -> torch.Tensor:
         """Assembled operator diagonal (Jacobi) in plane layout [d, N]."""
         d, n, E = self.vector_dim, self.nodes_per_elem, self.num_elements
         if self.KeP is not None:
-            de = torch.diagonal(self.KeP, dim1=1, dim2=2).t()   # [d*n, E]
-        else:
-            # diag Ke[(a c)(a c)] = vol sum_kl T[klaa]
-            #                       (mu g_k.g_l + (lam + mu) g_kc g_lc)
-            K1 = self.g.shape[0] // d
-            gl = self.g.reshape(K1, d, E)
-            T = torch.as_tensor(gradgrad_table(K1 - 1, self.deg),
-                                dtype=gl.dtype, device=gl.device)
-            Taa = torch.einsum("klaa->kla", T)
-            G2 = torch.einsum("kce,mce->kme", gl, gl)
-            iso = self.mu * torch.einsum("kla,kle->ae", Taa, G2)
-            dirn = (self.lam + self.mu) * torch.einsum(
-                "kla,kce,lce->cae", Taa, gl, gl)
-            de = self.vol * (iso[None] + dirn)                  # [d, n, E]
+            de = torch.diagonal(self.KeP, dim1=1, dim2=2)       # [E, n*d]
+            return self.plan_em.sum_rows(de.reshape(E * n, d),
+                                         planes_out=True)
+        # diag Ke[(a c)(a c)] = vol sum_kl T[klaa]
+        #                       (mu g_k.g_l + (lam + mu) g_kc g_lc)
+        K1 = self.g.shape[0] // d
+        gl = self.g.reshape(K1, d, E)
+        T = torch.as_tensor(gradgrad_table(K1 - 1, self.deg),
+                            dtype=gl.dtype, device=gl.device)
+        Taa = torch.einsum("klaa->kla", T)
+        G2 = torch.einsum("kce,mce->kme", gl, gl)
+        iso = self.mu * torch.einsum("kla,kle->ae", Taa, G2)
+        dirn = (self.lam + self.mu) * torch.einsum(
+            "kla,kce,lce->cae", Taa, gl, gl)
+        de = self.vol * (iso[None] + dirn)                      # [d, n, E]
         return self.plan.sum_planes(de.contiguous().reshape(d, n * E))
 
     def diagonal(self) -> torch.Tensor:
@@ -214,23 +244,25 @@ class RoutedEBE:
     def apply_block(self, U: torch.Tensor) -> torch.Tensor:
         """Multi-RHS apply: ``U [N, d, m] -> A U`` (also ``[N, m]`` when
         d == 1), float32.  One gather and one segment sum serve all
-        ``d * m`` planes.  Dense backend: ONE ``torch.bmm`` of ``KeP`` with
-        ``[E, d*n, m]``, so the stiffness is read once for all columns (an
-        XLA einsum in the reference, :840).  Factored backend: the
-        contraction kernel per column, as the reference runs it (:844)."""
+        ``d * m`` values of a node.  Dense backend: kernel A reads ``U``'s
+        node rows as they lie, ONE ``torch.bmm`` of ``KeP`` with
+        ``[E, n*d, m]`` reads the stiffness once for all columns (an XLA
+        einsum in the reference, :840), kernel B writes ``[N, d, m]``.
+        Factored backend: planes ``p = c*m + j``, the contraction kernel
+        per column, as the reference runs it (:844)."""
         d, n, E = self.vector_dim, self.nodes_per_elem, self.num_elements
         N = self.num_dofs
         m = U.shape[-1]
-        src = U.to(config.SOLVE).reshape(N, d, m).permute(1, 2, 0) \
+        U = U.to(config.SOLVE)
+        if self.KeP is not None:
+            y = self._dense(U.reshape(N, d * m).contiguous(),
+                            planes_in=False, planes_out=False)
+            return y.reshape(U.shape)
+        src = U.reshape(N, d, m).permute(1, 2, 0) \
             .reshape(d * m, N).contiguous()              # plane p = c*m + j
         ue = gather_planes(src, self.ids).reshape(d, m, n, E)
-        if self.KeP is not None:
-            fem = torch.bmm(self.KeP,
-                            ue.permute(3, 0, 2, 1).reshape(E, d * n, m))
-            fe = fem.reshape(E, d, n, m).permute(1, 3, 2, 0)
-        else:
-            fe = torch.stack(
-                [self._contract(ue[:, j].reshape(d, n * E))
-                 .reshape(d, n, E) for j in range(m)], dim=1)
-        y = self.plan.sum_planes(fe.reshape(d * m, n * E).contiguous())
+        fe = torch.stack(
+            [self._contract(ue[:, j].reshape(d, n * E)).reshape(d, n, E)
+             for j in range(m)], dim=1)
+        y = self.plan.sum_planes(fe.reshape(d * m, n * E))
         return y.reshape(d, m, N).permute(2, 0, 1).reshape(U.shape)

@@ -5,7 +5,10 @@ reference builds a two-level pyramid of flat gathers because XLA:TPU
 scatters are slow; on the GPU one plan (``perm``: rows sorted stably by
 segment, ``offsets [N+1]``) feeds kernel B (``kernels/segment_sum.py``),
 whose per-segment sums run in a fixed order: bit-for-bit deterministic,
-no atomics, in float32 or float64.
+no atomics, in float32 or float64.  Contributions come as rows ``[R, w]``
+(``__call__``, ``sum_rows``: the f64 EBE operator, node blocks, the dense
+routed applies) or as planes ``[P, R]`` (``sum_planes``: the factored
+routed contractions); rows are summed as they lie, with no transpose.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import segment_sum_csr
+from ..kernels import segment_sum_csr, segment_sum_rows
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -44,12 +47,23 @@ class ScatterPlan:
                    torch.as_tensor(offsets, device=device),
                    len(ids), int(num_segments))
 
+    def renumbered(self, new_row: torch.Tensor) -> "ScatterPlan":
+        """The same plan over rows renumbered ``r -> new_row[r]``: every
+        segment sums the same contributions in the same order."""
+        return dataclasses.replace(
+            self, perm=new_row[self.perm.long()].to(torch.int32))
+
     def sum_planes(self, src: torch.Tensor) -> torch.Tensor:
         """src [P, R] (contiguous planes) -> [P, N]."""
         return segment_sum_csr(src, self.perm, self.offsets)
 
+    def sum_rows(self, src: torch.Tensor,
+                 planes_out: bool = False) -> torch.Tensor:
+        """src [R, P] (contiguous rows) -> [N, P] (or [P, N] when
+        ``planes_out``)."""
+        return segment_sum_rows(src, self.perm, self.offsets, planes_out)
+
     def __call__(self, rows: torch.Tensor) -> torch.Tensor:
         """rows [R] or [R, w] -> [N] or [N, w] segment sums."""
-        if rows.dim() == 1:
-            return self.sum_planes(rows.reshape(1, -1))[0]
-        return self.sum_planes(rows.t().contiguous()).t()
+        y = self.sum_rows(rows.reshape(self.num_rows, -1).contiguous())
+        return y.reshape((self.num_segments,) + tuple(rows.shape[1:]))

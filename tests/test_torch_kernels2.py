@@ -151,8 +151,9 @@ def test_element_stiffness_feeds_simulator_Ke():
 
 def test_wrappers_registered_with_launch_counts():
     names = [w.__name__ for w in kernels.WRAPPERS]
-    assert names == ["gather_planes", "segment_sum_csr", "qp_contract",
-                     "factored_contract", "element_stiffness"]
+    assert names == ["gather_planes", "gather_rows", "segment_sum_csr",
+                     "segment_sum_rows", "qp_contract", "factored_contract",
+                     "element_stiffness", "route_window"]
     kernels.factored_contract.launches = 3
     kernels.reset_launch_counts()
     assert all(w.launches == 0 for w in kernels.WRAPPERS)

@@ -156,8 +156,7 @@ def test_dense_routed_Ke_assembled_by_element_stiffness(problem, monkeypatch):
     rk = sim.routed_kernel()
     assert calls == [(torch.float32, (144, 900))]
     E = sim.mesh.num_elements
-    Ke32 = rk.KeP.reshape(E, 3, 10, 3, 10).permute(0, 2, 1, 4, 3) \
-        .reshape(E, 30, 30)
+    Ke32 = rk.KeP                     # node-major, as Ke
     # build() sorted the elements along its RCB order: compare as sets of
     # per-element norms and through the apply
     assert _rel(np.sort(Ke32.reshape(E, -1).norm(dim=1).numpy()),

@@ -20,9 +20,10 @@ of which raises on failure:
    of max|y|),
    D (1e-5 of max|y|, and 5e-6 against C on the same inputs), E (1e-5 of
    max|Ke| against its plain version and against the simulator's float64
-   Ke, and again at the same size on seeded random gradients and volumes,
-   which excite every term of the product where a Kuhn grid's few distinct
-   gradients do not);
+   Ke, whose error the plain one-product form's is printed beside, and
+   again at the same size on seeded random gradients and volumes, which
+   excite every term of the product where a Kuhn grid's few distinct
+   gradients do not, with the isotropic and a seeded anisotropic material);
 4. the main path: ``sim.routed_kernel()`` (the dense operator, whose
    float32 ``Ke`` kernel E assembles) and ``sim.solve(operator="routed",
    tol=1e-10)``, float32 routed CG inside float64 iterative refinement.
@@ -74,7 +75,11 @@ of which raises on failure:
    fewest operations a known algorithm does), so D shares kernel C's and
    E's operations are those of the material-first contraction; the time
    the kernel's own algorithm needs at the peak rate is printed beside it
-   as ``algorithm_ops_ms``;
+   as ``algorithm_ops_ms`` (D: the reassociated table form; E: the
+   material-first contraction with H's symmetry, at the float64 rate it
+   runs at), and the compiler's
+   register, shared-memory and spill report (``-Xptxas -v``) of D and E
+   as ``ptxas``;
 11. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
@@ -491,11 +496,21 @@ def main() -> int:
     so = _build.build()
     _build.load()
     log(f"kernels built in {time.time() - t0:.1f} s -> {so.name}")
+    ptxas = {}                        # source -> its -Xptxas -v lines
     ptx_log = so.with_suffix(".log")
     if ptx_log.exists():
+        source = None
         for line in ptx_log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
+            if line.startswith("== "):
+                source = line.split()[1]
+            elif any(k in line for k in ("entry function", "registers",
+                                         "spill")):
+                ptxas.setdefault(source, []).append(line.strip())
+    for source, lines in ptxas.items():
+        for line in lines:
+            if source in ("factored_contract.cu", "element_stiffness.cu") \
+                    or "entry function" not in line:
+                log(f"  ptxas {source}:", line)
 
     os.environ.pop("MESHFEM_FACTORED", None)
     n = BENCH_N
@@ -639,35 +654,45 @@ def main() -> int:
 
     gl32 = sim.geom.grad_lambda.float().contiguous()
     vol32 = sim.geom.volume.float().contiguous()
-    M32 = torch.as_tensor(em.fused_matrix_for(sim.D, 3, 2),
-                          dtype=torch.float32, device=dev)
-    Ke32 = kernels.element_stiffness(gl32, vol32, M32)
+    D_host = sim.D.cpu()              # E's material, kept off the timed path
+    Ke32 = kernels.element_stiffness(gl32, vol32, D_host, 2)
     torch.cuda.synchronize()
-    e_ref = kernels.element_stiffness_plain(gl32, vol32, M32)
+    e_ref = kernels.element_stiffness_plain(gl32, vol32, D_host, 2)
+    Ke64_32 = sim.Ke.float()
     ke_max = float(e_ref.abs().max())
     err_e = float((Ke32 - e_ref).abs().max())
-    err_e64 = float((Ke32 - sim.Ke.float()).abs().max())
-    del e_ref
+    err_e64 = float((Ke32 - Ke64_32).abs().max())
+    err_plain64 = float((e_ref - Ke64_32).abs().max())
+    del e_ref, Ke64_32
     log(f"E element_stiffness: max abs err {err_e:.3e} against plain, "
-        f"{err_e64:.3e} against the f64 Ke, max|Ke| {ke_max:.3e}")
+        f"{err_e64:.3e} against the f64 Ke (the plain one-product form: "
+        f"{err_plain64:.3e}), max|Ke| {ke_max:.3e}")
     if not (err_e <= 1e-5 * ke_max and err_e64 <= 1e-5 * ke_max):
         raise RuntimeError("element_stiffness disagrees with its plain "
                            "version or the f64 Ke")
     del Ke32
     gl_r = torch.randn((E, 4, 3), generator=gen, device=dev)
     vol_r = torch.rand((E,), generator=gen, device=dev) + 0.5
-    e_out = kernels.element_stiffness(gl_r, vol_r, M32)
-    e_ref = kernels.element_stiffness_plain(gl_r, vol_r, M32)
-    torch.cuda.synchronize()
-    err_e_rand = float((e_out - e_ref).abs().max())
-    ke_max_rand = float(e_ref.abs().max())
-    del e_out, e_ref, gl_r, vol_r
-    log(f"E element_stiffness on seeded random gradients and volumes "
-        f"[{E}]: max abs err {err_e_rand:.3e} against plain, max|Ke| "
-        f"{ke_max_rand:.3e} ({err_e_rand / ke_max_rand:.3e} of it)")
-    if not err_e_rand <= 1e-5 * ke_max_rand:
-        raise RuntimeError("element_stiffness disagrees with its plain "
-                           "version on random inputs")
+    A_r = np.random.default_rng(5).standard_normal((6, 6))
+    D_aniso = torch.as_tensor(50.0 * (A_r @ A_r.T + 6.0 * np.eye(6)))
+    err_e_rand = {}
+    for kind, Dm in (("isotropic", D_host), ("anisotropic", D_aniso)):
+        e_out = kernels.element_stiffness(gl_r, vol_r, Dm, 2)
+        e_ref = kernels.element_stiffness_plain(gl_r, vol_r, Dm, 2)
+        torch.cuda.synchronize()
+        err, scale = (float((e_out - e_ref).abs().max()),
+                      float(e_ref.abs().max()))
+        del e_out, e_ref
+        err_e_rand[kind] = (err, scale)
+        log(f"E element_stiffness on seeded random gradients and volumes "
+            f"[{E}], {kind} material: max abs err {err:.3e} against plain, "
+            f"max|Ke| {scale:.3e} ({err / scale:.3e} of it)")
+        if not err <= 1e-5 * scale:
+            raise RuntimeError(f"element_stiffness disagrees with its plain "
+                               f"version on random inputs ({kind})")
+    del gl_r, vol_r
+    err_e_rand_aniso = err_e_rand["anisotropic"]
+    err_e_rand, ke_max_rand = err_e_rand["isotropic"]
 
     # -- 4. the main path: dense routed solve at full width ----------------
     u, res, wall, counts_dense, applies_dense = drive_solve(
@@ -732,7 +757,7 @@ def main() -> int:
     # -- 6. the assembly path (kernel E) -----------------------------------
     kernels.reset_launch_counts()
     t0 = time.time()
-    Ke32 = kernels.element_stiffness(gl32, vol32, M32)
+    Ke32 = kernels.element_stiffness(gl32, vol32, sim.D, 2)
     rk32 = RoutedEBE.build(Ke32, sim.mesh.elem_nodes, N, 3,
                            coords=sim.mesh.node_positions, device=dev)
     y32 = rk32.apply_planes(inputs[0])
@@ -928,16 +953,18 @@ def main() -> int:
 
     def entry(name, source, replaces, launches, err, fn, plain, library,
               nbytes, flops, algorithm_flops=None, flop_rate=F32_FLOP_PER_S,
-              **extra):
+              algorithm_flop_rate=F32_FLOP_PER_S, **extra):
         """``flops``: the fewest operations a known algorithm needs for the
         function on these inputs (the bound's), at ``flop_rate``;
         ``algorithm_flops``: what the kernel's own algorithm does, where
-        that is more; ``library``: None where no one PyTorch call computes
-        the function."""
+        that is more, at ``algorithm_flop_rate`` (the precision it runs
+        in); ``library``: None where no one PyTorch call computes the
+        function."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / flop_rate * 1e3
         if algorithm_flops is not None:
-            extra["algorithm_ops_ms"] = algorithm_flops / F32_FLOP_PER_S * 1e3
+            extra["algorithm_ops_ms"] = (algorithm_flops / algorithm_flop_rate
+                                         * 1e3)
         d = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches, max_abs_err=err, ms=timer(fn),
                  plain_ms=timer(plain, reps=5), bound_ms=max(t_bytes, t_ops),
@@ -1032,8 +1059,11 @@ def main() -> int:
     hKeP = hrk_d.KeP
     ue_h_dense = ue_h.permute(2, 1, 0).reshape(Eh, 30, 1)
     K1, nn = 4, 10
-    fma_d = (K1 * nn * 3 + 2 * (K1 * nn) ** 2 + 3 * K1 * K1 * nn * nn
-             + K1 * K1 * 3 + 3 * nn * (K1 * K1 + 3 * K1))
+    NG, NPAIR = K1 * (K1 + 1) // 2, nn * (nn + 1) // 2
+    # the kernel's reassociated table form, per element: d1, S d1, f from
+    # g and A, the distinct G2, the distinct W, W u, the volume
+    fma_d = (K1 * nn * 3 + (K1 * nn) ** 2 + 3 * nn * K1 + NG * 3
+             + NPAIR * NG + 3 * nn * nn + 3 * nn)
     entry("factored_contract", "meshfem_tpu_torch/csrc/factored_contract.cu",
           "meshfem_tpu/sparse/contract.py:91",
           homog["factored_tq"]["launches"]["factored_contract"], err_dh,
@@ -1045,6 +1075,7 @@ def main() -> int:
           vs_kernel_c=rel_dc, max_rel_err_bench_mesh=rel_d,
           qp_contract_same_inputs_ms=timer(
               lambda: kernels.qp_contract(hg, hvol, ue_h, lam, mu)),
+          ptxas=ptxas.get("factored_contract.cu", []),
           library_call="torch.bmm with the dense f32 Ke",
           shape=f"g [12, {Eh}], vol [{Eh}], ue [3, 10, {Eh}] f32")
     ue_h_block = torch.randn((Eh, 30, 6), generator=gen, device=dev)
@@ -1057,20 +1088,31 @@ def main() -> int:
             hsim.apply_K, [U64 * (1 + i) for i in range(5)]))
     del hKeP, ue_h_dense, ue_h_block, U64
 
+    M32 = torch.as_tensor(em.fused_matrix_for(sim.D, 3, 2),
+                          dtype=torch.float32, device=dev)
     gg32 = torch.einsum("eka,elb->ekalb", gl32, gl32).reshape(E, 144) \
         * vol32[:, None]
     entry("element_stiffness", "meshfem_tpu_torch/csrc/element_stiffness.cu",
           "meshfem_tpu/kernels/element_stiffness.py:42",
           counts_dense["element_stiffness"], err_e,
-          lambda: kernels.element_stiffness(gl32, vol32, M32),
-          lambda: kernels.element_stiffness_plain(gl32, vol32, M32),
+          lambda: kernels.element_stiffness(gl32, vol32, D_host, 2),
+          lambda: kernels.element_stiffness_plain(gl32, vol32, D_host, 2),
           lambda: em.element_elasticity_fused_apply(gl32, vol32, M32, 10),
           (12 + 1 + 900) * E * 4 + M32.numel() * 4,
           # material first, table second: H[k,l,c,f] = g_ka g_lb C_cafb
           # (144 x 9 FMAs), Ke = vol T[k,l,i,j] H[k,l,c,f] (900 x 16 FMAs)
           (2 * (144 * 9 + 900 * 16) + 900) * E,
-          algorithm_flops=2 * 144 * 900 * E + 2 * 144 * E,
+          # the kernel's, in float64: H's 10 distinct (k <= l) blocks (9
+          # products g g, 9 x 9 FMAs each), 900 x 16 FMAs for Ke and 900
+          # volume products
+          algorithm_flops=(2 * (10 * (9 + 81) + 900 * 16) + 900) * E,
+          algorithm_flop_rate=F64_FLOP_PER_S,
           max_abs_err_vs_f64=err_e64, max_abs_Ke=ke_max,
+          max_abs_err_plain_vs_f64=err_plain64,
+          dense_solve_inner_iters=res.iters,
+          max_rel_err_random_anisotropic=(err_e_rand_aniso[0]
+                                          / err_e_rand_aniso[1]),
+          ptxas=ptxas.get("element_stiffness.cu", []),
           max_abs_err_random_inputs=err_e_rand,
           max_abs_Ke_random_inputs=ke_max_rand,
           launches_assembly_path=counts_asm["element_stiffness"],
@@ -1081,6 +1123,9 @@ def main() -> int:
                        "(einsum + torch.matmul, TF32 off)",
           shape=f"grad_lambda [{E}, 4, 3], vol [{E}], M [144, 900] f32")
     del gg32
+    log(f"E against the f64 Ke: kernel {err_e64:.3e}, the plain one-product "
+        f"form {err_plain64:.3e} (max|Ke| {ke_max:.3e}); dense clamped "
+        f"solve {res.iters} inner iterations")
 
     # A and B at the 18 planes of the block apply (the cell's operator)
     hids, Sh = hrk.ids, hrk.ids.shape[0]

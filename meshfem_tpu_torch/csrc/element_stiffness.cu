@@ -1,154 +1,274 @@
-// Kernel E: element_stiffness — fused float32 element-stiffness assembly
+// Kernel E: element_stiffness — float32 element-stiffness assembly of a
+// constant material
 //
-//   Ke[e, :] = vol_e (g_e (x) g_e) @ M
+//   Ke[e, (i,c), (j,f)] = vol_e sum_{k,l,a,b} g_ka g_lb T[k,l,i,j] C[c,a,f,b]
 //
-// with g_e = grad_lambda[e] flattened (gdim = (K+1) d floats) and M the
-// constant fused material/integral matrix [gdim^2, (n d)^2]
-// (ops/element_matrices.fused_matrix_for).
+// (= vol_e (g_e (x) g_e) @ M with M[(k,a,l,b),(i,c,j,f)] = T[k,l,i,j]
+// C[c,a,f,b], ops/element_matrices.fused_matrix_for), with g_e =
+// grad_lambda[e] [K1, d], T the gradgrad table [K1, K1, n, n] and C the
+// full material tensor [d, d, d, d]; dofs interleaved, row i d + c.
 //
 // Replaces meshfem_tpu/kernels/element_stiffness.py::_asm_kernel (:42), the
 // float32 drop-in for element_elasticity_fused_apply.  The TPU kernel pads
 // (n d)^2 = 900 to 1024 lanes, passes the volume as a [BE, 1] block and
-// builds the Gram block by lane concatenation for one matrix-unit product;
-// none of that is carried over.  The product is written out by hand as a
-// register-tiled float32 FMA loop (no tensor cores: the reference asks for
-// full float32, and TF32 would leave ~1e-3 error in the operator).
+// builds the Gram block by lane concatenation for ONE matrix-unit product
+// with M (144 x 900 multiply-adds an element); none of that is carried over.
 //
-// Bound on the H100: memory, ~0.30 ms for the 1.0 GB it writes at the
-// bench size (E = 279,936, P2 tets) at 3.35 TB/s.  The function itself
-// needs few operations: contracting the material into the Gram block first
-// (H[k,l,c,f], 1,296 multiply-adds) and the table second (900 x 16) gives
-// Ke in ~15.7k multiply-adds per element, ~0.13 ms at the 67 TFLOP/s
-// float32 rate.  The ONE-product form kept here from the TPU kernel does
-// 2 gdim^2 (n d)^2 flops per element, 72.6 GFLOP and ~1.08 ms at that rate:
-// that is this algorithm's own arithmetic time, not a bound of the function.
+// Bound on the H100: memory, ~0.30 ms for the 1.0 GB of Ke it writes at the
+// bench size (E = 279,936, P2 tets) at 3.35 TB/s.  The kernel contracts
+// the material first and the table second:
 //
-// Design: a block of 256 threads owns a tile of 128 elements x 64 columns
-// of Ke.  M has 144 x 900 floats (518 KB), more than an SM's shared memory,
-// so its COLUMNS are tiled: the block keeps M[:, c0:c0+64] (36 KB) in
-// dynamic shared memory, and M stays resident in the 50 MB L2 for the other
-// blocks.  The Gram block gg[e, a * gdim + b] = vol_e g[e, a] g[e, b] is
-// never stored: the tile's g and vol * g sit in shared memory as
-// [a][element] (12 KB) and each thread forms its products on the fly, so
-// four blocks fit on an SM.  Thread (ty, tx), ty = 0..15, tx = 0..15,
-// accumulates 8 elements x 4 columns in registers: per step (a, b) of the
-// gdim^2-long reduction it reads one float4 of M and two float4 of g (all
-// conflict-free or broadcast), forms 8 products and does 32 FMAs.  Each
-// thread stores float4s, a half-warp 256 consecutive bytes of one element's
-// row: coalesced.  Column tiles are the fastest block index, so the 15
-// tiles of one element tile run together and fill whole rows of Ke.
-// (n d)^2 must be a multiple of 4 (it is 900, 144, 144 and 36 for the
-// supported elements).
+//   H[k,l,c,f]      = sum_ab g_ka g_lb C[c,a,f,b]            (9 terms)
+//   Ke[(i,c),(j,f)] = vol sum_kl T[k,l,i,j] H[k,l,c,f]        (16 terms)
+//
+// ~15.3k multiply-adds an element (H's 10 distinct blocks k <= l, since
+// H[k,l,c,f] = H[l,k,f,c], and 900 x 16 for Ke).
+//
+// Route: FP64 FMA on the CUDA cores, rounded once to float32 per entry.
+// Not FP32, because the first version of this kernel summed in float32
+// and the dense clamped solve then took 5 refinement rounds and 5,225
+// inner CG iterations (4,099 with the TPU kernel's one product, 3,838 with
+// the float64 Ke cast to float32; H100, 700 W).  The 16-term sum cancels
+// (sum_l g_l = 0), and every element of a kind makes the same rounding, so
+// the error does not average out: it breaks the rigid-body modes the soft
+// end of the spectrum feels, and each refinement round reduces the
+// residual less.  Summed in float64, Ke is the float64 Ke cast to float32
+// to within an ulp.  Not 3xTF32 tensor cores either: the store bounds the
+// kernel, and the FP64 pipe (~17 T multiply-adds/s, 0.24 ms for the bench
+// size's 4.0 G) keeps the arithmetic under it without a split operand.
+//
+// What held the first Hopper version back, and what this design does about
+// it:
+// * its one product did 129.6k multiply-adds an element (~1.08 ms of FP32
+//   arithmetic at the bench size, 3.5x the store): the material-first
+//   contraction does 15.3k;
+// * M (518 KB) did not fit in shared memory, so each block re-read a column
+//   tile of it: T (12.8 KB in float64) sits in shared memory for the life
+//   of a block, and C (81 doubles) in the launch's parameters, whose
+//   constant bank the multiply-adds read as operands, with no load.
+//
+// Work unit: one warp owns 32 consecutive lanes t = (e n + i) JS + jh
+// (JS = 2 at P2: a lane takes half of the n nodes j).  The pair (e, i)
+// writes rows i d .. i d + d - 1 of element e, the d (n d) floats of Ke at
+// (e n + i) d (n d), so a warp's output is ONE contiguous run (32 / JS
+// pairs, 5.6 KB at P2).  Per unit, with no block barrier:
+// 1. the lanes compute H in float64 for the (at most 32 / (JS n) + 2)
+//    elements the unit touches, one (element, k <= l) block each, into the
+//    warp's shared memory (g read from device memory, C a parameter);
+// 2. each lane accumulates its d x (n / JS) d outputs in float64 registers
+//    (acc[j][c f] += T[k,l,i,j] H[k,l,c,f]; per (k, l) it reads n / JS table
+//    values and d^2 H values, 16-byte loads, for (n / JS) d^2 FMAs);
+// 3. the lanes scale by the volume, round to float32, stage the run in
+//    shared memory and write it as 16-byte streaming stores (__stcs: Ke is
+//    larger than L2), 512 consecutive bytes a warp instruction.
+// Only __syncwarp orders the three steps, so one warp's stores overlap the
+// others' arithmetic.  Four warps a block, three blocks an SM; T is copied
+// in once per block, and a block walks many units.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBE = 128;      // elements per tile
-constexpr int kBC = 64;       // columns per tile
-constexpr int kTE = 8;        // elements per thread
-constexpr int kTC = 4;        // columns per thread
-constexpr int kThreads = (kBE / kTE) * (kBC / kTC);   // 256
-constexpr int kMaxG = 12;     // gdim at dim 3
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int round2(int x) { return (x + 1) / 2 * 2; }
+
+template <int DIM, int NN>
+struct Shape {
+  static constexpr int K1 = DIM + 1;
+  static constexpr int KK = K1 * K1;
+  static constexpr int G = K1 * DIM;              // floats of g_e
+  static constexpr int D2 = DIM * DIM;
+  static constexpr int JS = NN > 4 ? 2 : 1;       // lanes sharing a row set
+  static constexpr int JN = NN / JS;              // nodes j a lane covers
+  static constexpr int JNP = round2(JN);          // its table row, in doubles
+  static constexpr int HPD = round2(D2);          // one (k, l) block of H
+  static constexpr int HS = KK * HPD + 2;         // one element's H (+4 banks)
+  static constexpr int ND = NN * DIM;
+  static constexpr int CH = DIM * ND;             // floats of one (e, i) pair
+  static constexpr int PW = 32 / JS;              // pairs in a warp's unit
+  static constexpr int EW = PW / NN + 2;          // elements a unit touches
+  static constexpr int T_D = KK * NN * JS * JNP;  // table, doubles
+  static constexpr int WARP_B = EW * HS * 8 + PW * CH * 4;
+  static constexpr size_t SMEM = 8 * T_D + kWarps * WARP_B;
+  static_assert(NN % JS == 0 && WARP_B % 16 == 0 && (EW * HS * 8) % 16 == 0,
+                "16-byte aligned shared-memory regions");
+};
+
+// The material C[c, a, f, b], passed by value: the kernel reads it from the
+// parameter bank at compile-time offsets, as multiply-add operands.
+template <int DIM>
+struct Material {
+  double c[DIM * DIM * DIM * DIM];
+};
+
+// dst[0:N] = src[0:N], src 16-byte aligned shared memory
+template <int N>
+__device__ __forceinline__ void load_row(const double* src, double (&dst)[N]) {
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) {
+    const double2 v = reinterpret_cast<const double2*>(src)[q];
+    dst[2 * q] = v.x;
+    dst[2 * q + 1] = v.y;
+  }
+  if constexpr (N % 2 == 1) dst[N - 1] = src[N - 1];
+}
+
+template <int DIM, int NN>
+__global__ void __launch_bounds__(kThreads, 3)
 element_stiffness_kernel(const float* __restrict__ gl,
                          const float* __restrict__ vol,
-                         const float* __restrict__ M, float* __restrict__ Ke,
-                         int gdim, int nd2, int n_col_tiles, int64_t E) {
-  extern __shared__ float4 smem4[];
-  const int KK = gdim * gdim;
-  float* s_M = reinterpret_cast<float*>(smem4);        // [KK][kBC]
-  __shared__ __align__(16) float s_g[kMaxG][kBE];      // g[a][element]
-  __shared__ __align__(16) float s_gv[kMaxG][kBE];     // vol * g
+                         const double* __restrict__ T_g,
+                         const Material<DIM> C, float* __restrict__ Ke,
+                         int64_t E) {
+  using Sh = Shape<DIM, NN>;
+  constexpr int K1 = Sh::K1, KK = Sh::KK, D2 = Sh::D2, JS = Sh::JS;
+  constexpr int JN = Sh::JN, JNP = Sh::JNP, HPD = Sh::HPD, HS = Sh::HS;
+  constexpr int ND = Sh::ND, CH = Sh::CH, PW = Sh::PW;
+  extern __shared__ double2 smem2[];
+  double* sT = reinterpret_cast<double*>(smem2);   // [KK][NN][JS][JNP]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  char* wbase = reinterpret_cast<char*>(sT + Sh::T_D) + warp * Sh::WARP_B;
+  double* sH = reinterpret_cast<double*>(wbase);   // [EW][KK][HPD], stride HS
+  float* sK = reinterpret_cast<float*>(wbase + Sh::EW * HS * 8);  // [PW][CH]
 
-  const int tid = threadIdx.x;
-  const int64_t bid = blockIdx.x;
-  const int c0 = static_cast<int>(bid % n_col_tiles) * kBC;
-  const int64_t e0 = (bid / n_col_tiles) * kBE;
-
-  // this tile's geometry (zeros past the end) and M column tile
-  for (int idx = tid; idx < kBE * gdim; idx += kThreads) {
-    const int el = idx / gdim, a = idx % gdim;
-    const int64_t e = e0 + el;
-    const float gv = e < E ? __ldg(gl + e * gdim + a) : 0.0f;
-    const float v = e < E ? __ldg(vol + e) : 0.0f;
-    s_g[a][el] = gv;
-    s_gv[a][el] = v * gv;
-  }
-  for (int idx = tid; idx < KK * kBC; idx += kThreads) {
-    const int p = idx / kBC, c = c0 + idx % kBC;
-    s_M[idx] = c < nd2 ? __ldg(M + static_cast<int64_t>(p) * nd2 + c) : 0.0f;
+  for (int r = threadIdx.x; r < Sh::T_D; r += kThreads) {
+    const int jj = r % JNP, row = r / JNP;         // row = (kl NN + i) JS + jh
+    const int j = (row % JS) * JN + jj, kli = row / JS;
+    sT[r] = jj < JN ? __ldg(T_g + kli * NN + j) : 0.0;
   }
   __syncthreads();
 
-  const int tx = tid % (kBC / kTC);
-  const int ty = tid / (kBC / kTC);
-  if (c0 + tx * kTC >= nd2) return;          // no barrier follows
+  const int64_t n_pairs = E * NN;
+  for (int64_t t0 = (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * 32;
+       t0 < n_pairs * JS; t0 += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int64_t p0 = t0 / JS;
+    const int64_t p_end = p0 + PW < n_pairs ? p0 + PW : n_pairs;
+    const int64_t e_first = p0 / NN;
+    const int ne = static_cast<int>((p_end - 1) / NN - e_first) + 1;
 
-  float acc[kTE][kTC];
+    // 1. H[k,l,c,f] = sum_ab g_ka g_lb C[c,a,f,b] in float64, and its
+    //    mirror H[l,k,f,c]
+    for (int task = lane; task < ne * KK; task += 32) {
+      const int el = task / KK, k = task % KK / K1, l = task % K1;
+      if (k > l) continue;
+      const float* ge = gl + (e_first + el) * Sh::G;
+      double gg[D2];
 #pragma unroll
-  for (int i = 0; i < kTE; ++i)
+      for (int a = 0; a < DIM; ++a)
 #pragma unroll
-    for (int j = 0; j < kTC; ++j) acc[i][j] = 0.0f;
-
-  const float4* M4 = reinterpret_cast<const float4*>(s_M) + tx;
-  for (int a = 0; a < gdim; ++a) {
-    const float4* A4 = reinterpret_cast<const float4*>(s_gv[a]) + ty * 2;
-    const float4 a0 = A4[0], a1 = A4[1];
-    const float ga[kTE] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll 4
-    for (int b = 0; b < gdim; ++b) {
-      const float4 mv = M4[(a * gdim + b) * (kBC / 4)];
-      const float4* B4 = reinterpret_cast<const float4*>(s_g[b]) + ty * 2;
-      const float4 b0 = B4[0], b1 = B4[1];
-      const float gb[kTE] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        for (int b = 0; b < DIM; ++b)
+          gg[a * DIM + b] = static_cast<double>(__ldg(ge + k * DIM + a))
+                            * static_cast<double>(__ldg(ge + l * DIM + b));
+      double* h = sH + el * HS;
 #pragma unroll
-      for (int i = 0; i < kTE; ++i) {
-        const float gg = ga[i] * gb[i];
-        acc[i][0] += gg * mv.x;
-        acc[i][1] += gg * mv.y;
-        acc[i][2] += gg * mv.z;
-        acc[i][3] += gg * mv.w;
-      }
+      for (int c = 0; c < DIM; ++c)
+#pragma unroll
+        for (int f = 0; f < DIM; ++f) {
+          double acc = 0.0;
+#pragma unroll
+          for (int a = 0; a < DIM; ++a)
+#pragma unroll
+            for (int b = 0; b < DIM; ++b)
+              acc += C.c[((c * DIM + a) * DIM + f) * DIM + b] * gg[a * DIM + b];
+          h[(k * K1 + l) * HPD + c * DIM + f] = acc;
+          if (k != l) h[(l * K1 + k) * HPD + f * DIM + c] = acc;
+        }
     }
-  }
+    __syncwarp();
 
+    // 2. this lane's block of Ke, float64: rows i DIM + c, columns of
+    //    nodes jh JN .. jh JN + JN - 1; acc[j][c f] = sum_kl T[k,l,i,j]
+    //    H[k,l,c,f]
+    const int64_t t = t0 + lane;
+    const int64_t p = t / JS;
+    const int jh = static_cast<int>(t % JS);
+    const int el = static_cast<int>(p / NN - e_first);
+    const int i = static_cast<int>(p % NN);
+    double acc[JN][D2];
 #pragma unroll
-  for (int i = 0; i < kTE; ++i) {
-    const int64_t e = e0 + ty * kTE + i;
-    if (e < E) {
-      float4* dst = reinterpret_cast<float4*>(Ke + e * nd2 + c0 + tx * kTC);
-      *dst = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int j = 0; j < JN; ++j)
+#pragma unroll
+      for (int cf = 0; cf < D2; ++cf) acc[j][cf] = 0.0;
+#pragma unroll
+    for (int kl = 0; kl < KK; ++kl) {
+      double hv[D2], tv[JN];
+      load_row<D2>(sH + el * HS + kl * HPD, hv);
+      load_row<JN>(sT + ((kl * NN + i) * JS + jh) * JNP, tv);
+#pragma unroll
+      for (int j = 0; j < JN; ++j)
+#pragma unroll
+        for (int cf = 0; cf < D2; ++cf) acc[j][cf] += tv[j] * hv[cf];
     }
+
+    // 3. scale by the volume, round once to float32, stage the warp's run
+    //    (pairs p0 .. p_end - 1 are CH floats each, contiguous in Ke) and
+    //    stream it out
+    const double v = p < n_pairs ? static_cast<double>(__ldg(vol + p / NN))
+                                 : 0.0;
+    float* dst = sK + (p - p0) * CH + jh * JN * DIM;
+#pragma unroll
+    for (int c = 0; c < DIM; ++c)
+#pragma unroll
+      for (int j = 0; j < JN; ++j)
+#pragma unroll
+        for (int f = 0; f < DIM; ++f)
+          dst[c * ND + j * DIM + f] = static_cast<float>(v * acc[j][c * DIM + f]);
+    __syncwarp();
+    const int n4 = static_cast<int>((p_end - p0) * CH / 4);
+    float4* out = reinterpret_cast<float4*>(Ke + p0 * CH);
+    const float4* src = reinterpret_cast<const float4*>(sK);
+    for (int q = lane; q < n4; q += 32) __stcs(out + q, src[q]);
+    __syncwarp();              // the next unit overwrites sH and sK
   }
+}
+
+template <int DIM, int NN>
+int launch(const void* gl, const void* vol, const void* T, const double* C,
+           void* Ke, int64_t E, cudaStream_t stream) {
+  using Sh = Shape<DIM, NN>;
+  Material<DIM> mat;
+  for (int r = 0; r < DIM * DIM * DIM * DIM; ++r) mat.c[r] = C[r];
+  auto kernel = element_stiffness_kernel<DIM, NN>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Sh::SMEM));
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, Sh::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t units = (E * NN * Sh::JS + kThreads - 1) / kThreads;
+  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks =
+      static_cast<unsigned>(units < resident ? units : resident);
+  kernel<<<blocks, kThreads, Sh::SMEM, stream>>>(
+      static_cast<const float*>(gl), static_cast<const float*>(vol),
+      static_cast<const double*>(T), mat, static_cast<float*>(Ke), E);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// gl [E, gdim], vol [E], M [gdim^2, nd2] float32 row-major -> Ke [E, nd2].
-// gdim <= 12, nd2 a multiple of 4, Ke 16-byte aligned.
-extern "C" int element_stiffness_f32(const void* gl, const void* vol,
-                                     const void* M, void* Ke, int gdim,
-                                     int nd2, int64_t E, void* stream) {
-  if (gdim < 1 || gdim > kMaxG || nd2 < 4 || nd2 % 4 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+// cfg: (dim, deg) = 0 (3, 2), 1 (3, 1), 2 (2, 2), 3 (2, 1).  gl [E, K1, d]
+// and vol [E] float32 and T the gradgrad table [K1, K1, n, n] float64, in
+// device memory; C [d, d, d, d] float64 in HOST memory (copied into the
+// launch's parameters) -> Ke [E, n d, n d] float32, 16-byte aligned.
+extern "C" int element_stiffness_f32(int cfg, const void* gl, const void* vol,
+                                     const void* T, const double* C, void* Ke,
+                                     int64_t E, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (E <= 0) return static_cast<int>(cudaGetLastError());
-  const int KK = gdim * gdim;
-  const size_t smem = static_cast<size_t>(KK) * kBC * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      element_stiffness_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_col_tiles = (nd2 + kBC - 1) / kBC;
-  const int64_t n_el_tiles = (E + kBE - 1) / kBE;
-  const int64_t blocks = n_el_tiles * n_col_tiles;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  element_stiffness_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gl), static_cast<const float*>(vol),
-      static_cast<const float*>(M), static_cast<float*>(Ke), gdim, nd2,
-      n_col_tiles, E);
-  return static_cast<int>(cudaGetLastError());
+  switch (cfg) {
+    case 0: return launch<3, 10>(gl, vol, T, C, Ke, E, s);
+    case 1: return launch<3, 4>(gl, vol, T, C, Ke, E, s);
+    case 2: return launch<2, 6>(gl, vol, T, C, Ke, E, s);
+    case 3: return launch<2, 3>(gl, vol, T, C, Ke, E, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -106,7 +106,7 @@ def load() -> ctypes.CDLL:
         lib.qp_set_tables.argtypes = [I, P, I, P, I]
         lib.qp_contract_f32.argtypes = [I, P, P, P, P, F, F, L, P]
         lib.factored_contract_f32.argtypes = [I, P, P, P, P, P, F, F, L, P]
-        lib.element_stiffness_f32.argtypes = [P, P, P, P, I, I, L, P]
+        lib.element_stiffness_f32.argtypes = [I, P, P, P, P, P, L, P]
         lib.route_window_f32.argtypes = [P, P, P, P, P, I, L, L, I, P]
         for fn in (lib.gather_planes_f32, lib.gather_rows_f32,
                    lib.segment_sum_f32, lib.segment_sum_f64,

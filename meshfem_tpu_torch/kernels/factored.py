@@ -12,12 +12,16 @@ Replaces ``meshfem_tpu/sparse/contract.py::_factored_kernel`` (:91), the
 TQ-table backend of the routed operator (``MESHFEM_FACTORED_TQ=1``).  Same
 layouts as kernel C, so ``RoutedEBE._contract`` switches between the two on
 the environment variable alone.  Bound on the H100: memory, as for kernel
-C (the same function of the same inputs: ~24 us for its bytes at the bench
-size).  The table form's own arithmetic, ~8.9k multiply-adds per element at
-dim 3 / deg 2, takes ~75 us at the 67 TFLOP/s float32 rate; that is the
-chosen algorithm's time, not a bound of the function.  Four warps share 32
-elements with u, g, d1, m1, m2 and the table in shared memory; design
-notes are in ``csrc/factored_contract.cu``.
+C (the same function of the same inputs: ~22 us for its bytes at the
+periodic cell's 248,220 elements).  The kernel computes the same function
+in two reassociated products: ``lam m1 + mu m2 = S d1`` with the symmetric
+``S[(k,i),(l,j)] = lam T[k,l,i,j] + mu T[l,k,i,j]``, and ``mu sum_km G2[km]
+q_c = W u_c`` with the symmetric ``W = mu sum_km G2[km] T[k,m]``: ~2.7k
+multiply-adds per element at dim 3 / deg 2 instead of the table form's
+~8.9k, on the FP32 cores, one thread per element with no barrier, S and W's
+coefficients in shared memory; design notes are in
+``csrc/factored_contract.cu``.  The plain version below keeps the TPU
+kernel's order of operations.
 
 Layout: ``g [K1*d, E]`` (row ``k*d + b``), ``vol [E]``, ``ue [d, n, E]`` ->
 ``fe [d, n, E]``.
@@ -29,14 +33,16 @@ import functools
 
 import torch
 
-from ..sparse.contract import factored_tables
+from ..ops.element_matrices import gradgrad_table
 from . import _build
 from .qp import CONFIGS, _degree
 
 
 @functools.lru_cache(maxsize=None)
 def _table_on(d: int, deg: int, dtype: torch.dtype, device: torch.device):
-    return torch.as_tensor(factored_tables(d, deg), dtype=dtype,
+    """The gradgrad table ``T [d+1, d+1, n, n]`` rounded once to ``dtype``
+    (in float32, ``sparse.contract.factored_tables``), on ``device``."""
+    return torch.as_tensor(gradgrad_table(d, deg), dtype=dtype,
                            device=device)
 
 
@@ -59,7 +65,7 @@ def factored_contract(g, vol, ue, lam: float, mu: float) -> torch.Tensor:
     """g [K1*d, E], vol [E], ue [d, n, E] float32 -> fe [d, n, E].
 
     The dimension and degree (P1 or P2) follow from ue's shape, and the
-    table from them (``sparse.contract.factored_tables``).  A CPU tensor
+    table from them (``_table_on``).  A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel (or
     raises)."""
     if g.device.type == "cpu":

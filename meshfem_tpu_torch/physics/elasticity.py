@@ -155,18 +155,16 @@ class ElasticitySimulator:
     def _routed_Ke(self):
         """``Ke`` for the dense routed operator.  A constant material's is
         assembled in float32 by ``kernels.element_stiffness`` (kernel E on
-        the card) from the float32 geometry and the fused matrix, the
-        assembly ``bench.py:266`` hands to ``RoutedEBE.build``; a material
-        field's, or a ``Ke`` shared from elsewhere, is the float64 one
-        (cast by ``build``)."""
+        the card) from the float32 geometry and ``D``, the assembly
+        ``bench.py:266`` hands to ``RoutedEBE.build``; a material field's,
+        or a ``Ke`` shared from elsewhere, is the float64 one (cast by
+        ``build``)."""
         if self.D.ndim != 2 or self._Ke_shared:
             return self.Ke
         f32 = config.SOLVE
-        M = torch.as_tensor(
-            em.fused_matrix_for(self.D, self.mesh.K, self.mesh.degree),
-            dtype=f32, device=self.device)
         return element_stiffness(self.geom.grad_lambda.to(f32).contiguous(),
-                                 self.geom.volume.to(f32).contiguous(), M)
+                                 self.geom.volume.to(f32).contiguous(),
+                                 self.D, self.mesh.degree)
 
     def _routed_auto(self) -> bool:
         """Routed operator by default on CUDA for meshes past

@@ -7,9 +7,15 @@ Pallas kernels run in interpret mode, as the reference's own tests run them
 * D ``factored_contract`` == ``contract.factored_contract``
   (``_factored_kernel``) to 1e-5 of max|y| (float32 sums in another order),
   on a grid whose block count is not a multiple of B, and == kernel C's
-  plain version (the same product by quadrature) to 5e-6;
-* E ``element_stiffness`` == ``element_stiffness_pallas`` (``_asm_kernel``)
-  and == ``element_elasticity_fused_apply`` to 1e-5 of max|Ke|.
+  plain version (the same product by quadrature) to 5e-6; the CUDA
+  kernel's reassociated algorithm (``S d1`` and ``W u``), written as
+  float32 einsums, is held to the Pallas kernel the same way;
+* E ``element_stiffness`` (fed ``D``) == ``element_stiffness_pallas``
+  (``_asm_kernel``, fed ``fused_matrix_for(D)``) and ==
+  ``element_elasticity_fused_apply`` to 1e-5 of max|Ke|, for the four
+  (dim, degree) and an isotropic and an anisotropic material; the CUDA
+  kernel's material-first contraction, written as float32 einsums, is held
+  to the Pallas kernel and to the float64 ``Ke`` the same way.
 
 The ``cuda``-marked cases hold each CUDA kernel against its plain version
 on the card and skip without one.  They need neither JAX nor the reference
@@ -23,9 +29,11 @@ import torch
 from meshfem_tpu_torch import kernels
 from meshfem_tpu_torch.ops import element_matrices as em
 from meshfem_tpu_torch.fem import elasticity_tensor as et
+from meshfem_tpu_torch.fem.flattening import full_to_flat_map
 from meshfem_tpu_torch.sparse.contract import factored_tables
 
 CASES = [(3, 2, 10), (2, 2, 6), (3, 1, 4), (2, 1, 3)]
+MATERIALS = ["isotropic", "anisotropic"]
 
 
 @pytest.fixture
@@ -51,8 +59,27 @@ def _contract_inputs(dim, n_el, Eb, seed=1):
     return g, vol, ue, g_t, vol_t, ue_t
 
 
+def _factored_reassociated(g, vol, ue, lam, mu, deg):
+    """The CUDA kernel D's algorithm in float32 einsums: ``lam m1 + mu m2 =
+    S d1`` with ``S[(k,i),(l,j)] = lam T[k,l,i,j] + mu T[l,k,i,j]``, and the
+    f phase through ``W = mu sum_km G2[km] T[k,m]``."""
+    d, n, E = ue.shape
+    K1 = d + 1
+    T = torch.as_tensor(factored_tables(d, deg))
+    S = (lam * T + mu * T.transpose(0, 1)).permute(0, 2, 1, 3) \
+        .reshape(K1 * n, K1 * n)
+    gl = g.reshape(K1, d, E)
+    d1 = torch.einsum("kce,cje->kje", gl, ue).reshape(K1 * n, E)
+    A = (S @ d1).reshape(K1, n, E)
+    G2 = torch.einsum("kce,mce->kme", gl, gl)
+    W = mu * torch.einsum("kme,kmij->eij", G2, T)
+    return vol * (torch.einsum("eij,cje->cie", W, ue)
+                  + torch.einsum("kce,kie->cie", gl, A))
+
+
+@pytest.mark.parametrize("form", ["wrapper", "reassociated"])
 @pytest.mark.parametrize("dim,deg,n_el", CASES)
-def test_factored_contract_matches_pallas_kernel(dim, deg, n_el):
+def test_factored_contract_matches_pallas_kernel(dim, deg, n_el, form):
     import jax.numpy as jnp
     from meshfem_tpu.sparse.contract import factored_contract as ref_fc
 
@@ -62,8 +89,12 @@ def test_factored_contract_matches_pallas_kernel(dim, deg, n_el):
                             jnp.asarray(vol), jnp.asarray(ue), lam, mu, dim,
                             deg, interpret=True, B=2))     # [d, Eb, n, 128]
     ref = ref.transpose(0, 2, 1, 3).reshape(dim, n_el, Eb * 128)
-    out = kernels.factored_contract(g_t, vol_t, ue_t, lam, mu).numpy()
-    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-5
+    if form == "wrapper":
+        out = kernels.factored_contract(g_t, vol_t, ue_t, lam, mu)
+    else:
+        out = _factored_reassociated(g_t, vol_t, ue_t, lam, mu, deg)
+    assert out.dtype == torch.float32
+    assert np.abs(out.numpy() - ref).max() / np.abs(ref).max() < 1e-5
 
 
 @pytest.mark.parametrize("dim,deg,n_el", CASES)
@@ -96,40 +127,85 @@ def test_factored_tables_match_reference(dim, deg, n_el):
             np.testing.assert_array_equal(TQ[q:q + n_el, :n_el], T[k, l])
 
 
-def _stiffness_inputs(E=300, seed=0):
+def _stiffness_inputs(E=300, seed=0, K=3, d=3):
     rng = np.random.default_rng(seed)
-    gl = rng.standard_normal((E, 4, 3)).astype(np.float32)
+    gl = rng.standard_normal((E, K + 1, d)).astype(np.float32)
     vol = (np.abs(rng.standard_normal(E)) + 0.1).astype(np.float32)
     return gl, vol
 
 
-def test_element_stiffness_matches_pallas_and_xla():
+def _material(dim, kind):
+    """A constant material [fl, fl]: isotropic, or a seeded symmetric
+    positive definite matrix with every entry non-zero."""
+    if kind == "isotropic":
+        return et.isotropic(dim, 200.0, 0.3)
+    fl = dim * (dim + 1) // 2
+    A = np.random.default_rng(11 + dim).standard_normal((fl, fl))
+    return torch.as_tensor(50.0 * (A @ A.T + fl * np.eye(fl)))
+
+
+def _material_first(gl, vol, D, deg):
+    """The CUDA kernel E's algorithm, material first and table second,
+    written in float32 einsums (the kernel itself sums in float64):
+    ``H[k,l,c,f] = vol sum_ab g_ka g_lb C[c,a,f,b]`` (9 terms), then ``Ke =
+    sum_kl T[k,l,i,j] H[k,l,c,f]`` (16 terms)."""
+    E, K1, d = gl.shape
+    f2f = full_to_flat_map(d)
+    C = torch.as_tensor(np.asarray(D)[f2f[:, :, None, None],
+                                      f2f[None, None, :, :]],
+                        dtype=torch.float32)
+    T = torch.as_tensor(factored_tables(K1 - 1, deg))
+    gg = torch.einsum("eka,elb->eklab", gl * vol[:, None, None], gl)
+    H = torch.einsum("eklab,cafb->eklcf", gg, C)
+    Ke = torch.einsum("klij,eklcf->eicjf", T, H)
+    n = T.shape[-1]
+    return Ke.reshape(E, n * d, n * d)
+
+
+@pytest.mark.parametrize("form", ["wrapper", "material_first"])
+@pytest.mark.parametrize("kind", MATERIALS)
+@pytest.mark.parametrize("dim,deg,n_el", CASES)
+def test_element_stiffness_matches_pallas_and_xla(dim, deg, n_el, kind,
+                                                  form):
+    """The port's E fed ``D`` (on the CPU its plain version, the TPU
+    kernel's one product with ``fused_matrix_for(D)``), or the CUDA
+    kernel's material-first contraction in float32 einsums, against the
+    Pallas kernel and the XLA fused path fed the reference's
+    ``fused_matrix_for(D)``, and against the float64 ``Ke``: 1e-5 of
+    max|Ke|."""
     import jax.numpy as jnp
-    from meshfem_tpu.fem import elasticity_tensor as ret
     from meshfem_tpu.kernels import element_stiffness_pallas
     from meshfem_tpu.ops import element_matrices as rem
 
-    gl, vol = _stiffness_inputs()
-    Mr = rem.fused_matrix_for(ret.isotropic(3, 200.0, 0.3), 3, 2,
-                              jnp.float32)
+    D = _material(dim, kind)
+    gl, vol = _stiffness_inputs(K=dim, d=dim)
+    Mr = rem.fused_matrix_for(np.asarray(D), dim, deg, jnp.float32)
     Kp = np.asarray(element_stiffness_pallas(jnp.asarray(gl),
                                              jnp.asarray(vol), Mr,
                                              interpret=True))
     Kx = np.asarray(rem.element_elasticity_fused_apply(
-        jnp.asarray(gl), jnp.asarray(vol), Mr, 10))
-    M = em.fused_matrix_for(et.isotropic(3, 200.0, 0.3), 3, 2)
+        jnp.asarray(gl), jnp.asarray(vol), Mr, n_el))
+    M = em.fused_matrix_for(D, dim, deg)
     np.testing.assert_allclose(M, np.asarray(Mr, np.float64),
                                atol=1e-6 * np.abs(M).max())
-    M32 = torch.as_tensor(M, dtype=torch.float32)
-    Ke = kernels.element_stiffness(torch.as_tensor(gl), torch.as_tensor(vol),
-                                   M32).numpy()
-    Kf = em.element_elasticity_fused_apply(
-        torch.as_tensor(gl), torch.as_tensor(vol), M32, 10).numpy()
-    tol = 1e-5 * np.abs(Kx).max()
-    assert Ke.shape == (300, 30, 30) and Ke.dtype == np.float32
+    K64 = em.element_elasticity_fused(torch.as_tensor(gl).double(),
+                                      torch.as_tensor(vol).double(), D,
+                                      deg).numpy()
+    gl_t, vol_t = torch.as_tensor(gl), torch.as_tensor(vol)
+    if form == "wrapper":
+        Ke = kernels.element_stiffness(gl_t, vol_t, D, deg).numpy()
+        Kf = em.element_elasticity_fused_apply(
+            gl_t, vol_t, torch.as_tensor(M, dtype=torch.float32),
+            n_el).numpy()
+        assert np.abs(Kf - Kx).max() < 1e-5 * np.abs(Kx).max()
+    else:
+        Ke = _material_first(gl_t, vol_t, D, deg).numpy()
+    tol = 1e-5 * np.abs(K64).max()
+    assert Ke.shape == (300, n_el * dim, n_el * dim)
+    assert Ke.dtype == np.float32
     assert np.abs(Ke - Kp).max() < tol
     assert np.abs(Ke - Kx).max() < tol
-    assert np.abs(Kf - Kx).max() < tol
+    assert np.abs(Ke - K64).max() < tol
 
 
 def test_element_stiffness_feeds_simulator_Ke():
@@ -141,10 +217,8 @@ def test_element_stiffness_feeds_simulator_Ke():
     mat = Material.isotropic(3, 200.0, 0.3)
     sim = ElasticitySimulator(FEMMesh(*generators.grid_tet(2, 2, 2),
                                       degree=2), mat, device="cpu")
-    M32 = torch.as_tensor(em.fused_matrix_for(mat.D, 3, 2),
-                          dtype=torch.float32)
     Ke32 = kernels.element_stiffness(sim.geom.grad_lambda.float(),
-                                     sim.geom.volume.float(), M32)
+                                     sim.geom.volume.float(), mat.D, 2)
     assert float((Ke32 - sim.Ke.float()).abs().max()
                  / sim.Ke.abs().max()) < 1e-5
 
@@ -159,12 +233,17 @@ def test_wrappers_registered_with_launch_counts():
     assert all(w.launches == 0 for w in kernels.WRAPPERS)
 
 
+RAGGED = [1, 333, 1000, 4099]     # 1000 and 4099: no multiple of a tile
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("E", RAGGED)
 @pytest.mark.parametrize("dim,deg,n_el", CASES)
-def test_cuda_factored_contract_matches_plain(cuda, dim, deg, n_el):
-    _, _, _, g_t, vol_t, ue_t = _contract_inputs(dim, n_el, 5, seed=7)
-    g_t, vol_t, ue_t = (t[..., :601].contiguous().to(cuda)
-                        for t in (g_t, vol_t, ue_t))      # ragged last block
+def test_cuda_factored_contract_matches_plain(cuda, dim, deg, n_el, E):
+    """Against its plain version (1e-5 of max|y|) and kernel C (5e-6)."""
+    _, _, _, g_t, vol_t, ue_t = _contract_inputs(dim, n_el, 33, seed=7)
+    g_t, vol_t, ue_t = (t[..., :E].contiguous().to(cuda)
+                        for t in (g_t, vol_t, ue_t))
     n0 = kernels.factored_contract.launches
     out = kernels.factored_contract(g_t, vol_t, ue_t, 1.7, 0.9)
     torch.cuda.synchronize()
@@ -176,19 +255,24 @@ def test_cuda_factored_contract_matches_plain(cuda, dim, deg, n_el):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,deg,E", [(3, 2, 1000), (3, 1, 333), (3, 2, 1)])
-def test_cuda_element_stiffness_matches_plain(cuda, K, deg, E):
-    gl, vol = _stiffness_inputs(E, seed=3)
-    M32 = torch.as_tensor(em.fused_matrix_for(et.isotropic(3, 200.0, 0.3),
-                                              K, deg),
-                          dtype=torch.float32, device=cuda)
+@pytest.mark.parametrize("kind", MATERIALS)
+@pytest.mark.parametrize("E", RAGGED)
+@pytest.mark.parametrize("dim,deg,n_el", CASES)
+def test_cuda_element_stiffness_matches_plain(cuda, dim, deg, n_el, E, kind):
+    """Against its plain version and the float64 ``Ke``: 1e-5 of max|Ke|."""
+    D = _material(dim, kind)
+    gl, vol = _stiffness_inputs(E, seed=3, K=dim, d=dim)
     gl, vol = torch.as_tensor(gl, device=cuda), torch.as_tensor(vol,
                                                                 device=cuda)
     n0 = kernels.element_stiffness.launches
-    Ke = kernels.element_stiffness(gl, vol, M32)
+    Ke = kernels.element_stiffness(gl, vol, D, deg)
     torch.cuda.synchronize()
     assert kernels.element_stiffness.launches == n0 + 1
-    ref = kernels.element_stiffness_plain(gl, vol, M32)
-    assert float((Ke - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert Ke.shape == (E, n_el * dim, n_el * dim)
+    ref = kernels.element_stiffness_plain(gl, vol, D, deg)
+    K64 = em.element_elasticity_fused(gl.double(), vol.double(), D, deg)
+    scale = float(K64.abs().max())
+    assert float((Ke - ref).abs().max()) < 1e-5 * scale
+    assert float((Ke - K64).abs().max()) < 1e-5 * scale
     with pytest.raises(ValueError):
-        kernels.element_stiffness(gl.double(), vol.double(), M32.double())
+        kernels.element_stiffness(gl.double(), vol.double(), D, deg)

@@ -146,15 +146,15 @@ def test_dense_routed_Ke_assembled_by_element_stiffness(problem, monkeypatch):
     calls = []
     inner = el.element_stiffness
 
-    def recording(gl, vol, M):
-        calls.append((gl.dtype, tuple(M.shape)))
-        return inner(gl, vol, M)
+    def recording(gl, vol, D, deg):
+        calls.append((gl.dtype, tuple(D.shape), deg))
+        return inner(gl, vol, D, deg)
 
     monkeypatch.setattr(el, "element_stiffness", recording)
     monkeypatch.delenv("MESHFEM_FACTORED", raising=False)
     sim._routed = None
     rk = sim.routed_kernel()
-    assert calls == [(torch.float32, (144, 900))]
+    assert calls == [(torch.float32, (6, 6), 2)]
     E = sim.mesh.num_elements
     Ke32 = rk.KeP                     # node-major, as Ke
     # build() sorted the elements along its RCB order: compare as sets of

@@ -21,9 +21,12 @@ of which raises on failure:
    D (1e-5 of max|y|, and 5e-6 against C on the same inputs), E (1e-5 of
    max|Ke| against its plain version and against the simulator's float64
    Ke, whose error the plain one-product form's is printed beside, and
-   again at the same size on seeded random gradients and volumes, which
-   excite every term of the product where a Kuhn grid's few distinct
-   gradients do not, with the isotropic and a seeded anisotropic material);
+   within one float32 ulp of each entry of that float64 Ke, since the
+   kernel sums in float64; again at the same size on seeded random
+   gradients and volumes, which excite every term of the product where a
+   Kuhn grid's few distinct gradients do not, with the isotropic and a
+   seeded anisotropic material, the ulp check against the float64 Ke of
+   the same inputs);
 4. the main path: ``sim.routed_kernel()`` (the dense operator, whose
    float32 ``Ke`` kernel E assembles) and ``sim.solve(operator="routed",
    tol=1e-10)``, float32 routed CG inside float64 iterative refinement.
@@ -216,6 +219,20 @@ class ApplyCounter:
 
         for k, fn in self._saved.items():
             setattr(RoutedEBE, k, fn)
+
+
+def ulps_from(Ke32, K64):
+    """max over entries of |Ke32 - K64| / (2^-23 |K64| + 2^-40 max|K64|):
+    at most 1 when the float32 Ke32 is the float64 K64 rounded once, to
+    within an ulp of each entry (the floor covers float64 rounding where
+    an entry cancels to near zero; a float32 sum errs ~10^5 times more)."""
+    floor = 2.0 ** -40 * float(K64.abs().max())
+    worst = 0.0
+    for a, b in zip(Ke32.reshape(-1).split(1 << 26),
+                    K64.reshape(-1).split(1 << 26)):
+        worst = max(worst, float(((a.double() - b).abs()
+                                  / (2.0 ** -23 * b.abs() + floor)).max()))
+    return worst
 
 
 def check_rows_path(label, counts, applies):
@@ -663,33 +680,47 @@ def main() -> int:
     err_e = float((Ke32 - e_ref).abs().max())
     err_e64 = float((Ke32 - Ke64_32).abs().max())
     err_plain64 = float((e_ref - Ke64_32).abs().max())
+    ulps_e64 = ulps_from(Ke32, sim.Ke)
+    ulps_plain64 = ulps_from(e_ref, sim.Ke)
     del e_ref, Ke64_32
     log(f"E element_stiffness: max abs err {err_e:.3e} against plain, "
         f"{err_e64:.3e} against the f64 Ke (the plain one-product form: "
-        f"{err_plain64:.3e}), max|Ke| {ke_max:.3e}")
+        f"{err_plain64:.3e}), max|Ke| {ke_max:.3e}; {ulps_e64:.3f} ulp of "
+        f"each entry from the f64 Ke (the plain form: {ulps_plain64:.1f})")
     if not (err_e <= 1e-5 * ke_max and err_e64 <= 1e-5 * ke_max):
         raise RuntimeError("element_stiffness disagrees with its plain "
                            "version or the f64 Ke")
+    if not ulps_e64 <= 1.0:
+        raise RuntimeError(f"element_stiffness is {ulps_e64} ulp from the "
+                           f"f64 Ke: its sums are not float64")
     del Ke32
     gl_r = torch.randn((E, 4, 3), generator=gen, device=dev)
     vol_r = torch.rand((E,), generator=gen, device=dev) + 0.5
     A_r = np.random.default_rng(5).standard_normal((6, 6))
     D_aniso = torch.as_tensor(50.0 * (A_r @ A_r.T + 6.0 * np.eye(6)))
-    err_e_rand = {}
+    err_e_rand, ulps_e_rand = {}, {}
     for kind, Dm in (("isotropic", D_host), ("anisotropic", D_aniso)):
         e_out = kernels.element_stiffness(gl_r, vol_r, Dm, 2)
         e_ref = kernels.element_stiffness_plain(gl_r, vol_r, Dm, 2)
         torch.cuda.synchronize()
         err, scale = (float((e_out - e_ref).abs().max()),
                       float(e_ref.abs().max()))
-        del e_out, e_ref
-        err_e_rand[kind] = (err, scale)
+        del e_ref
+        k64 = em.element_elasticity_fused(gl_r.double(), vol_r.double(),
+                                          Dm, 2)
+        ulps = ulps_from(e_out, k64)
+        del e_out, k64
+        err_e_rand[kind], ulps_e_rand[kind] = (err, scale), ulps
         log(f"E element_stiffness on seeded random gradients and volumes "
             f"[{E}], {kind} material: max abs err {err:.3e} against plain, "
-            f"max|Ke| {scale:.3e} ({err / scale:.3e} of it)")
+            f"max|Ke| {scale:.3e} ({err / scale:.3e} of it); {ulps:.3f} ulp "
+            f"of each entry from the f64 Ke of the same inputs")
         if not err <= 1e-5 * scale:
             raise RuntimeError(f"element_stiffness disagrees with its plain "
                                f"version on random inputs ({kind})")
+        if not ulps <= 1.0:
+            raise RuntimeError(f"element_stiffness is {ulps} ulp from the "
+                               f"f64 Ke on random inputs ({kind})")
     del gl_r, vol_r
     err_e_rand_aniso = err_e_rand["anisotropic"]
     err_e_rand, ke_max_rand = err_e_rand["isotropic"]
@@ -1098,7 +1129,7 @@ def main() -> int:
           lambda: kernels.element_stiffness(gl32, vol32, D_host, 2),
           lambda: kernels.element_stiffness_plain(gl32, vol32, D_host, 2),
           lambda: em.element_elasticity_fused_apply(gl32, vol32, M32, 10),
-          (12 + 1 + 900) * E * 4 + M32.numel() * 4,
+          (12 + 1 + 900) * E * 4 + 36 * 8,
           # material first, table second: H[k,l,c,f] = g_ka g_lb C_cafb
           # (144 x 9 FMAs), Ke = vol T[k,l,i,j] H[k,l,c,f] (900 x 16 FMAs)
           (2 * (144 * 9 + 900 * 16) + 900) * E,
@@ -1109,6 +1140,8 @@ def main() -> int:
           algorithm_flop_rate=F64_FLOP_PER_S,
           max_abs_err_vs_f64=err_e64, max_abs_Ke=ke_max,
           max_abs_err_plain_vs_f64=err_plain64,
+          max_ulps_vs_f64=ulps_e64, max_ulps_plain_vs_f64=ulps_plain64,
+          max_ulps_vs_f64_random_inputs=ulps_e_rand,
           dense_solve_inner_iters=res.iters,
           max_rel_err_random_anisotropic=(err_e_rand_aniso[0]
                                           / err_e_rand_aniso[1]),
@@ -1121,7 +1154,7 @@ def main() -> int:
           matmul_only_ms=timer(lambda: torch.matmul(gg32, M32)),
           library_call="ops.element_matrices.element_elasticity_fused_apply "
                        "(einsum + torch.matmul, TF32 off)",
-          shape=f"grad_lambda [{E}, 4, 3], vol [{E}], M [144, 900] f32")
+          shape=f"grad_lambda [{E}, 4, 3], vol [{E}] f32, D [6, 6] f64")
     del gg32
     log(f"E against the f64 Ke: kernel {err_e64:.3e}, the plain one-product "
         f"form {err_plain64:.3e} (max|Ke| {ke_max:.3e}); dense clamped "

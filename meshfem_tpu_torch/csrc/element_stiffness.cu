@@ -22,7 +22,8 @@
 //   Ke[(i,c),(j,f)] = vol sum_kl T[k,l,i,j] H[k,l,c,f]        (16 terms)
 //
 // ~15.3k multiply-adds an element (H's 10 distinct blocks k <= l, since
-// H[k,l,c,f] = H[l,k,f,c], and 900 x 16 for Ke).
+// H[k,l,c,f] = H[l,k,f,c] for a symmetric D, which the wrapper checks, and
+// 900 x 16 for Ke).
 //
 // Route: FP64 FMA on the CUDA cores, rounded once to float32 per entry.
 // Not FP32, because the first version of this kernel summed in float32
@@ -65,6 +66,7 @@
 // others' arithmetic.  Four warps a block, three blocks an SM; T is copied
 // in once per block, and a block walks many units.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -72,6 +74,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxDevices = 64;
 
 constexpr int round2(int x) { return (x + 1) / 2 * 2; }
 
@@ -232,19 +235,29 @@ int launch(const void* gl, const void* vol, const void* T, const double* C,
   Material<DIM> mat;
   for (int r = 0; r < DIM * DIM * DIM * DIM; ++r) mat.c[r] = C[r];
   auto kernel = element_stiffness_kernel<DIM, NN>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Sh::SMEM));
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, Sh::SMEM);
+  // blocks resident at once on each device, worked out (with the shared-
+  // memory limit raised) at the first launch there; 0 = not yet
+  static std::atomic<int> resident_on[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int resident = resident_on[dev].load(std::memory_order_relaxed);
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Sh::SMEM));
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, Sh::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+    resident_on[dev].store(resident, std::memory_order_relaxed);
+  }
   const int64_t units = (E * NN * Sh::JS + kThreads - 1) / kThreads;
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const unsigned blocks =
       static_cast<unsigned>(units < resident ? units : resident);
   kernel<<<blocks, kThreads, Sh::SMEM, stream>>>(

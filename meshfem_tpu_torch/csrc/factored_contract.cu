@@ -66,12 +66,14 @@
 // per 32 elements.  Two elements a thread, which halves those loads, ran
 // slower on an H100: its registers left one block an SM.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxDevices = 64;
 
 template <int DIM, int NN>
 struct Shape {
@@ -260,16 +262,25 @@ template <int DIM, int NN>
 int launch(const void* g, const void* vol, const void* ue, const void* T,
            void* fe, float lam, float mu, int64_t E, cudaStream_t stream) {
   auto kernel = factored_contract_kernel<DIM, NN>;
-  int dev = 0, sms = 0, per_sm = 0;
+  // blocks resident at once on each device, worked out at the first launch
+  // there; 0 = not yet
+  static std::atomic<int> resident_on[kMaxDevices];
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int resident = resident_on[dev].load(std::memory_order_relaxed);
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+    resident_on[dev].store(resident, std::memory_order_relaxed);
+  }
   const int64_t groups = (E + kThreads - 1) / kThreads;
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const unsigned blocks =
       static_cast<unsigned>(groups < resident ? groups : resident);
   kernel<<<blocks, kThreads, 0, stream>>>(

@@ -38,12 +38,20 @@ from .qp import CONFIGS
 
 
 def _material_key(D):
-    """``D``'s float64 values, as a hashable key (and its side)."""
+    """``D``'s float64 values, as a hashable key (and its side).  ``D``
+    must be symmetric to float32 rounding (``|D - D^T| <= 2^-20 max|D|``):
+    the kernel computes ``H[k,l,c,f]`` for ``k <= l`` only and mirrors it,
+    which holds only for a symmetric material."""
     D64 = np.asarray(torch.as_tensor(D).detach().cpu(), dtype=np.float64)
     if D64.ndim != 2 or D64.shape[0] != D64.shape[1] \
             or D64.shape[0] not in (3, 6):
         raise ValueError(f"element_stiffness: D must be a constant [3, 3] or "
                          f"[6, 6] material, got {tuple(D64.shape)}")
+    asym = np.abs(D64 - D64.T).max()
+    if not asym <= 2.0 ** -20 * np.abs(D64).max():
+        raise ValueError(f"element_stiffness: D must be symmetric, got "
+                         f"max|D - D^T| = {asym:.3e} (max|D| "
+                         f"{np.abs(D64).max():.3e})")
     return D64.tobytes(), D64.shape[0]
 
 

@@ -14,8 +14,9 @@ Pallas kernels run in interpret mode, as the reference's own tests run them
   (``_asm_kernel``, fed ``fused_matrix_for(D)``) and ==
   ``element_elasticity_fused_apply`` to 1e-5 of max|Ke|, for the four
   (dim, degree) and an isotropic and an anisotropic material; the CUDA
-  kernel's material-first contraction, written as float32 einsums, is held
-  to the Pallas kernel and to the float64 ``Ke`` the same way.
+  kernel's material-first contraction, written as float64 einsums rounded
+  once to float32 as the kernel sums, is held to the Pallas kernel the same
+  way and to the float64 ``Ke`` within one float32 ulp of each entry.
 
 The ``cuda``-marked cases hold each CUDA kernel against its plain version
 on the card and skip without one.  They need neither JAX nor the reference
@@ -145,21 +146,33 @@ def _material(dim, kind):
 
 
 def _material_first(gl, vol, D, deg):
-    """The CUDA kernel E's algorithm, material first and table second,
-    written in float32 einsums (the kernel itself sums in float64):
-    ``H[k,l,c,f] = vol sum_ab g_ka g_lb C[c,a,f,b]`` (9 terms), then ``Ke =
-    sum_kl T[k,l,i,j] H[k,l,c,f]`` (16 terms)."""
+    """The CUDA kernel E's algorithm, material first and table second, in
+    float64 einsums rounded once to float32, as the kernel sums:
+    ``H[k,l,c,f] = sum_ab g_ka g_lb C[c,a,f,b]`` (9 terms), then ``Ke =
+    vol sum_kl T[k,l,i,j] H[k,l,c,f]`` (16 terms)."""
     E, K1, d = gl.shape
     f2f = full_to_flat_map(d)
-    C = torch.as_tensor(np.asarray(D)[f2f[:, :, None, None],
-                                      f2f[None, None, :, :]],
-                        dtype=torch.float32)
-    T = torch.as_tensor(factored_tables(K1 - 1, deg))
-    gg = torch.einsum("eka,elb->eklab", gl * vol[:, None, None], gl)
-    H = torch.einsum("eklab,cafb->eklcf", gg, C)
-    Ke = torch.einsum("klij,eklcf->eicjf", T, H)
+    C = torch.as_tensor(np.asarray(D, np.float64)[f2f[:, :, None, None],
+                                                  f2f[None, None, :, :]])
+    T = torch.as_tensor(em.gradgrad_table(K1 - 1, deg), dtype=torch.float64)
+    gl, vol = gl.double(), vol.double()
+    H = torch.einsum("eka,elb,cafb->eklcf", gl, gl, C)
+    Ke = vol[:, None, None, None, None] * torch.einsum("klij,eklcf->eicjf",
+                                                       T, H)
     n = T.shape[-1]
-    return Ke.reshape(E, n * d, n * d)
+    return Ke.reshape(E, n * d, n * d).float()
+
+
+def _ulps_from(Ke32, K64):
+    """max over entries of ``|Ke32 - K64| / (2^-23 |K64| + 2^-40
+    max|K64|)``: at most 1 when float32 ``Ke32`` is the float64 ``K64``
+    rounded once, to within an ulp of each entry.  The floor covers the
+    float64 rounding of entries that cancel to near zero; a float32 sum
+    errs by ~2^-24 of its terms, some 10^5 times more."""
+    Ke32 = torch.as_tensor(Ke32).double()
+    K64 = torch.as_tensor(K64).to(Ke32.device).double()
+    bound = 2.0 ** -23 * K64.abs() + 2.0 ** -40 * K64.abs().max()
+    return float(((Ke32 - K64).abs() / bound).max())
 
 
 @pytest.mark.parametrize("form", ["wrapper", "material_first"])
@@ -169,10 +182,11 @@ def test_element_stiffness_matches_pallas_and_xla(dim, deg, n_el, kind,
                                                   form):
     """The port's E fed ``D`` (on the CPU its plain version, the TPU
     kernel's one product with ``fused_matrix_for(D)``), or the CUDA
-    kernel's material-first contraction in float32 einsums, against the
+    kernel's material-first contraction summed in float64, against the
     Pallas kernel and the XLA fused path fed the reference's
     ``fused_matrix_for(D)``, and against the float64 ``Ke``: 1e-5 of
-    max|Ke|."""
+    max|Ke|; the material-first form also within one ulp of each entry of
+    the float64 ``Ke``."""
     import jax.numpy as jnp
     from meshfem_tpu.kernels import element_stiffness_pallas
     from meshfem_tpu.ops import element_matrices as rem
@@ -200,6 +214,7 @@ def test_element_stiffness_matches_pallas_and_xla(dim, deg, n_el, kind,
         assert np.abs(Kf - Kx).max() < 1e-5 * np.abs(Kx).max()
     else:
         Ke = _material_first(gl_t, vol_t, D, deg).numpy()
+        assert _ulps_from(Ke, K64) <= 1.0
     tol = 1e-5 * np.abs(K64).max()
     assert Ke.shape == (300, n_el * dim, n_el * dim)
     assert Ke.dtype == np.float32
@@ -221,6 +236,20 @@ def test_element_stiffness_feeds_simulator_Ke():
                                      sim.geom.volume.float(), mat.D, 2)
     assert float((Ke32 - sim.Ke.float()).abs().max()
                  / sim.Ke.abs().max()) < 1e-5
+
+
+def test_element_stiffness_rejects_nonsymmetric_material():
+    """The kernel mirrors ``H`` across ``k <= l``, which needs a symmetric
+    ``D``: an asymmetric one raises (in the plain version as well), and
+    one that is symmetric to float32 rounding is taken."""
+    gl, vol = (torch.as_tensor(a) for a in _stiffness_inputs(E=4))
+    D = _material(3, "anisotropic").clone()
+    D[0, 5] += 1e-3 * float(D.abs().max())
+    with pytest.raises(ValueError, match="symmetric"):
+        kernels.element_stiffness(gl, vol, D, 2)
+    D = _material(3, "anisotropic").clone()
+    D[0, 5] *= 1 + 2.0 ** -24
+    assert kernels.element_stiffness(gl, vol, D, 2).shape == (4, 30, 30)
 
 
 def test_wrappers_registered_with_launch_counts():
@@ -259,7 +288,8 @@ def test_cuda_factored_contract_matches_plain(cuda, dim, deg, n_el, E):
 @pytest.mark.parametrize("E", RAGGED)
 @pytest.mark.parametrize("dim,deg,n_el", CASES)
 def test_cuda_element_stiffness_matches_plain(cuda, dim, deg, n_el, E, kind):
-    """Against its plain version and the float64 ``Ke``: 1e-5 of max|Ke|."""
+    """Against its plain version (1e-5 of max|Ke|) and the float64 ``Ke``
+    (within one ulp of each entry: the kernel sums in float64)."""
     D = _material(dim, kind)
     gl, vol = _stiffness_inputs(E, seed=3, K=dim, d=dim)
     gl, vol = torch.as_tensor(gl, device=cuda), torch.as_tensor(vol,
@@ -274,5 +304,6 @@ def test_cuda_element_stiffness_matches_plain(cuda, dim, deg, n_el, E, kind):
     scale = float(K64.abs().max())
     assert float((Ke - ref).abs().max()) < 1e-5 * scale
     assert float((Ke - K64).abs().max()) < 1e-5 * scale
+    assert _ulps_from(Ke, K64) <= 1.0
     with pytest.raises(ValueError):
         kernels.element_stiffness(gl.double(), vol.double(), D, deg)

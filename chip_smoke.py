@@ -67,7 +67,33 @@ of which raises on failure:
    component-major copy of ``KeP`` and the layout copies it made; each
    stage timed with CUDA events (warm L2, as inside CG), and the whole
    apply; the two layouts' results agree to 1e-6 of max|y|;
-10. each kernel timed beside its bound, its plain version and one PyTorch
+10. the structured multigrid, the path ``solve()`` takes by default on
+   Kuhn grids (reference ``physics/elasticity.py:475-502``): with TF32
+   checked off, the default call ``sim.solve(tol=1e-10)`` on the clamped
+   bench problem (counts zeroed just before, read just after) must build a
+   float32 ``StructuredMG`` and solve inside float64 refinement, launching
+   kernel A (the shell correction's gather) and kernel B (its sum in
+   float32, the EBE residual in float64); its f64 relative residual through
+   the EBE operator <= 1e-10 and ``max|u - u_routed| / max|u_routed|``
+   against phase 4's routed solution <= 1e-6; the same grid with a 1000:1
+   spherical inclusion (``MaterialField``) through ``VarStructuredMG`` to
+   <= ``FIELD_RELRES_GATE`` (3e-10: its float64 refinement stalls near
+   2e-10), beside an extended-precision witness (host long double): the
+   residual of its u, and u refined three more rounds with the same
+   multigrid and residuals in long double, which must reach <= 1e-12 and
+   lie within 1e-10 of max|u| of u, then rounded back to float64 and read
+   both ways; a clamped
+   grid_tet(8) solved on the card against the port's float64 CPU solve
+   (1e-7); the card's float32 apply against the float64
+   apply on the CPU at full size (1e-5 of max|y|); A (exact) and B (1e-5 of
+   max|y|) at the shell's shapes against their plain versions; build,
+   solve, rounds and MG-PCG iterations printed beside the reference's 24 in
+   float64 on the CPU; the conv, the shell correction, the whole apply, a
+   P1-level apply and one V-cycle timed with CUDA events, the conv beside
+   its bound (the stencil's nonzero multiply-adds) and the dense conv's
+   operations; the device kernels and busy share of one V-cycle and of one
+   inner MG-PCG solve (``torch.profiler``);
+11. each kernel timed beside its bound, its plain version and one PyTorch
    call computing the same function (median of per-launch CUDA-event
    times, L2 flushed before each launch, the call queued before its first
    event fires), A and B in planes also at the 18
@@ -83,7 +109,9 @@ of which raises on failure:
    runs at), and the compiler's
    register, shared-memory and spill report (``-Xptxas -v``) of D and E
    as ``ptxas``;
-11. last, ``{"ok": true, "device": {...}}``.
+   A and B also at the shell correction's shapes, and the structured conv
+   alone with the same timer;
+12. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -103,6 +131,13 @@ import torch
 
 BENCH_N = 36                  # grid_tet(36, 36, 36), bench.py's size
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+# The material field's float64 relative residual gate, just above where
+# its refinement stalls on the H100 (1.985e-10).  Phase 10's extended-
+# precision witness holds the stall to float64: refined on with the same
+# multigrid and long double residuals, the solution reaches 1.3e-13, and
+# that solution rounded to float64 reads 1.2e-10 (long double) and 1.7e-10
+# (the float64 EBE operator).
+FIELD_RELRES_GATE = 3e-10
 F32_FLOP_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 F64_FLOP_PER_S = 34e12        # H100 SXM float64, outside the tensor cores
 
@@ -278,8 +313,8 @@ def clamped_problem(size, device):
     return sim, t_mesh, t_sim
 
 
-def check_solution(sim, u, label):
-    """u finite, of the right shape, float64 relative residual <= 1e-10
+def check_solution(sim, u, label, gate=1e-10):
+    """u finite, of the right shape, float64 relative residual <= ``gate``
     through the EBE operator, and the energy balance u.Ku == b.u."""
     if tuple(u.shape) != (sim.num_dofs, 3) or not bool(
             torch.isfinite(u).all()):
@@ -296,8 +331,9 @@ def check_solution(sim, u, label):
     log(f"{label}: f64 relative residual {relres:.3e}, energy balance "
         f"|u.Ku - b.u|/|b.u| = {balance:.3e}, max |u| = "
         f"{float(u.abs().max()):.6e}")
-    if not relres <= 1e-10:
-        raise RuntimeError(f"{label}: relative residual {relres:.3e} > 1e-10")
+    if not relres <= gate:
+        raise RuntimeError(f"{label}: relative residual {relres:.3e} > "
+                           f"{gate:.3e}")
     if not balance <= 1e-8:
         raise RuntimeError(f"{label}: energy balance {balance:.3e}")
     return relres
@@ -481,6 +517,353 @@ def small_cell_check(dev):
     if not (dw <= 1e-8 and dC <= 1e-8):
         raise RuntimeError("small periodic cell disagrees with the CPU path")
     return dw, dC
+
+
+def structured_solve(sim, label, mg_name, required):
+    """One counted run of the user's default call ``sim.solve(tol=1e-10)``
+    (operator "auto"): counts zeroed just before, read just after.  The
+    solve must have built ``mg_name`` in float32 and every wrapper in
+    ``required`` must have launched.  The build time (host clock) and the
+    rounds come from what the solve records (``sim._mg``,
+    ``res.history``); the ms per MG-PCG iteration from one inner solve of
+    the first round's right-hand side, timed alone after the run."""
+    from meshfem_tpu_torch import kernels
+
+    sim._mg = None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        u, res = sim.solve(tol=1e-10)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    mg = sim._mg[1] if sim._mg is not None else None
+    if type(mg).__name__ != mg_name or mg.free_ch.dtype != torch.float32:
+        raise RuntimeError(f"{label}: the default call did not build a "
+                           f"float32 {mg_name} (got {type(mg).__name__})")
+    free = torch.as_tensor(~sim.dirichlet_mask, dtype=torch.float32,
+                           device=sim.device)
+    b32 = sim.neumann_load.float() * free
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, inner = mg.solve(b32, tol=1e-4, maxiter=120)
+    torch.cuda.synchronize()
+    inner_s = time.time() - t0
+    build_s = sim._mg[2]
+    out = dict(build_s=build_s, solve_s=wall,
+               solve_minus_build_s=wall - build_s,
+               rounds=res.rounds, round_iters=[it for _, it in res.history],
+               round_relres=[rel for rel, _ in res.history],
+               mg_pcg_iters=res.iters, relres=res.resnorm,
+               inner_solve_s=inner_s, inner_solve_iters=int(inner.iters),
+               ms_per_mg_pcg_iter=inner_s / max(int(inner.iters), 1) * 1e3,
+               launches=counts, levels=[list(lvl.n3) for lvl in mg.levels],
+               coarse="dense inverse" if mg.coarse_inv is not None
+               else "host LU", lam=list(mg.lam),
+               stagnated=[str(c.message) for c in caught
+                          if "stagnated" in str(c.message)])
+    if mg_name == "StructuredMG":
+        # every fine apply runs the shell correction, kernel A once
+        out["fine_applies"] = counts["gather_rows"]
+    log(f"{label}: {mg_name} built in {build_s:.3f} s (host clock; levels "
+        f"{out['levels']}, coarsest {out['coarse']}); solve {wall:.3f} s "
+        f"with the build, {res.rounds} refinement rounds, MG-PCG iterations "
+        f"{out['round_iters']} = {res.iters} (the reference's float64 solve "
+        f"on the CPU: 24), f64 relative residual before each round "
+        + ", ".join(f"{r:.3e}" for r in out["round_relres"])
+        + f", final {res.resnorm:.3e}; {out['ms_per_mg_pcg_iter']:.3f} ms per "
+        f"MG-PCG iteration (one inner solve alone, {int(inner.iters)} "
+        f"iterations in {inner_s:.3f} s, host clock); launches gather_rows "
+        f"{counts['gather_rows']}, segment_sum_rows "
+        f"{counts['segment_sum_rows']} (kernel B: {counts['gather_rows']} "
+        f"float32 shell sums, "
+        f"{counts['segment_sum_rows'] - counts['gather_rows']} float64 EBE "
+        f"residual sums)")
+    for msg in out["stagnated"]:
+        log(f"{label}: WARNING {msg}")
+    for name in required:
+        if counts[name] == 0:
+            raise RuntimeError(f"{label}: {name} was not launched")
+    return u, res, mg, out
+
+
+def extended_witness(sim, u, mg, rounds=3):
+    """A second reading of a float64 solve's residual, in the host's
+    extended precision (long double, a 64-bit significand: rounding in
+    the residual itself stays ~2^-11 of float64's).  It reads (1) the
+    solve's ``u``; (2) ``u`` refined ``rounds`` more times with the same
+    float32 multigrid's inner solve (``mg.solve(r32, tol=1e-4,
+    maxiter=120)``), each residual taken in extended precision, which
+    separates a multigrid that stops correcting from a float64 residual
+    that stops seeing; (3) that near-exact solution rounded to float64,
+    read in extended precision and through the float64 EBE operator: the
+    residual a float64 solution can show here."""
+    ld = np.longdouble
+    if not np.finfo(ld).eps <= 2.0 ** -60:
+        raise RuntimeError("the host's long double is not extended "
+                           "precision")
+    Ke = sim.Ke.cpu().numpy()
+    ed = sim.elem_dofs.cpu().numpy()
+    free = ~sim.dirichlet_mask
+    b = sim.neumann_load.cpu().numpy().astype(ld) * free
+    bn = np.sqrt((b * b).sum())
+    chunk = 16384
+
+    def resid(x):
+        y = np.zeros(x.shape, dtype=ld)
+        for s in range(0, ed.shape[0], chunk):
+            e = ed[s:s + chunk]
+            fe = np.matmul(Ke[s:s + chunk].astype(ld),
+                           x[e].reshape(len(e), -1, 1))
+            np.add.at(y, e.reshape(-1), fe.reshape(-1, x.shape[1]))
+        r = (b - y) * free
+        return r, float(np.sqrt((r * r).sum()) / bn)
+
+    t0 = time.time()
+    x = u.cpu().numpy().astype(ld)
+    r, rel = resid(x)
+    history, iters = [rel], []
+    for _ in range(rounds):
+        dx, res = mg.solve(torch.as_tensor(r.astype(np.float64),
+                                           dtype=torch.float32,
+                                           device=sim.device),
+                           tol=1e-4, maxiter=120)
+        iters.append(int(res.iters))
+        x = x + dx.cpu().numpy().astype(ld)
+        r, rel = resid(x)
+        history.append(rel)
+    x64 = x.astype(np.float64)
+    _, rel_rounded = resid(x64.astype(ld))
+    xt = torch.as_tensor(x64, device=sim.device)
+    free_t = torch.as_tensor(free, dtype=torch.float64, device=sim.device)
+    rel_rounded_f64 = float(
+        torch.linalg.norm((sim.neumann_load - sim.apply_K(xt)) * free_t)
+        / torch.linalg.norm(sim.neumann_load * free_t))
+    du = float((u - xt).abs().max() / xt.abs().max())
+    return dict(relres_u=history[0], history=history, iters=iters,
+                relres_rounded=rel_rounded,
+                relres_rounded_f64=rel_rounded_f64, u_vs_refined=du,
+                seconds=time.time() - t0)
+
+
+def device_busy(fn):
+    """Device kernels one call launches and their summed device time
+    (``torch.profiler``), beside the call's host-clock time measured apart
+    without the profiler (synchronised): the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    return dict(launches=len(kern), busy_ms=busy_ms, wall_ms=wall_ms,
+                idle_share=1.0 - busy_ms / wall_ms if busy_ms else None)
+
+
+def drive_structured(sim, u_routed, dev, gen):
+    """The structured multigrid at full width: the default call on the bench
+    problem, the material field, card against CPU, the TF32 switches, the
+    shell correction's kernels against their plain versions, and the stage
+    times."""
+    import torch.nn.functional as F
+
+    from meshfem_tpu_torch import kernels
+    from meshfem_tpu_torch.ops.structured import StructuredP2Elasticity
+    from meshfem_tpu_torch.physics import (ElasticitySimulator,
+                                           MaterialField)
+
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on: the V-cycle needs full float32 "
+                           "products")
+    log("TF32: cudnn.allow_tf32 False, cuda.matmul.allow_tf32 False")
+    torch.cuda.reset_peak_memory_stats()
+
+    # the default call on the bench problem
+    u, res, mg, out = structured_solve(
+        sim, "structured default solve", "StructuredMG",
+        ("gather_rows", "segment_sum_rows"))
+    out["relres_ebe"] = check_solution(sim, u, "structured default solve")
+    du = float((u - u_routed).abs().max() / u_routed.abs().max())
+    log(f"structured vs routed solution: {du:.3e} of max|u_routed|")
+    if not du <= 1e-6:
+        raise RuntimeError(f"structured and routed solutions differ: {du}")
+    out["vs_routed"] = du
+    out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the material field: a 1000:1 spherical inclusion on the same grid
+    mesh = sim.mesh
+    cent = mesh.V[mesh.F].mean(axis=1)
+    young = np.where(((cent - 0.5) ** 2).sum(axis=1) < 0.08, 1000.0, 1.0)
+    fsim = ElasticitySimulator(
+        mesh, MaterialField.isotropic_field(3, young,
+                                            np.full(len(young), 0.3)),
+        device=dev)
+    fsim.dirichlet_mask[:] = sim.dirichlet_mask
+    fsim.neumann_load = sim.neumann_load
+    uf, _, fmg, fout = structured_solve(fsim, "structured material field",
+                                        "VarStructuredMG",
+                                        ("segment_sum_rows",))
+    # Its refinement stalls near 2e-10 through the float64 EBE operator.
+    # The extended-precision witness reads the same residual without that
+    # operator's rounding and refines on with the same multigrid: it must
+    # converge (else the multigrid is at fault), and it shows what a
+    # float64 solution can read here.  Both are printed before any gate.
+    wit = extended_witness(fsim, uf, fmg)
+    log(f"structured material field, extended-precision witness "
+        f"({wit['seconds']:.1f} s on the host): relative residual of u "
+        f"{wit['relres_u']:.3e}; refined on with VarStructuredMG "
+        f"({wit['iters']} iterations) " + " -> ".join(
+            f"{r:.3e}" for r in wit["history"])
+        + f"; that solution rounded to float64 reads "
+        f"{wit['relres_rounded']:.3e} (extended) and "
+        f"{wit['relres_rounded_f64']:.3e} (float64 EBE operator); "
+        f"max|u - u_refined| / max|u_refined| {wit['u_vs_refined']:.3e}")
+    fout["witness"] = wit
+    fout["relres_ebe"] = check_solution(fsim, uf, "structured material "
+                                        "field", FIELD_RELRES_GATE)
+    if not wit["history"][-1] <= 1e-12:
+        raise RuntimeError(f"structured material field: VarStructuredMG's "
+                           f"corrections stop at {wit['history'][-1]:.3e} "
+                           f"with an extended-precision residual")
+    if not wit["u_vs_refined"] <= 1e-10:
+        raise RuntimeError(f"structured material field: u is "
+                           f"{wit['u_vs_refined']:.3e} from the refined "
+                           f"solution")
+    fout["stiff_share"] = float((young > 1).mean())
+    out["material_field"] = fout
+    del fsim, uf
+
+    # card against CPU on a small grid
+    small = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        ssim, _, _ = clamped_problem(8, device)
+        us, rs = ssim.solve(tol=1e-10)
+        small[name] = (us.cpu(), rs, type(ssim._mg[1]).__name__)
+    d_small = float((small["card"][0] - small["cpu"][0]).abs().max()
+                    / small["cpu"][0].abs().max())
+    log(f"small grid (grid_tet(8) P2, clamped): card {small['card'][2]} "
+        f"float32 in refinement ({small['card'][1].rounds} rounds, "
+        f"{small['card'][1].iters} iterations) vs CPU float64 "
+        f"({small['cpu'][1].iters} iterations): {d_small:.3e} of max|u|")
+    if not (small["card"][2] == small["cpu"][2] == "StructuredMG"
+            and d_small <= 1e-7):
+        raise RuntimeError("small grid: card and CPU structured solves "
+                           "disagree")
+    out["small_card_vs_cpu"] = d_small
+
+    # the f32 conv apply against the f64 apply, and A and B at the shell's
+    # shapes against their plain versions
+    op = mg.fine
+    N = op.num_slots
+    xs = [torch.randn((N, 3), generator=gen, device=dev) * op.valid_mask()
+          for _ in range(7)]
+    op64 = StructuredP2Elasticity.build(mesh, sim.D, device="cpu")
+    y32 = op.apply_channels(xs[0])
+    y64 = op64.apply_channels(xs[0].cpu().double())
+    rel_apply = float((y32.cpu().double() - y64).abs().max()
+                      / y64.abs().max())
+    log(f"structured apply: card float32 vs CPU float64 {rel_apply:.3e} of "
+        f"max|y|")
+    if not rel_apply <= 1e-5:
+        raise RuntimeError(f"structured f32 apply disagrees: {rel_apply}")
+    out["apply_f32_vs_f64"] = rel_apply
+    del op64, y64
+    ids, plan = op.fake_ids, op.fake_plan
+    g = kernels.gather_rows(xs[0], ids)
+    if not torch.equal(g, kernels.gather_rows_plain(xs[0], ids)):
+        raise RuntimeError("gather_rows at the shell's shapes != plain")
+    fe = (g.view(-1, 81) @ op.K_cube.t()).view(-1, 3)
+    s = kernels.segment_sum_rows(fe, plan.perm, plan.offsets)
+    s_ref = kernels.segment_sum_rows_plain(fe, plan.perm, plan.offsets)
+    err_shell_b = float((s - s_ref).abs().max())
+    if not err_shell_b <= 1e-5 * float(s_ref.abs().max()):
+        raise RuntimeError(f"segment_sum_rows at the shell's shapes "
+                           f"disagrees: {err_shell_b}")
+    R, S = ids.shape[0], plan.num_segments
+    nkept = int(plan.perm.shape[0])
+    log(f"shell correction: {R // 27} fake cubes, {R} rows ({nkept} in the "
+        f"box) -> {S} shell slots; A equal to plain, B {err_shell_b:.3e} "
+        f"max abs err")
+
+    # stage times (events, warm L2, median over the inputs)
+    mx, my, mz = (c + 1 for c in op.n3)
+    conv = lambda x: F.conv3d(x.view(1, mx, my, mz, 24).permute(0, 4, 1, 2,
+                                                              3),
+                              op.weight, padding=1)
+    rc = [x.view(mg.free_ch.shape) * mg.free_ch for x in xs]
+    # the stencil's nonzeros; assembly leaves ~1e-16-relative roundoff in
+    # a few hundred further entries, which are counted apart
+    nz_exact = int(np.count_nonzero(op.kernel))
+    nz = int(np.count_nonzero(np.abs(op.kernel)
+                              > 1e-12 * np.abs(op.kernel).max()))
+    nz_blocks = int(np.count_nonzero(np.abs(op.kernel).reshape(
+        27, 8, 3, 8, 3).sum(axis=(2, 4))))
+    points = mx * my * mz
+    stages = dict(
+        conv_ms=median_apply_ms(conv, xs),
+        shell_correction_ms=median_apply_ms(op._shell_correction, xs),
+        shell_gather_ms=median_apply_ms(
+            lambda x: kernels.gather_rows(x, ids), xs),
+        shell_sum_ms=median_apply_ms(
+            lambda x: kernels.segment_sum_rows(fe, plan.perm, plan.offsets),
+            xs),
+        apply_ms=median_apply_ms(op.apply_channels, xs),
+        p1_apply_ms={str(lvl.n3[0]): median_apply_ms(
+            lvl.apply, [torch.randn(lvl.free.shape, generator=gen,
+                                    device=dev) for _ in range(7)])
+            for lvl in mg.levels},
+        v_cycle_ms=median_apply_ms(mg.precondition, rc))
+    conv_bytes = 2 * points * 24 * 4 + op.weight.numel() * 4
+    stages.update(
+        conv_bound_bytes_ms=conv_bytes / HBM_BYTES_PER_S * 1e3,
+        conv_bound_ops_ms=2 * nz * points / F32_FLOP_PER_S * 1e3,
+        conv_dense_ops_ms=2 * op.weight.numel() * points / F32_FLOP_PER_S
+        * 1e3,
+        stencil_nonzeros=nz, stencil_nonzeros_exact=nz_exact,
+        stencil_nonzero_blocks=nz_blocks,
+        dense_macs_per_point=op.weight.numel(),
+        conv_launches_default_solve=out["fine_applies"])
+    stages["conv_bound_ms"] = max(stages["conv_bound_bytes_ms"],
+                                  stages["conv_bound_ops_ms"])
+    log(f"structured stages (ms, events, warm L2): conv "
+        f"{stages['conv_ms']:.4f} (bound {stages['conv_bound_ms']:.4f}: "
+        f"bytes {stages['conv_bound_bytes_ms']:.4f}, the stencil's {nz} "
+        f"nonzero multiply-adds a point ({nz_blocks} of 1728 blocks) "
+        f"{stages['conv_bound_ops_ms']:.4f}; the dense conv's "
+        f"{op.weight.numel()} a point {stages['conv_dense_ops_ms']:.4f}), "
+        f"shell correction {stages['shell_correction_ms']:.4f} (A "
+        f"{stages['shell_gather_ms']:.4f}, B {stages['shell_sum_ms']:.4f}), "
+        f"whole apply {stages['apply_ms']:.4f}, P1 apply "
+        + ", ".join(f"{k}^3 {v:.4f}" for k, v in
+                    stages["p1_apply_ms"].items())
+        + f", V-cycle {stages['v_cycle_ms']:.4f}; "
+        f"{out['ms_per_mg_pcg_iter']:.3f} ms per MG-PCG iteration (host)")
+    out["stages"] = stages
+    out["device_busy"] = {
+        "v_cycle": device_busy(lambda: mg.precondition(rc[0])),
+        "inner_solve": device_busy(lambda: mg.solve(
+            sim.neumann_load.float(), tol=1e-4, maxiter=120))}
+    for k, v in out["device_busy"].items():
+        log(f"structured {k}: {v['launches']} device kernels, busy "
+            f"{v['busy_ms']:.3f} ms of {v['wall_ms']:.3f} ms on the host "
+            f"clock (idle share {v['idle_share']:.3f})"
+            if v["busy_ms"] else f"structured {k}: device time not "
+            f"measured (the profiler saw no device kernel)")
+    out["shell"] = dict(rows=R, rows_in_box=nkept, segments=S,
+                        sum_max_abs_err=err_shell_b)
+    return out, (xs[0], ids, fe, plan, lambda: conv(xs[0]))
 
 
 def main() -> int:
@@ -978,7 +1361,11 @@ def main() -> int:
         "dense single apply (bench mesh)", rk, inputs, 1, True)
     summary["stage_table"] = stage_table
 
-    # -- 10. kernels timed beside bound, plain version and library call ----
+    # -- 10. the structured multigrid: the default call on Kuhn grids ------
+    struct, shell_inputs = drive_structured(sim, u, dev, gen)
+    summary["structured"] = struct
+
+    # -- 11. kernels timed beside bound, plain version and library call ----
     timer = Timer(dev)
     report = []
 
@@ -1368,6 +1755,63 @@ def main() -> int:
         if r["name"].startswith(("gather_rows", "segment_sum_rows")):
             log(f"{r['name']}: {r['ms'] / r['library_ms']:.3f} x its library "
                 f"call, {r['ms'] / r['bound_ms']:.3f} x its bound")
+
+    # A and B at the shell correction's shapes (the structured path)
+    src_s, ids_s, fe_s, plan_s, conv_call = shell_inputs
+    st = struct["stages"]
+    st["conv_flushed_ms"] = timer(conv_call)
+    log(f"structured conv alone (L2 flushed, host ahead): "
+        f"{st['conv_flushed_ms']:.4f} ms, "
+        f"{st['conv_flushed_ms'] / st['conv_bound_ms']:.1f} x its bound "
+        f"{st['conv_bound_ms']:.4f}, "
+        f"{st['conv_dense_ops_ms'] / st['conv_flushed_ms']:.3f} of the "
+        f"FP32 rate on the dense conv's operations; "
+        f"{st['conv_launches_default_solve']} launches in the default solve")
+    R_s, S_s = ids_s.shape[0], plan_s.num_segments
+    kept_s = plan_s.perm.shape[0]
+    ids_s_long = ids_s.long().clamp(min=0)
+    # the gather reads only the distinct in-box slots, each once
+    slots_s = int(torch.unique(ids_s[ids_s >= 0]).numel())
+    acc_s = torch.zeros((S_s, 3), device=dev)
+    seg_s = torch.repeat_interleave(
+        torch.arange(S_s, device=dev),
+        (plan_s.offsets[1:] - plan_s.offsets[:-1]).long())
+    fe_sorted = fe_s[plan_s.perm.long()]
+    for r in report:
+        if r["name"] == "gather_rows":
+            r.update(
+                launches_structured=struct["launches"]["gather_rows"],
+                shell_ms=timer(lambda: kernels.gather_rows(src_s, ids_s)),
+                shell_plain_ms=timer(lambda: kernels.gather_rows_plain(
+                    src_s, ids_s), reps=5),
+                shell_bound_ms=(R_s * 4 + slots_s * 3 * 4 + R_s * 3 * 4)
+                / HBM_BYTES_PER_S * 1e3,
+                shell_slots_read=slots_s,
+                shell_library_ms=timer(
+                    lambda: torch.index_select(src_s, 0, ids_s_long)),
+                shell_shape=f"rows [{src_s.shape[0]}, 3] f32, fake-cube "
+                            f"ids [{R_s}] int32 (-1 outside the box)")
+        elif r["name"] == "segment_sum_rows":
+            r.update(
+                launches_structured=struct["launches"]["segment_sum_rows"],
+                shell_ms=timer(lambda: kernels.segment_sum_rows(
+                    fe_s, plan_s.perm, plan_s.offsets)),
+                shell_plain_ms=timer(lambda: kernels.segment_sum_rows_plain(
+                    fe_s, plan_s.perm, plan_s.offsets), reps=5),
+                shell_bound_ms=(kept_s * 3 * 4 + kept_s * 4 + (S_s + 1) * 4
+                                + S_s * 3 * 4) / HBM_BYTES_PER_S * 1e3,
+                shell_library_ms=timer(
+                    lambda: acc_s.index_add_(0, seg_s, fe_sorted)),
+                shell_max_abs_err=struct["shell"]["sum_max_abs_err"],
+                shell_shape=f"rows [{R_s}, 3] f32 ({kept_s} in the box) -> "
+                            f"[{S_s}, 3] shell slots")
+    for r in report:
+        if "shell_ms" in r:
+            log(f"{r['name']} at the shell correction's shapes: "
+                f"{r['shell_ms']:.4f} ms (bound {r['shell_bound_ms']:.4f}), "
+                f"plain {r['shell_plain_ms']:.4f}, library "
+                f"{r['shell_library_ms']:.4f}; launches in the structured "
+                f"default solve {r['launches_structured']}")
 
     summary.update(
         dense_bmm_ms=timer(lambda: torch.bmm(rk.KeP, ue_dense)),

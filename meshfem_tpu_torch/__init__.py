@@ -7,7 +7,10 @@ f32 routed operator with its multi-RHS block apply on hand-written CUDA
 kernels (``kernels/``: gather, segment-sum, the quadrature-point and the
 gradgrad-table contractions, f32 stiffness assembly), Jacobi / block-Jacobi
 / Chebyshev preconditioned CG and block CG under f64 iterative refinement,
-the strain/stress/von Mises fields, and ``analysis.homogenization``.  The JAX
+the strain/stress/von Mises fields, ``analysis.homogenization``, and the
+structured geometric multigrid that ``solve()`` takes on Kuhn grids
+(``ops/structured*.py``: a block-stencil ``conv3d`` with a gather-form
+boundary correction, P1 levels, a dense coarse inverse).  The JAX
 package ``meshfem_tpu`` is the reference; this package imports nothing of
 it and nothing of JAX.
 """

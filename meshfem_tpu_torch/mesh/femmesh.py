@@ -105,6 +105,10 @@ class FEMMesh:
         return np.concatenate([belems, nv + pos], axis=1)
 
     @property
+    def num_vertices(self) -> int:
+        return len(self.V)
+
+    @property
     def num_elements(self) -> int:
         return len(self.F)
 

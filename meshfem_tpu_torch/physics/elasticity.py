@@ -1,7 +1,7 @@
 """Static linear elasticity simulator.
 
 Counterpart of ``meshfem_tpu/physics/elasticity.py::ElasticitySimulator``
-for the routed P2 solve and periodic homogenization:
+for the structured, routed and EBE P2 solves and periodic homogenization:
 
 * element stiffness ``Ke`` in float64: one matmul for a constant material,
   a batched einsum for a per-element ``MaterialField``
@@ -14,10 +14,13 @@ for the routed P2 solve and periodic homogenization:
   float32 ``Ke`` of a constant material is assembled in float32 by kernel E
   (``kernels.element_stiffness``), as ``bench.py:266,320`` feeds
   ``RoutedEBE.build``;
-* ``solve``: ``operator="routed"`` runs preconditioned float32 CG inside
-  float64 iterative refinement (``_solve_routed`` :660);
-  ``operator="ebe"`` the float64 CG (:521-574); ``precond`` is 'jacobi',
-  'block' or 'chebyshev' (``solvers/precond.py``);
+* ``solve``: ``operator="structured"`` (and ``"auto"`` on Kuhn grids, the
+  reference's dispatch :475-502) runs the geometric multigrid
+  (``ops/structured_mg.py``, ``_solve_structured`` :195-237);
+  ``operator="routed"`` runs preconditioned float32 CG inside float64
+  iterative refinement (``_solve_routed`` :660); ``operator="ebe"`` the
+  float64 CG (:521-574); ``precond`` is 'jacobi', 'block' or 'chebyshev'
+  (``solvers/precond.py``);
 * the homogenization load ``constant_strain_load``, the strain, stress and
   von Mises fields and the strain energy.
 
@@ -31,6 +34,7 @@ caller asks for the CPU).
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -41,6 +45,8 @@ from ..fem.flattening import flat_to_sym
 from ..kernels import element_stiffness
 from ..mesh.femmesh import FEMMesh
 from ..ops import element_matrices as em
+from ..ops.structured import validate_kuhn_grid
+from ..ops.structured_mg import StructuredMG, VarStructuredMG
 from ..solvers import cg as cg_mod
 from ..solvers import precond as pc
 from ..solvers import refine as refine_mod
@@ -107,6 +113,8 @@ class ElasticitySimulator:
         self._kernel = EBEKernel.build(self.Ke, self.elem_dofs,
                                        self.num_dofs, self.dim)
         self._routed = None
+        self._mg = None                 # (Dirichlet mask bytes, multigrid,
+        #                                  build seconds on the host clock)
         d = self.dim
         self.dirichlet_mask = np.zeros((self.num_dofs, d), dtype=bool)
         self.dirichlet_values = np.zeros((self.num_dofs, d))
@@ -213,22 +221,53 @@ class ElasticitySimulator:
         'chebyshev' (k-step polynomial in the block-Jacobi-preconditioned
         operator), ``solvers/precond.py``.
 
-        ``operator``: 'routed' (float32 routed CG, inside float64
-        refinement when ``tol < 1e-5``; ``CGResult.iters`` then counts all
-        inner iterations and ``rounds`` the refinement rounds) or 'ebe'
-        (float64 CG).  'auto' picks like the reference where it can:
-        when the reference would try its structured multigrid (3D P2,
-        identity dof map, Dirichlet conditions and >= 3000 elements) or on
-        'structured' this raises NotImplementedError; otherwise it takes
-        the routed operator on CUDA past ``MESHFEM_ROUTED_MIN_E`` elements
-        and the EBE path else.  ``x0`` and the two-level and AMG
+        ``operator``: 'structured' (geometric multigrid on a Kuhn grid,
+        ``_solve_structured``), 'routed' (float32 routed CG, inside float64
+        refinement when ``tol < 1e-5``) or 'ebe' (float64 CG).  'auto'
+        picks as the reference does (:475-502): on a mesh that passes the
+        structured pre-filter (3D P2, constant or per-element material,
+        identity dof map, Dirichlet conditions, >= 3000 elements, no
+        ``x0``) and the Kuhn-grid validation, the structured multigrid,
+        whatever ``precond`` says; otherwise the routed operator on CUDA
+        past ``MESHFEM_ROUTED_MIN_E`` elements and the EBE path else.  Only
+        the validation may send an 'auto' solve elsewhere: a fault inside
+        the multigrid surfaces.  'structured' raises ValueError on a mesh
+        that fails either check or with ``x0``.  On refined paths
+        ``CGResult.iters`` counts all inner iterations and ``rounds`` the
+        refinement rounds.  ``x0`` and the two-level and AMG
         preconditioners are not ported."""
-        if operator == "structured" or (operator == "auto"
-                                        and self._structured_eligible()):
-            raise NotImplementedError(
-                "the structured multigrid path (operator='structured', and "
-                "'auto' on meshes it would take) is queued in ROADMAP.md "
-                "(Queue 1, item 13); pass operator='routed' or 'ebe'")
+        b = self.neumann_load
+        if extra_load is not None:
+            b = b + torch.as_tensor(extra_load, dtype=b.dtype,
+                                    device=self.device)
+        fixed = torch.as_tensor(self.dirichlet_mask, device=self.device)
+        vals = torch.as_tensor(self.dirichlet_values, dtype=b.dtype,
+                               device=self.device)
+        if operator in ("structured", "auto"):
+            if x0 is not None:
+                if operator == "structured":
+                    raise ValueError(
+                        "operator='structured' does not support x0 (the "
+                        "MG-PCG solve starts from zero); drop x0 or use "
+                        "operator='routed'/'ebe'")
+            elif self._structured_eligible():
+                # only the Kuhn-grid validation may redirect an auto solve:
+                # a defect inside the MG stack must surface, not reroute
+                try:
+                    validate_kuhn_grid(self.mesh)
+                    is_grid = True
+                except ValueError:
+                    if operator == "structured":
+                        raise
+                    is_grid = False
+                if is_grid:
+                    return self._solve_structured(b, fixed, vals, tol,
+                                                  maxiter)
+            elif operator == "structured":
+                raise ValueError(
+                    "structured solve requires a 3D P2 mesh with uniform "
+                    "material, identity dof map, some Dirichlet "
+                    "constraint and no rigid-mode projection")
         if precond in ("twolevel", "twolevel-mult"):
             raise NotImplementedError(
                 "precond='twolevel*' (solvers/twolevel.py) is queued in "
@@ -247,13 +286,6 @@ class ElasticitySimulator:
             operator = "routed" if self._routed_auto() else "ebe"
         if operator not in ("routed", "ebe"):
             raise ValueError(f"unknown operator {operator!r}")
-        b = self.neumann_load
-        if extra_load is not None:
-            b = b + torch.as_tensor(extra_load, dtype=b.dtype,
-                                    device=self.device)
-        fixed = torch.as_tensor(self.dirichlet_mask, device=self.device)
-        vals = torch.as_tensor(self.dirichlet_values, dtype=b.dtype,
-                               device=self.device)
         if operator == "routed":
             u_dof, res = self._solve_routed(b, fixed, vals, tol, maxiter,
                                             precond, chebyshev_degree)
@@ -283,6 +315,49 @@ class ElasticitySimulator:
         u_dof = res.x + u_d
         return u_dof[self._dof_map_t], cg_mod.CGResult(u_dof, res.iters,
                                                       res.resnorm)
+
+    def _solve_structured(self, b, fixed, vals, tol, maxiter):
+        """Kuhn-grid path (reference :195-237): V-cycle-preconditioned CG
+        (``ops/structured_mg``), the multigrid cached on the Dirichlet
+        mask.  On the CPU it is built in float64 and solves directly; on
+        CUDA it is built in float32 and runs inside float64 iterative
+        refinement, the residual through ``apply_K`` (the f64 EBE
+        operator, kernel B in double) and each inner solve
+        ``mg.solve(r32, tol=1e-4, maxiter=120)``; the result carries the
+        rounds' residuals and inner iterations (``history``).  A ``tol`` >=
+        1e-5 solves directly in the multigrid's own dtype."""
+        key = self.dirichlet_mask.tobytes()
+        if self._mg is None or self._mg[0] != key:
+            f64_dev = self.device.type == "cpu"
+            cls_mg = VarStructuredMG if self.D.ndim == 3 else StructuredMG
+            t0 = time.perf_counter()
+            mg = cls_mg.build(self.mesh, self.D, fixed_mask=fixed,
+                              dtype=config.REAL if f64_dev else config.SOLVE,
+                              device=self.device)
+            self._mg = (key, mg, time.perf_counter() - t0)
+        mg = self._mg[1]
+        dt = mg.free_ch.dtype
+        if dt == torch.float64 or tol >= 1e-5:
+            u, res = mg.solve(b.to(dt), fixed_values=vals.to(dt), tol=tol,
+                              maxiter=maxiter)
+            u_dof = u.to(b.dtype)
+            return u_dof[self._dof_map_t], cg_mod.CGResult(
+                u_dof, res.iters, res.resnorm)
+
+        free64 = (~fixed).to(torch.float64)
+        u_d = torch.where(fixed, vals, torch.zeros_like(vals)).to(
+            torch.float64)
+        apply_hi = lambda x: self.apply_K(x) * free64
+        rhs64 = (b.to(torch.float64) - self.apply_K(u_d)) * free64
+
+        def solve_lo(r32):
+            u, r = mg.solve(r32, tol=1e-4, maxiter=120)
+            return u, r.iters
+
+        ref = refine_mod.refine(apply_hi, solve_lo, rhs64, tol=tol)
+        u_dof = ref.x + u_d
+        return u_dof[self._dof_map_t], cg_mod.CGResult(
+            u_dof, ref.inner_iters, ref.resnorm, ref.rounds, ref.history)
 
     def _solve_routed(self, b, fixed, vals, tol, maxiter, precond="jacobi",
                       chebyshev_degree=6):
@@ -345,7 +420,7 @@ class ElasticitySimulator:
         ref = refine_mod.refine(apply_hi, solve_lo, rhs64, tol=tol)
         u = ref.x + u_d.to(torch.float64)
         return u, cg_mod.CGResult(u, ref.inner_iters, ref.resnorm,
-                                  ref.rounds)
+                                  ref.rounds, ref.history)
 
     # ------------------------------------------------------------------
     # Loads and fields (LinearElasticity.hh:100-162, 512-552)

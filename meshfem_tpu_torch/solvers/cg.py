@@ -29,6 +29,8 @@ class CGResult(NamedTuple):
     iters: int           # iterations (cumulative inner ones for refinement)
     resnorm: float       # final residual norm (relative, for refinement)
     rounds: int = 0      # refinement rounds (0 for a plain CG solve)
+    history: tuple = ()  # refinement: per round (f64 relative residual
+    #                      before it, inner iterations)
 
 
 def _dot(a, b):

@@ -20,6 +20,8 @@ class RefineResult(NamedTuple):
     rounds: int              # refinement rounds taken
     resnorm: float           # final float64 relative residual norm
     inner_iters: int         # total low-precision CG iterations
+    history: tuple = ()      # per round: (f64 relative residual before
+    #                          it, inner iterations of its solve)
 
 
 def refine(apply_hi: Callable, solve_lo: Callable, b, *,
@@ -34,19 +36,22 @@ def refine(apply_hi: Callable, solve_lo: Callable, b, *,
         return RefineResult(torch.zeros_like(b), 0, 0.0, 0)
     x = torch.zeros_like(b)
     total_inner = 0
+    history = []
     rel = float("inf")
     rounds = 0
     for rounds in range(1, max_rounds + 1):
         r = b - apply_hi(x)
         rel_new = float(torch.linalg.norm(r)) / bn
         if rel_new <= tol:
-            return RefineResult(x, rounds - 1, rel_new, total_inner)
+            return RefineResult(x, rounds - 1, rel_new, total_inner,
+                                tuple(history))
         if rel_new >= rel * 0.9:
             # stagnation: the kappa * eps32 floor is reached
             break
         rel = rel_new
         dx, iters = solve_lo(r.to(torch.float32))
         total_inner += int(iters)
+        history.append((rel_new, int(iters)))
         x = x + dx.to(torch.float64)
     r = b - apply_hi(x)
     rel = float(torch.linalg.norm(r)) / bn
@@ -56,4 +61,4 @@ def refine(apply_hi: Callable, solve_lo: Callable, b, *,
             f"{rel:.3e} (requested tol {tol:.1e}, {rounds} rounds, "
             f"{total_inner} inner iterations): the f32 inner solve hit its "
             f"kappa*eps32 floor", RuntimeWarning, stacklevel=2)
-    return RefineResult(x, rounds, rel, total_inner)
+    return RefineResult(x, rounds, rel, total_inner, tuple(history))

@@ -8,7 +8,9 @@
     refinement) and ``solve(operator="ebe")`` against the reference's
     ``solve(operator="ebe", tol=1e-10)``: u and von Mises to 1e-8 relative;
 (d) (c) again in a subprocess where ``jax`` and ``meshfem_tpu`` cannot be
-    imported: the port stands alone.
+    imported, with a homogenization and an ``auto`` solve of a clamped
+    grid_tet(8), which takes the structured multigrid (f64 relative
+    residual < 1e-10): the port stands alone.
 """
 
 import json
@@ -142,8 +144,8 @@ def test_simulator_from_arrays(reference_solution):
 
 def test_solve_scope_raises():
     sim, _ = _clamped_bar(FEMMesh, ElasticitySimulator, Material, "cpu")
-    with pytest.raises(NotImplementedError):
-        sim.solve(operator="structured")
+    with pytest.raises(ValueError, match="requires a 3D P2 mesh"):
+        sim.solve(operator="structured")      # 144 tets: not eligible
     with pytest.raises(NotImplementedError, match="item 11"):
         sim.solve(operator="routed", precond="twolevel")
     with pytest.raises(NotImplementedError, match="item 14"):
@@ -185,6 +187,21 @@ for op in ("routed", "ebe"):
     u, _ = sim.solve(operator=op, tol=1e-10)
     out[op] = u.numpy().tolist()
     out[op + "_vm"] = sim.von_mises_field(u).numpy().tolist()
+grid = FEMMesh(*generators.grid_tet(8, 8, 8), degree=2)
+gsim = ElasticitySimulator(grid, Material.isotropic(3, 200.0, 0.3),
+                           device="cpu")
+gX = grid.node_positions
+gsim.fix_nodes(np.flatnonzero(gX[:, 0] < 1e-9))
+gload = np.zeros((grid.num_nodes, 3))
+gload[gX[:, 0] > 1 - 1e-9, 1] = -1.0
+gsim.neumann_load = torch.as_tensor(gload)
+ug, rg = gsim.solve(tol=1e-10)
+out["grid_mg"] = type(gsim._mg[1]).__name__
+out["grid_iters"] = rg.iters
+gfree = torch.as_tensor(~gsim.dirichlet_mask)
+out["grid_relres"] = float(torch.linalg.norm(
+    (gsim.neumann_load - gsim.apply_K(ug)) * gfree)
+    / torch.linalg.norm(gsim.neumann_load * gfree))
 mat = Material.isotropic(3, 5.0, 0.3)
 cell = FEMMesh(*generators.grid_tet(2, 2, 2), degree=1)
 out["Ch_err"] = float((hom.homogenize(cell, mat, tol=1e-12, device="cpu").Ch
@@ -206,6 +223,8 @@ def test_port_stands_alone(reference_solution):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
     assert out["Ch_err"] < 1e-9        # the uniform cell homogenizes to D
+    assert out["grid_mg"] == "StructuredMG"      # auto took the multigrid
+    assert out["grid_iters"] <= 40 and out["grid_relres"] < 1e-10
     for op in ("routed", "ebe"):
         assert _rel(out[op], u_ref) < 1e-8
         assert _rel(out[op + "_vm"], vm_ref) < 1e-8

@@ -93,7 +93,30 @@ of which raises on failure:
    its bound (the stencil's nonzero multiply-adds) and the dense conv's
    operations; the device kernels and busy share of one V-cycle and of one
    inner MG-PCG solve (``torch.profiler``);
-11. each kernel timed beside its bound, its plain version and one PyTorch
+11. boundary conditions, the rigid-motion projection and warm starts, each
+   path counted (counts zeroed just before, read just after, its kernels
+   required): (a) the quick start's regions at bench size through
+   ``parse_bc`` (a ``dirichlet`` region on x = 0, the force [0, 0, -10] on
+   x = 1), ``sim.solve(tol=1e-10)`` taking the structured multigrid
+   (A and B), relative residual <= 1e-10, energy balance, and the clamp's
+   ``report_region_surface_forces`` equal to (0, 0, 10) to 1e-8; (c) on
+   the same problem, ``solve(operator="routed", x0=u)`` in 0 refinement
+   rounds and from u/2 to 1e-10 (A, B, E), its inner iterations beside a
+   cold routed solve's, and ``operator="structured"`` with ``x0`` raising
+   ValueError; (b) a free body (``no_rigid_motion``, forces [-1, 0, 0] and
+   [1, 0, 0] on the two x faces) solved by ``solve(tol=1e-10)`` through
+   the routed dense operator (A, B, E) and, in a fresh simulator under
+   ``MESHFEM_FACTORED=1``, the factored one (A and B in planes, C): the
+   projected float64 relative residual <= 1e-10, every element's average
+   stress (1, 0, 0, 0, 0, 0) to 1e-6, u equal to (x, -0.3 y, -0.3 z) / 200
+   to 1e-6 relative with the rigid modes removed from both, and the rigid
+   share |Q^T u| / |u| printed, the float32 rigid projection of the inner
+   CG timed alone beside the dense routed apply; (d) the README quick start
+   (``bar_tet(12,3,3)``, 648 tets) on the card, which takes the refined
+   EBE branch (kernel B in float and double), against the float64 CPU
+   solve (1e-8); the host seconds of the boundary-condition matching and
+   of the rigid modes printed;
+12. each kernel timed beside its bound, its plain version and one PyTorch
    call computing the same function (median of per-launch CUDA-event
    times, L2 flushed before each launch, the call queued before its first
    event fires), A and B in planes also at the 18
@@ -111,7 +134,10 @@ of which raises on failure:
    as ``ptxas``;
    A and B also at the shell correction's shapes, and the structured conv
    alone with the same timer;
-12. last, ``{"ok": true, "device": {...}}``.
+   each kernel line also carries ``launches_bc_paths``, its launches on
+   phase 11's paths (``launches`` stays the count of the earlier main
+   path it was read from);
+13. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -866,6 +892,260 @@ def drive_structured(sim, u_routed, dev, gen):
     return out, (xs[0], ids, fe, plan, lambda: conv(xs[0]))
 
 
+def bc_json(regions, no_rigid_motion=False):
+    return json.dumps({"no_rigid_motion": no_rigid_motion,
+                       "regions": regions})
+
+
+FACE_X0 = {"box%": {"minCorner": [-0.001, -0.001, -0.001],
+                    "maxCorner": [0.001, 1.001, 1.001]}}
+FACE_X1 = {"box%": {"minCorner": [0.999, -0.001, -0.001],
+                    "maxCorner": [1.001, 1.001, 1.001]}}
+# the reference README's quick start regions: a clamp, and the force
+# [0, 0, -10] on the far face
+QUICKSTART_BC = bc_json([{"type": "dirichlet", "value": [0, 0, 0], **FACE_X0},
+                         {"type": "force", "value": [0, 0, -10], **FACE_X1}])
+# a free body in uniform tension: equal and opposite end forces
+FREE_BODY_BC = bc_json([{"type": "force", "value": [-1, 0, 0], **FACE_X0},
+                        {"type": "force", "value": [1, 0, 0], **FACE_X1}],
+                       no_rigid_motion=True)
+
+
+def counted(label, fn, required):
+    """One counted run of ``fn``: launch counts zeroed just before, read
+    just after (synchronised); each wrapper in ``required`` must have
+    launched.  Returns (fn's result, host seconds, counts)."""
+    from meshfem_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    for name in required:
+        if counts[name] == 0:
+            raise RuntimeError(f"{label}: {name} was not launched")
+    return out, wall, counts
+
+
+def bc_simulator(mesh, dev, text, label):
+    """A simulator of ``mesh`` with ``parse_bc(text)`` applied, the host
+    seconds of the boundary-condition matching printed."""
+    from meshfem_tpu_torch.physics import (ElasticitySimulator, Material,
+                                           parse_bc)
+
+    sim = ElasticitySimulator(mesh, Material.isotropic(3, 200.0, 0.3),
+                              device=dev)
+    t0 = time.time()
+    sim.apply_boundary_conditions(parse_bc(text, dim=3))
+    t_bc = time.time() - t0
+    log(f"{label}: apply_boundary_conditions {t_bc:.3f} s on the host "
+        f"({mesh.num_boundary_elements} boundary triangles), "
+        f"{int(sim.dirichlet_mask.sum())} fixed dofs, total load "
+        f"{sim.neumann_load.sum(dim=0).tolist()}")
+    return sim, t_bc
+
+
+def drive_bc(mesh, dev):
+    """Phases 11a-d: the boundary-condition front end, the rigid-motion
+    projection and warm starts at full width, and the README quick start.
+    Returns (summary, launch counts per path)."""
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.physics import (ElasticitySimulator, Material,
+                                           parse_bc)
+    from meshfem_tpu_torch.solvers import cg as cg_mod
+    from meshfem_tpu_torch.utils.linalg import orthonormalize
+
+    out, paths = {}, {}
+    # -- 11a. the quick start at bench size: the default call ------------
+    sim, t_bc = bc_simulator(mesh, dev, QUICKSTART_BC, "quick start (bench)")
+    (u, res), wall, paths["quickstart_bench"] = counted(
+        "quick start (bench)", lambda: sim.solve(tol=1e-10),
+        ("gather_rows", "segment_sum_rows"))
+    if sim._mg is None or type(sim._mg[1]).__name__ != "StructuredMG":
+        raise RuntimeError("quick start (bench): the default call did not "
+                           "take the structured multigrid")
+    relres = check_solution(sim, u, "quick start (bench)")
+    reaction = sim.report_region_surface_forces(u)
+    err_r = float(np.abs(reaction[0] - [0.0, 0.0, 10.0]).max() / 10.0)
+    log(f"quick start (bench): structured, {wall:.3f} s (MG build "
+        f"{sim._mg[2]:.3f} s), {res.rounds} rounds, {res.iters} MG-PCG "
+        f"iterations, relres {res.resnorm:.3e}; clamp reaction "
+        f"{reaction[0].tolist()} ({err_r:.3e} from (0, 0, 10), relative); "
+        f"launches {paths['quickstart_bench']}")
+    if not (reaction.shape == (1, 3) and err_r <= 1e-8):
+        raise RuntimeError(f"quick start (bench): reaction {reaction} is "
+                           f"not (0, 0, 10)")
+    out["quickstart_bench"] = dict(
+        bc_s=t_bc, solve_s=wall, mg_build_s=sim._mg[2], rounds=res.rounds,
+        mg_pcg_iters=res.iters, relres=relres,
+        reaction=reaction[0].tolist(), reaction_rel_err=err_r)
+
+    # -- 11c. warm starts on the same problem, routed --------------------
+    def warm():
+        r0 = sim.solve(operator="routed", tol=1e-10, x0=u)
+        r1 = sim.solve(operator="routed", tol=1e-10, x0=0.5 * u)
+        return r0, r1
+
+    ((u0, r0), (uh, rh)), wall_w, paths["warm_start"] = counted(
+        "warm start", warm, ("gather_rows", "segment_sum_rows",
+                             "element_stiffness"))
+    (uc, rc), wall_c, _ = counted(
+        "cold routed", lambda: sim.solve(operator="routed", tol=1e-10), ())
+    du_h = float((uh - u).abs().max() / u.abs().max())
+    log(f"warm start (routed): from u {r0.rounds} rounds, {r0.iters} inner "
+        f"iterations, relres {r0.resnorm:.3e}; from u/2 {rh.rounds} rounds, "
+        f"{rh.iters} inner iterations, relres {rh.resnorm:.3e}, "
+        f"{du_h:.3e} of max|u| from the structured u; cold {rc.rounds} "
+        f"rounds, {rc.iters} inner iterations ({wall_c:.3f} s); the two "
+        f"warm solves {wall_w:.3f} s with the routed build; launches "
+        f"{paths['warm_start']}")
+    if not (r0.rounds == 0 and rh.resnorm <= 1e-10 and rc.resnorm <= 1e-10
+            and du_h <= 1e-6):
+        raise RuntimeError("warm start: x0 = u did not return at once, or "
+                           "a routed solve missed 1e-10")
+    try:
+        sim.solve(operator="structured", tol=1e-10, x0=u)
+        raise RuntimeError("warm start: operator='structured' took x0")
+    except ValueError:
+        pass
+    out["warm_start"] = dict(
+        rounds_from_u=r0.rounds, rounds_from_half=rh.rounds,
+        inner_iters_from_half=rh.iters, cold_rounds=rc.rounds,
+        cold_inner_iters=rc.iters, cold_solve_s=wall_c,
+        warm_pair_s=wall_w, relres_from_half=rh.resnorm)
+    del sim, u, u0, uh, uc
+
+    # -- 11b. a free body in tension: routed dense, then factored --------
+    X = torch.as_tensor(mesh.node_positions, device=dev)
+    exact = torch.stack([X[:, 0] / 200, -0.3 * X[:, 1] / 200,
+                         -0.3 * X[:, 2] / 200], dim=1)
+    for name, env, required in (
+            ("dense", {}, ("gather_rows", "segment_sum_rows",
+                           "element_stiffness")),
+            ("factored", {"MESHFEM_FACTORED": "1"},
+             ("gather_planes", "segment_sum_csr", "qp_contract"))):
+        label = f"free body ({name})"
+        fsim, t_bc = bc_simulator(mesh, dev, FREE_BODY_BC, label)
+        if not fsim.no_rigid_motion:
+            raise RuntimeError(f"{label}: no_rigid_motion not set")
+        t0 = time.time()
+        Z = fsim._rigid_basis()
+        torch.cuda.synchronize()
+        t_z = time.time() - t0
+        def build_and_solve():
+            t0 = time.time()
+            fsim.routed_kernel()
+            torch.cuda.synchronize()
+            t_build = time.time() - t0
+            return fsim.solve(tol=1e-10), t_build
+
+        os.environ.update(env)
+        try:
+            ((uf, rf), t_build), wall, paths["free_body_" + name] = counted(
+                label, build_and_solve, required)
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+        if fsim._routed is None or (fsim._routed.KeP is None) != bool(env):
+            raise RuntimeError(f"{label}: the solve did not take the routed "
+                               f"{name} operator")
+        project = cg_mod.nullspace_projector(Z)
+        b = fsim.neumann_load
+        relres = float(torch.linalg.norm(project(b - fsim.apply_K(uf)))
+                       / torch.linalg.norm(project(b)))
+        Q = orthonormalize(Z)
+        rigid = float(torch.linalg.norm(Q.t() @ uf.reshape(-1))
+                      / torch.linalg.norm(uf))
+        s_err = float((fsim.average_stress_field(uf) - torch.tensor(
+            [1.0, 0, 0, 0, 0, 0], dtype=uf.dtype, device=dev)).abs().max())
+        pe = project(exact)
+        u_err = float((project(uf) - pe).abs().max() / pe.abs().max())
+        iter_ms = (wall - t_build) / max(rf.iters, 1) * 1e3
+        log(f"{label}: {wall:.3f} s with the routed build ({t_build:.3f} "
+            f"s), {rf.rounds} rounds, {rf.iters} inner iterations, "
+            f"{iter_ms:.4f} ms an iteration (host clock, the solve without "
+            f"the build), projected f64 relative "
+            f"residual {relres:.3e} (refinement's {rf.resnorm:.3e}); stress "
+            f"max|s - (1,0,0,0,0,0)| {s_err:.3e}; u against the analytic "
+            f"field, rigid modes removed, {u_err:.3e}; |Q^T u|/|u| "
+            f"{rigid:.3e}; rigid modes built in {t_z:.3f} s on the host; "
+            f"launches {paths['free_body_' + name]}")
+        if not relres <= 1e-10:
+            raise RuntimeError(f"{label}: projected residual {relres:.3e}")
+        if not (s_err <= 1e-6 and u_err <= 1e-6):
+            raise RuntimeError(f"{label}: not the uniform tension "
+                               f"({s_err:.3e}, {u_err:.3e})")
+        out["free_body_" + name] = dict(
+            bc_s=t_bc, rigid_modes_s=t_z, solve_s=wall, build_s=t_build,
+            iter_ms=iter_ms, rounds=rf.rounds, inner_iters=rf.iters,
+            relres=relres, stress_err=s_err, u_err=u_err, rigid_share=rigid)
+        if name == "dense":
+            # the inner CG's float32 rigid-mode projection, built as the
+            # routed solve builds it, beside the routed apply it follows
+            rk = fsim._routed
+            N = fsim.num_dofs
+            Zp = rk.permute_in(Z.reshape(N, 3, -1)).permute(1, 0, 2) \
+                .reshape(3 * N, -1)
+            proj32 = cg_mod.nullspace_projector(Zp, dtype=torch.float32)
+            vs = [torch.randn((3, N), device=dev) for _ in range(7)]
+            k = Zp.shape[1]
+            # Q read twice (Q^T v, then v - Q c), v twice, the result once
+            proj_bytes = (2 * 3 * N * k + 3 * 3 * N) * 4
+            out["rigid_projection"] = dict(
+                ms=median_apply_ms(proj32, vs),
+                bound_ms=proj_bytes / HBM_BYTES_PER_S * 1e3,
+                apply_ms=median_apply_ms(rk.apply_planes, vs))
+            log(f"{label}: the float32 rigid projection (planes [3, {N}], "
+                f"basis [{3 * N}, {k}]) "
+                f"{out['rigid_projection']['ms']:.4f} ms (events, warm L2; "
+                f"bound {out['rigid_projection']['bound_ms']:.4f} ms by "
+                f"bytes), the dense routed apply "
+                f"{out['rigid_projection']['apply_ms']:.4f} ms")
+            del rk, Zp, proj32, vs
+        del fsim, uf, Z, Q, project
+    del X, exact
+
+    # -- 11d. the README quick start, literally, on the card -------------
+    V, T = generators.bar_tet(12, 3, 3, length=4.0)
+    qs = {}
+    for where in ("card", "cpu"):
+        qmesh = FEMMesh(V, T, degree=2)
+        qsim = ElasticitySimulator(qmesh, Material.isotropic(3, 200.0, 0.35),
+                                   device=dev if where == "card" else "cpu")
+        qsim.fix_nodes(qmesh.nodes_in_box((0, 0, 0), (0, 1, 1)))
+        qsim.apply_boundary_conditions(parse_bc(
+            '{"regions": [{"type": "force", "value": [0, 0, -10], "box%": '
+            '{"minCorner": [0.999, -0.001, -0.001], "maxCorner": '
+            '[1.001, 1.001, 1.001]}}]}', dim=3))
+        if where == "card":
+            (uq, rq), wall, paths["readme_quickstart"] = counted(
+                "README quick start", lambda: qsim.solve(tol=1e-10),
+                ("segment_sum_rows",))
+            if qsim._kernel32 is None or rq.rounds < 1:
+                raise RuntimeError("README quick start: the card did not "
+                                   "take the refined EBE branch")
+        else:
+            uq, rq = qsim.solve(tol=1e-10)
+        qs[where] = (uq.cpu(), rq)
+    dq = float((qs["card"][0] - qs["cpu"][0]).abs().max()
+               / qs["cpu"][0].abs().max())
+    log(f"README quick start (bar_tet(12,3,3) P2, 648 tets): card "
+        f"_solve_ebe_refined {qs['card'][1].rounds} rounds, "
+        f"{qs['card'][1].iters} inner iterations, relres "
+        f"{qs['card'][1].resnorm:.3e}, {wall:.3f} s; CPU float64 CG "
+        f"{qs['cpu'][1].iters} iterations; u card vs CPU {dq:.3e} of max|u|; "
+        f"launches {paths['readme_quickstart']}")
+    if not (dq <= 1e-8 and qs["card"][1].resnorm <= 1e-10):
+        raise RuntimeError(f"README quick start: card and CPU differ ({dq})")
+    out["readme_quickstart"] = dict(
+        rounds=qs["card"][1].rounds, inner_iters=qs["card"][1].iters,
+        solve_s=wall, cpu_iters=qs["cpu"][1].iters, card_vs_cpu=dq)
+    return out, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -882,6 +1162,7 @@ def main() -> int:
     from meshfem_tpu_torch.sparse.routed_ebe import RoutedEBE
 
     dev = torch.device("cuda")
+    t_start = time.time()
     # -- 1. the card -------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1365,7 +1646,14 @@ def main() -> int:
     struct, shell_inputs = drive_structured(sim, u, dev, gen)
     summary["structured"] = struct
 
-    # -- 11. kernels timed beside bound, plain version and library call ----
+    # -- 11. boundary conditions, the rigid-motion projection, warm starts -
+    t0 = time.time()
+    bc_out, bc_paths = drive_bc(sim.mesh, dev)
+    bc_out["phase_s"] = time.time() - t0
+    log(f"boundary-condition phases (11a-d): {bc_out['phase_s']:.1f} s")
+    summary["boundary_conditions"] = bc_out
+
+    # -- 12. kernels timed beside bound, plain version and library call ----
     timer = Timer(dev)
     report = []
 
@@ -1818,6 +2106,10 @@ def main() -> int:
         dense_bmm_bound_ms=rk.KeP.numel() * 4 / HBM_BYTES_PER_S * 1e3,
         cg_iter_ms=wall / max(res.iters, 1) * 1e3,
         factored_cg_iter_ms=wallf / max(resf.iters, 1) * 1e3)
+    for r in report:          # the launches of phase 11's paths
+        wrapper = r["name"].split("/")[0]
+        r["launches_bc_paths"] = {p: c[wrapper] for p, c in bc_paths.items()}
+    summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))
     log(json.dumps({"ok": True, "device": {

@@ -7,10 +7,14 @@ f32 routed operator with its multi-RHS block apply on hand-written CUDA
 kernels (``kernels/``: gather, segment-sum, the quadrature-point and the
 gradgrad-table contractions, f32 stiffness assembly), Jacobi / block-Jacobi
 / Chebyshev preconditioned CG and block CG under f64 iterative refinement,
-the strain/stress/von Mises fields, ``analysis.homogenization``, and the
+the strain/stress/von Mises fields, ``analysis.homogenization``, the
 structured geometric multigrid that ``solve()`` takes on Kuhn grids
 (``ops/structured*.py``: a block-stencil ``conv3d`` with a gather-form
-boundary correction, P1 levels, a dense coarse inverse).  The JAX
+boundary correction, P1 levels, a dense coarse inverse), and the
+boundary-condition front end (``physics.parse_bc``,
+``apply_boundary_conditions``), the rigid-motion projection and warm
+starts on every other solve branch, with materials, their ``.material``
+files and fits, and the ``ElasticityTensor`` class.  The JAX
 package ``meshfem_tpu`` is the reference; this package imports nothing of
 it and nothing of JAX.
 """

@@ -22,8 +22,10 @@ def simulator_from_arrays(arrays: dict, device=None) -> ElasticitySimulator:
     """ElasticitySimulator from ``V``, ``T``, ``degree``, ``D`` (constant
     [fl, fl] or per element [E, fl, fl]) and optionally ``dof_map`` (a
     periodic node -> dof map), ``dirichlet_mask``, ``dirichlet_values``,
-    ``neumann_load`` and ``Ke`` (shares the exact element stiffness instead
-    of re-assembling it)."""
+    ``neumann_load``, ``no_rigid_motion``, ``region_nodes`` (the dof ids of
+    each Dirichlet region, the reference's ``_region_nodes``, which
+    ``report_region_surface_forces`` sums over) and ``Ke`` (shares the
+    exact element stiffness instead of re-assembling it)."""
     mesh = FEMMesh(arrays["V"], arrays["T"], degree=int(arrays["degree"]))
     D = torch.tensor(np.asarray(arrays["D"]), dtype=config.REAL)
     Ke = arrays.get("Ke")
@@ -41,6 +43,9 @@ def simulator_from_arrays(arrays: dict, device=None) -> ElasticitySimulator:
     if "neumann_load" in arrays:
         sim.neumann_load = torch.tensor(np.asarray(arrays["neumann_load"]),
                                         dtype=config.REAL, device=sim.device)
+    sim.no_rigid_motion = bool(arrays.get("no_rigid_motion", False))
+    sim._region_nodes = [np.asarray(r, dtype=np.int64)
+                         for r in arrays.get("region_nodes", [])]
     return sim
 
 

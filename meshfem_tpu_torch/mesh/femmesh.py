@@ -6,8 +6,11 @@ Connectivity is numpy on the host; element geometry is a torch computation
 on the requested device.  The P2 edge numbering is the reference's numpy
 fallback (``np.unique`` of the sorted edge keys, ``femmesh.py:94``), which
 numbers edges exactly as the reference's native host core does (both sort
-the (min, max) vertex pairs).  Triangle meshes and the other node orders
-are not ported yet (ROADMAP).
+the (min, max) vertex pairs).  The region queries (``nodes_in_box``,
+``boundary_elems_in_box``) and barycenters are numpy on the host; volumes
+and the lumped nodal measure are torch on the requested device, the latter
+summed by ``ScatterPlan`` (kernel B on the card).  Triangle meshes and the
+other node orders are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import numpy as np
 import torch
 
 from .. import config
-from ..fem import simplex
+from ..fem import shape_functions, simplex
+from ..sparse.scatter import ScatterPlan
 from . import geometry as geom
 from .simplicial import TetMesh
 
@@ -119,6 +123,12 @@ class FEMMesh:
     def bbox(self) -> geom.BBox:
         return geom.BBox.of(self.V)
 
+    def barycenters(self) -> np.ndarray:
+        return self.V[self.F].mean(axis=1)
+
+    def boundary_barycenters(self) -> np.ndarray:
+        return self.V[self.bdry_elems].mean(axis=1)
+
     def geometry(self, device=None) -> ElementGeometry:
         """Float64 embedding of all elements on ``device`` (the CUDA device
         by default)."""
@@ -130,3 +140,40 @@ class FEMMesh:
         bcorners = X[torch.as_tensor(self.bdry_elems, device=dev)]
         normal, bvol = geom.boundary_normals(bcorners)
         return ElementGeometry(grad_lambda, volume, normal, bvol)
+
+    def volume(self, device=None) -> float:
+        return float(self.geometry(device).volume.sum())
+
+    def boundary_volume(self, device=None) -> float:
+        return float(self.geometry(device).bdry_volume.sum())
+
+    def node_mass_lumped(self, device=None) -> torch.Tensor:
+        """[N] float64 lumped nodal measure: the sum over elements of
+        vol * int(phi_i), summed in a fixed order by ``ScatterPlan``."""
+        g = self.geometry(device)
+        w = torch.as_tensor(
+            shape_functions.integrated_shape_np(self.K, self.degree),
+            dtype=g.volume.dtype, device=g.volume.device)
+        contrib = g.volume[:, None] * w[None, :]
+        plan = ScatterPlan.build(self.elem_nodes.reshape(-1), self.num_nodes,
+                                 g.volume.device)
+        return plan(contrib.reshape(-1))
+
+    # region selectors (boundary-condition application)
+    def nodes_in_box(self, lo, hi, tol_frac: float = 1e-10) -> np.ndarray:
+        tol = tol_frac * float(np.max(self.bbox().dimensions))
+        p = self.node_positions
+        m = np.all((p >= np.asarray(lo) - tol) & (p <= np.asarray(hi) + tol),
+                   axis=1)
+        return np.flatnonzero(m)
+
+    def boundary_elems_in_box(self, lo, hi,
+                              tol_frac: float = 1e-10) -> np.ndarray:
+        """Boundary triangles whose corners all lie in the box."""
+        tol = tol_frac * float(np.max(self.bbox().dimensions))
+        ok = np.ones(len(self.bdry_elems), dtype=bool)
+        for corner in range(self.bdry_elems.shape[1]):
+            p = self.V[self.bdry_elems[:, corner]]
+            ok &= np.all((p >= np.asarray(lo) - tol)
+                         & (p <= np.asarray(hi) + tol), axis=1)
+        return np.flatnonzero(ok)

@@ -1,7 +1,6 @@
 """Static linear elasticity simulator.
 
-Counterpart of ``meshfem_tpu/physics/elasticity.py::ElasticitySimulator``
-for the structured, routed and EBE P2 solves and periodic homogenization:
+Counterpart of ``meshfem_tpu/physics/elasticity.py::ElasticitySimulator``:
 
 * element stiffness ``Ke`` in float64: one matmul for a constant material,
   a batched einsum for a per-element ``MaterialField``
@@ -14,12 +13,20 @@ for the structured, routed and EBE P2 solves and periodic homogenization:
   float32 ``Ke`` of a constant material is assembled in float32 by kernel E
   (``kernels.element_stiffness``), as ``bench.py:266,320`` feeds
   ``RoutedEBE.build``;
+* boundary conditions: ``apply_boundary_conditions`` (``parse_bc``'s
+  regions: Dirichlet, force, traction, pressure, point forces, targets),
+  ``fix_nodes``, the surface-force report, the posedness analysis and the
+  rigid modes (:239-430);
 * ``solve``: ``operator="structured"`` (and ``"auto"`` on Kuhn grids, the
-  reference's dispatch :475-502) runs the geometric multigrid
+  reference's dispatch :475-515) runs the geometric multigrid
   (``ops/structured_mg.py``, ``_solve_structured`` :195-237);
   ``operator="routed"`` runs preconditioned float32 CG inside float64
   iterative refinement (``_solve_routed`` :660); ``operator="ebe"`` the
-  float64 CG (:521-574); ``precond`` is 'jacobi', 'block' or 'chebyshev'
+  float64 CG (:521-574), or on CUDA at tight tolerances float32 EBE CG
+  inside float64 refinement (``_solve_ebe_refined`` :576-658, where the
+  reference gates on the TPU).  Every branch but the structured one takes
+  the rigid-mode projection (``no_rigid_motion``) and a warm start
+  (``x0``); ``precond`` is 'jacobi', 'block' or 'chebyshev'
   (``solvers/precond.py``);
 * the homogenization load ``constant_strain_load``, the strain, stress and
   von Mises fields and the strain energy.
@@ -28,7 +35,8 @@ Dof layout: ``u[dof, component]``.  ``dof_map [N] -> Nd`` identifies nodes
 into dofs (periodic cells, ``mesh/periodic.py``); it is the identity by
 default.  The solve runs in dof space and ``solve`` returns the nodal field
 ``u[dof_map]``.  Tensors live on ``device`` (the CUDA device unless the
-caller asks for the CPU).
+caller asks for the CPU); boundary-condition matching and the loads it
+builds are numpy on the host, as in the reference.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch
 
 from .. import config
 from ..fem import elasticity_tensor as et
+from ..fem import shape_functions as sf
 from ..fem.flattening import flat_to_sym
 from ..kernels import element_stiffness
 from ..mesh.femmesh import FEMMesh
@@ -50,9 +59,20 @@ from ..ops.structured_mg import StructuredMG, VarStructuredMG
 from ..solvers import cg as cg_mod
 from ..solvers import precond as pc
 from ..solvers import refine as refine_mod
+from ..sparse import assembly
 from ..sparse.ebe import EBEKernel
 from ..sparse.routed_ebe import RoutedEBE
+from . import boundary_conditions as bc_mod
 from .materials import Material, MaterialField
+
+
+def _compose(projectors):
+    """One projector applying ``projectors`` in turn."""
+    def project(v):
+        for p in projectors:
+            v = p(v)
+        return v
+    return project
 
 
 def von_mises(stress_flat, dim: int):
@@ -112,6 +132,7 @@ class ElasticitySimulator:
         self.elem_dofs = self._dof_map_t[self._elem_nodes_t]
         self._kernel = EBEKernel.build(self.Ke, self.elem_dofs,
                                        self.num_dofs, self.dim)
+        self._kernel32 = None           # float32 EBE, _solve_ebe_refined
         self._routed = None
         self._mg = None                 # (Dirichlet mask bytes, multigrid,
         #                                  build seconds on the host clock)
@@ -120,7 +141,8 @@ class ElasticitySimulator:
         self.dirichlet_values = np.zeros((self.num_dofs, d))
         self.neumann_load = torch.zeros((self.num_dofs, d), dtype=config.REAL,
                                         device=self.device)
-        self.no_rigid_motion = False    # rigid-mode projection: not ported
+        self.no_rigid_motion = False
+        self._region_nodes: list = []   # dofs of each Dirichlet region
 
     # ------------------------------------------------------------------
     # Operator
@@ -193,19 +215,202 @@ class ElasticitySimulator:
                 and self.mesh.num_elements >= 3000)
 
     # ------------------------------------------------------------------
-    # Boundary conditions
+    # Boundary conditions (reference applyBoundaryConditions,
+    # LinearElasticity.hh:881-1027)
     # ------------------------------------------------------------------
+    def apply_boundary_conditions(self, conds: bc_mod.BoundaryConditions):
+        """Apply parsed boundary conditions (``parse_bc``): Dirichlet
+        regions set ``dirichlet_mask`` / ``dirichlet_values`` (conflicts
+        raise), Neumann regions and point forces add to ``neumann_load``
+        (summed on the host with ``np.add.at``), targets are matched and
+        skipped, and ``no_rigid_motion`` switches the rigid-mode
+        projection on."""
+        mesh = self.mesh
+        env = bc_mod.expression_env(mesh)
+        self.no_rigid_motion |= conds.no_rigid_motion
+        load = np.zeros((self.num_dofs, self.dim))
+        for region in conds.regions:
+            if region.type in ("dirichlet", "target"):
+                if region.kind == "elements":
+                    # DirichletElementsCondition: every node (edge nodes
+                    # too) of the matched boundary elements
+                    belems = bc_mod.match_boundary_elements(mesh, region)
+                    nodes = np.unique(mesh.bdry_elem_nodes[belems])
+                else:
+                    nodes = bc_mod.match_boundary_nodes(mesh, region)
+                if len(nodes) == 0:
+                    raise ValueError(f"BC region matched no nodes: {region}")
+                if region.type == "target":
+                    continue            # targets are objectives
+                if region.kind == "nodes":
+                    vals = np.asarray(region.indexed_values)
+                else:
+                    vals = region.eval_value(mesh.node_positions[nodes], env)
+                comps = region.component_mask.components(self.dim)
+                dofs = self.dof_map[nodes]
+                for ci, c in enumerate(comps):
+                    col = vals[:, c] if vals.shape[1] == self.dim \
+                        else vals[:, ci]
+                    conflict = (self.dirichlet_mask[dofs, c]
+                                & (self.dirichlet_values[dofs, c] != col))
+                    if conflict.any():
+                        raise ValueError("conflicting Dirichlet constraints "
+                                         "(reference detects these too)")
+                    self.dirichlet_mask[dofs, c] = True
+                    self.dirichlet_values[dofs, c] = col
+                # the region's dofs, for surface-force reports
+                self._region_nodes.append(np.asarray(dofs))
+            elif region.type in ("traction", "force", "pressure"):
+                belems = bc_mod.match_boundary_elements(mesh, region)
+                if len(belems) == 0:
+                    raise ValueError(f"BC region matched no boundary "
+                                     f"elements: {region}")
+                load += self._neumann_region_load(region, belems, env)
+            elif region.type == "delta_force":
+                if region.kind == "nodes":
+                    nodes = np.asarray(region.indices)
+                    if nodes.max(initial=-1) >= mesh.num_nodes:
+                        raise ValueError("delta_force node index out of "
+                                         "bounds")
+                    vals = np.asarray(region.indexed_values)
+                else:
+                    nodes = bc_mod.match_boundary_nodes(mesh, region)
+                    vals = region.eval_value(mesh.node_positions[nodes], env)
+                np.add.at(load, self.dof_map[nodes], vals)
+            else:
+                raise ValueError(f"unsupported BC type {region.type!r}")
+        self.neumann_load = self.neumann_load + torch.as_tensor(
+            load, dtype=self.neumann_load.dtype, device=self.device)
+
+    def _neumann_region_load(self, region, belems, env):
+        """Consistent nodal load [Nd, d] (numpy) of a traction that is
+        constant on each boundary element."""
+        mesh = self.mesh
+        centers = mesh.V[mesh.bdry_elems[belems]].mean(axis=1)
+        bvol = self.geom.bdry_volume.cpu().numpy()[belems]
+        if region.kind == "elements":
+            # NeumannElementsCondition: per-element values; a force is
+            # divided by the condition's total element area
+            vals = np.asarray(region.indexed_values)
+            if region.type == "pressure":
+                n = self.geom.bdry_normal.cpu().numpy()[belems]
+                traction = -vals[:, :1] * n
+            elif region.type == "traction":
+                traction = vals
+            else:
+                traction = vals / bvol.sum()
+        elif region.type == "pressure":
+            p = np.asarray(bc_mod.evaluate(region.value[0], centers, env))
+            n = self.geom.bdry_normal.cpu().numpy()[belems]
+            traction = -p[:, None] * n
+        else:
+            traction = region.eval_value(centers, env)[:, :self.dim]
+            if region.type == "force":
+                # total force over the region's area: a uniform traction
+                # (BoundaryConditions.hh:179-181)
+                traction = traction / bvol.sum()
+        w = sf.integrated_shape_np(mesh.K - 1, mesh.degree)     # [nb]
+        fe = traction[:, None, :] * (bvol[:, None] * w[None, :])[:, :, None]
+        nodes = self.dof_map[mesh.bdry_elem_nodes[belems]]
+        load = np.zeros((self.num_dofs, self.dim))
+        np.add.at(load, nodes.reshape(-1), fe.reshape(-1, self.dim))
+        return load
+
+    def report_region_surface_forces(self, u):
+        """[n_regions, dim] net force transmitted through each Dirichlet
+        region: sums of (K u) over the region's dofs
+        (``reportRegionSurfaceForces``, ``LinearElasticity.hh:1251-1270``);
+        u is the nodal field."""
+        ud = torch.zeros((self.num_dofs, self.dim), dtype=self.Ke.dtype,
+                         device=self.device)
+        ud[self._dof_map_t] = torch.as_tensor(u, dtype=ud.dtype,
+                                              device=self.device)
+        f = self.apply_K(ud).cpu().numpy()
+        return np.stack([f[r].sum(axis=0) for r in self._region_nodes]) \
+            if self._region_nodes else np.zeros((0, self.dim))
+
+    def analyze_dirichlet_posedness(self):
+        """(needs_translations [dim] bool, needs_rotations bool): which
+        rigid modes the Dirichlet conditions leave free
+        (``analyzeDirichletPosedness``, ``LinearElasticity.hh:1169-1191``).
+        A rigid combination survives iff it vanishes on every constrained
+        dof: the null space of the rigid basis restricted to the
+        constrained rows, read from its [k, k] Gram matrix."""
+        needs_translations = self.dirichlet_mask.sum(axis=0) == 0
+        d = self.dim
+        Z = self.rigid_modes()
+        rows = self.dirichlet_mask.reshape(-1)
+        if not rows.any():
+            return needs_translations, True
+        C = Z[rows]
+        G = C.T @ C
+        scale = max(float(np.trace(G)), 1e-300)
+        w, V = np.linalg.eigh(G)
+        kernel = V[:, w < 1e-12 * scale]               # surviving combos
+        needs_rotations = bool(kernel.shape[1]
+                               and np.abs(kernel[d:]).max() > 1e-8)
+        return needs_translations, needs_rotations
+
     def fix_nodes(self, nodes, values=0.0, components=None):
-        """Programmatic Dirichlet (dof indices, which are the node indices
-        under the identity dof map; per-dof values)."""
+        """Programmatic Dirichlet conditions on node indices (mapped to
+        their dofs through ``dof_map``), values per node."""
         nodes = np.asarray(nodes)
         values = np.broadcast_to(np.asarray(values, dtype=np.float64),
                                  (len(nodes), self.dim))
         comps = np.arange(self.dim) if components is None \
             else np.asarray(components)
+        dofs = self.dof_map[nodes]
         for c in comps:
-            self.dirichlet_mask[nodes, c] = True
-            self.dirichlet_values[nodes, c] = values[:, c]
+            self.dirichlet_mask[dofs, c] = True
+            self.dirichlet_values[dofs, c] = values[:, c]
+
+    def clear_boundary_conditions(self):
+        self.dirichlet_mask[:] = False
+        self.dirichlet_values[:] = 0.0
+        self.neumann_load = torch.zeros_like(self.neumann_load)
+        self.no_rigid_motion = False
+        self._region_nodes = []
+
+    # ------------------------------------------------------------------
+    # Rigid-motion projection (replaces the constraint rows R,
+    # LinearElasticity.hh:1522-1593)
+    # ------------------------------------------------------------------
+    def rigid_modes(self, translations_only: bool = False) -> np.ndarray:
+        """[Nd * dim, n_modes] float64 rigid translation / rotation basis
+        (numpy), dof-major rows ``dof * dim + component``."""
+        d = self.dim
+        Nd = self.num_dofs
+        # the position of (a) node carrying each dof
+        pos = np.zeros((Nd, d))
+        pos[self.dof_map] = self.mesh.node_positions[:, :d]
+        modes = []
+        for c in range(d):
+            m = np.zeros((Nd, d))
+            m[:, c] = 1.0
+            modes.append(m.ravel())
+        if not translations_only:
+            if d == 2:
+                m = np.zeros((Nd, d))
+                m[:, 0], m[:, 1] = -pos[:, 1], pos[:, 0]
+                modes.append(m.ravel())
+            else:
+                for axis in range(3):
+                    m = np.zeros((Nd, d))
+                    a, b = (axis + 1) % 3, (axis + 2) % 3
+                    m[:, a] = -pos[:, b]
+                    m[:, b] = pos[:, a]
+                    modes.append(m.ravel())
+        return np.stack(modes, axis=1)
+
+    def _rigid_basis(self) -> torch.Tensor:
+        return torch.as_tensor(self.rigid_modes(), device=self.device)
+
+    def to_scipy(self):
+        """The assembled float64 stiffness as a scipy CSR matrix (host),
+        dof-major (``dof * dim + component``)."""
+        return assembly.assemble_scipy(self.Ke.cpu().numpy(),
+                                       self.elem_dofs.cpu().numpy(),
+                                       self.num_dofs, d=self.dim)
 
     # ------------------------------------------------------------------
     # Solve
@@ -217,29 +422,43 @@ class ElasticitySimulator:
 
         The solve runs in dof space; the result is expanded through the dof
         map (``u_dof[dof_map]``) and ``CGResult.x`` keeps the dof-space
-        field.  ``precond``: 'jacobi' | 'block' (exact d x d node blocks) |
-        'chebyshev' (k-step polynomial in the block-Jacobi-preconditioned
-        operator), ``solvers/precond.py``.
+        field.  ``x0`` ([Nd, dim], dof space) warm-starts the CG, or the
+        float64 refinement on the routed path.  ``precond``: 'jacobi' |
+        'block' (exact d x d node blocks) | 'chebyshev' (k-step polynomial
+        in the block-Jacobi-preconditioned operator),
+        ``solvers/precond.py``.  With ``no_rigid_motion`` set the solve
+        runs on the complement of the rigid modes (``nullspace_projector``).
 
         ``operator``: 'structured' (geometric multigrid on a Kuhn grid,
         ``_solve_structured``), 'routed' (float32 routed CG, inside float64
-        refinement when ``tol < 1e-5``) or 'ebe' (float64 CG).  'auto'
-        picks as the reference does (:475-502): on a mesh that passes the
-        structured pre-filter (3D P2, constant or per-element material,
-        identity dof map, Dirichlet conditions, >= 3000 elements, no
-        ``x0``) and the Kuhn-grid validation, the structured multigrid,
-        whatever ``precond`` says; otherwise the routed operator on CUDA
-        past ``MESHFEM_ROUTED_MIN_E`` elements and the EBE path else.  Only
-        the validation may send an 'auto' solve elsewhere: a fault inside
-        the multigrid surfaces.  'structured' raises ValueError on a mesh
-        that fails either check or with ``x0``.  On refined paths
+        refinement when ``tol < 1e-5``) or 'ebe'.  'auto' picks as the
+        reference does (:475-515): on a mesh that passes the structured
+        pre-filter (3D P2, constant or per-element material, identity dof
+        map, Dirichlet conditions, no rigid-mode projection, >= 3000
+        elements), with no ``x0``, and passes the Kuhn-grid validation,
+        the structured multigrid, whatever ``precond`` says; otherwise,
+        with no ``x0``, the routed operator on CUDA past
+        ``MESHFEM_ROUTED_MIN_E`` elements, and the EBE path else.  Only the
+        validation may send an 'auto' solve elsewhere: a fault inside the
+        multigrid surfaces.  'structured' raises ValueError on a mesh that
+        fails either check or with ``x0``.
+
+        On CUDA, an 'auto' or 'ebe' solve with no ``x0``, a float64 load
+        and ``tol < 1e-5`` takes ``_solve_ebe_refined``: float32 EBE CG
+        inside float64 refinement, where the reference takes it on the TPU
+        (:510-515); elsewhere 'ebe' is the float64 CG.  Refinement stops
+        with a RuntimeWarning when the float32 floor (kappa eps32) lies
+        above ``tol``: check ``CGResult.resnorm`` on ill-conditioned
+        meshes.  On refined paths ``maxiter`` bounds each inner solve,
         ``CGResult.iters`` counts all inner iterations and ``rounds`` the
-        refinement rounds.  ``x0`` and the two-level and AMG
-        preconditioners are not ported."""
+        refinement rounds.  The two-level and AMG preconditioners are not
+        ported."""
         b = self.neumann_load
         if extra_load is not None:
             b = b + torch.as_tensor(extra_load, dtype=b.dtype,
                                     device=self.device)
+        if x0 is not None:
+            x0 = torch.as_tensor(x0, dtype=b.dtype, device=self.device)
         fixed = torch.as_tensor(self.dirichlet_mask, device=self.device)
         vals = torch.as_tensor(self.dirichlet_values, dtype=b.dtype,
                                device=self.device)
@@ -278,43 +497,130 @@ class ElasticitySimulator:
                 "(Queue 1, item 14)")
         if precond not in ("jacobi", "block", "chebyshev"):
             raise ValueError(f"unknown precond {precond!r}")
-        if x0 is not None or self.no_rigid_motion:
-            raise NotImplementedError(
-                "warm starts (x0) and the rigid-motion projection are "
-                "queued in ROADMAP.md (Queue 1, item 7)")
-        if operator == "auto":
-            operator = "routed" if self._routed_auto() else "ebe"
-        if operator not in ("routed", "ebe"):
+        if operator not in ("auto", "routed", "ebe"):
             raise ValueError(f"unknown operator {operator!r}")
-        if operator == "routed":
+        if operator == "routed" or (operator == "auto" and x0 is None
+                                    and self._routed_auto()):
             u_dof, res = self._solve_routed(b, fixed, vals, tol, maxiter,
-                                            precond, chebyshev_degree)
+                                            precond, chebyshev_degree, x0)
             return u_dof[self._dof_map_t], res
-        if precond == "jacobi":
+        if (x0 is None and b.dtype == torch.float64 and tol < 1e-5
+                and self.device.type == "cuda"):
+            return self._solve_ebe_refined(b, fixed, vals, tol, maxiter,
+                                           precond, chebyshev_degree)
+        return self._solve_ebe(b, fixed, vals, tol, maxiter, precond,
+                               chebyshev_degree, x0)
+
+    def _solve_ebe(self, b, fixed, vals, tol, maxiter, precond,
+                   chebyshev_degree, x0):
+        """Float64 EBE CG (reference :521-574): the Jacobi fast path
+        (``cg_operator``) when there is nothing to project but the mask and
+        no ``x0``; else the mask and rigid-mode projectors, Jacobi, block or
+        Chebyshev preconditioning and ``x0`` handed to ``cg``."""
+        free = ~fixed
+        if not self.no_rigid_motion and x0 is None and precond == "jacobi":
             res = cg_mod.cg_operator(self._kernel, b, self.K_diagonal(),
-                                     (~fixed).to(b.dtype), vals, tol=tol,
+                                     free.to(b.dtype), vals, tol=tol,
                                      maxiter=maxiter)
             return res.x[self._dof_map_t], res
-        # block Jacobi / Chebyshev on the float64 EBE operator (:552-574)
-        free = (~fixed).to(b.dtype)
-        project = cg_mod.mask_projector(free)
-        blocks = pc.node_block_diagonal(self.Ke, self.elem_dofs,
-                                        self.num_dofs, self.dim)
-        M_inv = pc.block_jacobi_apply(pc.block_jacobi_inv(blocks, free))
-        if precond == "chebyshev":
-            Ap = lambda v: project(self.apply_K(v))
-            M0 = M_inv
-            lmax = pc.estimate_lambda_max(
-                Ap, lambda r: project(M0(r)), (self.num_dofs, self.dim),
-                dtype=self.Ke.dtype, device=self.device)
-            M_inv = pc.chebyshev_preconditioner(
-                Ap, M0, lmax, degree=chebyshev_degree, project=project)
+        projs = [cg_mod.mask_projector(free)]
+        if self.no_rigid_motion:
+            projs.append(cg_mod.nullspace_projector(self._rigid_basis()))
+        project = _compose(projs)
+        if precond == "jacobi":
+            diag = self.K_diagonal()
+            safe = torch.where(diag > 0, diag, torch.ones_like(diag))
+            M_inv = lambda r: r / safe
+        else:
+            M_inv = self._block_precond(self.Ke, self.apply_K, free, project,
+                                        precond, chebyshev_degree)
         u_d = torch.where(fixed, vals, torch.zeros_like(vals))
-        res = cg_mod.cg(self.apply_K, b - self.apply_K(u_d), M_inv=M_inv,
-                        project=project, tol=tol, maxiter=maxiter)
+        res = cg_mod.cg(self.apply_K, b - self.apply_K(u_d), x0,
+                        M_inv=M_inv, project=project, tol=tol,
+                        maxiter=maxiter)
         u_dof = res.x + u_d
         return u_dof[self._dof_map_t], cg_mod.CGResult(u_dof, res.iters,
                                                       res.resnorm)
+
+    def _block_precond(self, Ke, apply, free, project, precond,
+                       chebyshev_degree):
+        """Block Jacobi on the node blocks of ``Ke`` (in ``Ke``'s dtype),
+        or Chebyshev in the block-Jacobi-preconditioned ``apply``, for
+        vectors [Nd, d] in the user's dof order."""
+        blocks = pc.node_block_diagonal(Ke, self.elem_dofs, self.num_dofs,
+                                        self.dim)
+        M_inv = pc.block_jacobi_apply(
+            pc.block_jacobi_inv(blocks, free.to(Ke.dtype)))
+        if precond == "chebyshev":
+            Ap = lambda v: project(apply(v))
+            M0 = M_inv
+            lmax = pc.estimate_lambda_max(
+                Ap, lambda r: project(M0(r)), (self.num_dofs, self.dim),
+                dtype=Ke.dtype, device=self.device)
+            M_inv = pc.chebyshev_preconditioner(
+                Ap, M0, lmax, degree=chebyshev_degree, project=project)
+        return M_inv
+
+    def _solve_ebe_refined(self, b, fixed, vals, tol, maxiter, precond,
+                           chebyshev_degree=6):
+        """Tight-tolerance EBE solve on CUDA (reference :576-658, taken
+        there on the TPU): float32 EBE CG (``Ke`` cast to float32, the
+        float64 operator's scatter plan, kernel B in float) inside float64
+        refinement whose residuals run through the float64 operator
+        (kernel B in double).  The inner solve carries the mask and, with
+        ``no_rigid_motion``, the rigid-mode projector in float32; the
+        float64 residual the same projectors in float64."""
+        f32 = config.SOLVE
+        free = ~fixed
+        if self._kernel32 is None:
+            k = self._kernel
+            self._kernel32 = EBEKernel(self.Ke.to(f32), k.elem_dofs,
+                                       k.num_dofs, k.vector_dim, k.plan)
+        k32 = self._kernel32
+        projs = [cg_mod.mask_projector(free)]
+        proj_rm_hi = None
+        if self.no_rigid_motion:
+            Z = self._rigid_basis()
+            proj_rm_hi = cg_mod.nullspace_projector(Z)
+            # the port's choice: the float32 basis is orthonormalized in
+            # float64 and then cast (the reference orthonormalizes the
+            # float32 modes in float32, elasticity.py:605-607)
+            projs.append(cg_mod.nullspace_projector(Z, dtype=f32))
+        project = _compose(projs)
+        if precond == "jacobi":
+            diag = k32.diagonal()
+            safe = torch.where(diag > 0, diag, torch.ones_like(diag))
+            M_inv = lambda r: r / safe
+        else:
+            M_inv = self._block_precond(k32.Ke, k32, free, project, precond,
+                                        chebyshev_degree)
+        proj_hi = self._proj_hi(free, proj_rm_hi)
+        u_d = torch.where(fixed, vals, torch.zeros_like(vals)).to(
+            torch.float64)
+        apply_hi = lambda x: proj_hi(self.apply_K(x))
+        rhs64 = proj_hi(b.to(torch.float64) - self.apply_K(u_d))
+
+        def solve_lo(r32):
+            res = cg_mod.cg(k32, project(r32), M_inv=M_inv, project=project,
+                            tol=1e-4, maxiter=maxiter)
+            return res.x, res.iters
+
+        ref = refine_mod.refine(apply_hi, solve_lo, rhs64, tol=tol)
+        u_dof = ref.x + u_d
+        return u_dof[self._dof_map_t], cg_mod.CGResult(
+            u_dof, ref.inner_iters, ref.resnorm, ref.rounds, ref.history)
+
+    @staticmethod
+    def _proj_hi(free, proj_rm_hi):
+        """The float64 residual projector of a refined solve: the Dirichlet
+        mask, then the rigid-mode projector where there is one."""
+        free64 = free.to(torch.float64)
+
+        def proj_hi(v):
+            v = v * free64
+            return v if proj_rm_hi is None else proj_rm_hi(v)
+
+        return proj_hi
 
     def _solve_structured(self, b, fixed, vals, tol, maxiter):
         """Kuhn-grid path (reference :195-237): V-cycle-preconditioned CG
@@ -360,13 +666,17 @@ class ElasticitySimulator:
             u_dof, ref.inner_iters, ref.resnorm, ref.rounds, ref.history)
 
     def _solve_routed(self, b, fixed, vals, tol, maxiter, precond="jacobi",
-                      chebyshev_degree=6):
+                      chebyshev_degree=6, x0=None):
         """Routed float32 CG in the operator's internal ordering and plane
         layout [d, Nd], inside float64 refinement when ``tol`` is beyond
-        float32 reach (``_solve_routed`` :660-803).  Returns the dof-space
-        field and the CGResult."""
+        float32 reach (``_solve_routed`` :660-803).  The rigid modes go
+        through the same reordering and transpose as the vectors before
+        they are orthonormalized; ``x0`` enters the refinement as
+        ``proj_hi(x0 - u_d)`` and the plain float32 CG in internal order.
+        Returns the dof-space field and the CGResult."""
         rk = self.routed_kernel()
         f32 = config.SOLVE
+        d, Nd = self.dim, self.num_dofs
         free = ~fixed
 
         def to_planes(v):                    # user [Nd, d] -> internal [d, Nd]
@@ -376,14 +686,26 @@ class ElasticitySimulator:
             return rk.permute_out(v.t())
 
         free_p = to_planes(free.to(f32))
-        project = cg_mod.mask_projector(free_p)
+        projs = [cg_mod.mask_projector(free_p)]
+        proj_rm_hi = None
+        if self.no_rigid_motion:
+            Z = self._rigid_basis()                   # [Nd * d, k] float64
+            proj_rm_hi = cg_mod.nullspace_projector(Z)
+            k = Z.shape[1]
+            Zp = rk.permute_in(Z.reshape(Nd, d, k)).permute(1, 0, 2) \
+                .reshape(d * Nd, k)                   # rows c * Nd + i
+            # the port's choice: orthonormalize in float64 and cast the
+            # basis to float32 (the reference orthonormalizes the float32
+            # modes in float32, elasticity.py:736-742)
+            projs.append(cg_mod.nullspace_projector(Zp, dtype=f32))
+        project = _compose(projs)
         if precond == "jacobi":
             diag_p = rk.diagonal_planes()
             safe = torch.where(diag_p > 0, diag_p, torch.ones_like(diag_p))
             M_inv = lambda r: r / safe
         else:   # block Jacobi, permuted into the internal ordering
             blocks = pc.node_block_diagonal(self.Ke.to(f32), self.elem_dofs,
-                                            self.num_dofs, self.dim)
+                                            Nd, d)
             bj = pc.block_jacobi_apply(pc.block_jacobi_inv(
                 rk.permute_in(blocks), free_p.t()))
             M_inv = lambda r: bj(r.t()).t()
@@ -391,8 +713,7 @@ class ElasticitySimulator:
                 Ap = lambda v: project(rk.apply_planes(v))
                 M0 = M_inv
                 lmax = pc.estimate_lambda_max(
-                    Ap, lambda r: project(M0(r)),
-                    (self.dim, self.num_dofs), dtype=f32,
+                    Ap, lambda r: project(M0(r)), (d, Nd), dtype=f32,
                     device=self.device)
                 M_inv = pc.chebyshev_preconditioner(
                     Ap, M0, lmax, degree=chebyshev_degree, project=project)
@@ -400,16 +721,18 @@ class ElasticitySimulator:
 
         if b.dtype != torch.float64 or tol >= 1e-5:
             ud_p = to_planes(u_d.to(f32))
+            x0_p = None if x0 is None else project(to_planes(
+                (x0 - u_d).to(f32)))
             rhs = project(to_planes(b.to(f32)) - rk.apply_planes(ud_p))
-            res = cg_mod.cg(rk.apply_planes, rhs, M_inv=M_inv,
+            res = cg_mod.cg(rk.apply_planes, rhs, x0_p, M_inv=M_inv,
                             project=project, tol=tol, maxiter=maxiter)
             x = from_planes(res.x + ud_p).to(b.dtype)
             return x, cg_mod.CGResult(x, res.iters, res.resnorm)
 
-        free64 = free.to(torch.float64)
-        apply_hi = lambda x: self.apply_K(x) * free64
-        rhs64 = (b.to(torch.float64) - self.apply_K(u_d.to(torch.float64))) \
-            * free64
+        proj_hi = self._proj_hi(free, proj_rm_hi)
+        u_d = u_d.to(torch.float64)
+        apply_hi = lambda x: proj_hi(self.apply_K(x))
+        rhs64 = proj_hi(b.to(torch.float64) - self.apply_K(u_d))
 
         def solve_lo(r32):
             res = cg_mod.cg(rk.apply_planes, project(to_planes(r32)),
@@ -417,8 +740,11 @@ class ElasticitySimulator:
                             maxiter=maxiter)
             return from_planes(res.x), res.iters
 
-        ref = refine_mod.refine(apply_hi, solve_lo, rhs64, tol=tol)
-        u = ref.x + u_d.to(torch.float64)
+        # a warm start is projected before the first residual: a rigid
+        # component in x0 would never be corrected (K Z = 0)
+        x0_64 = None if x0 is None else proj_hi(x0.to(torch.float64) - u_d)
+        ref = refine_mod.refine(apply_hi, solve_lo, rhs64, tol=tol, x0=x0_64)
+        u = ref.x + u_d
         return u, cg_mod.CGResult(u, ref.inner_iters, ref.resnorm,
                                   ref.rounds, ref.history)
 
@@ -464,6 +790,12 @@ class ElasticitySimulator:
 
     def average_stress_field(self, u):
         return et.double_contract(self.D, self.average_strain_field(u))
+
+    def stress_at(self, u, points=None):
+        """[E, Q, fl] stresses at barycentric points (``strain_at``'s)."""
+        return et.double_contract(self.D if self.D.ndim == 2
+                                  else self.D[:, None],
+                                  self.strain_at(u, points))
 
     def von_mises_field(self, u):
         return von_mises(self.average_stress_field(u), self.dim)

@@ -1,9 +1,12 @@
 """Preconditioned conjugate gradients with constraint projection.
 
 Counterpart of ``meshfem_tpu/solvers/cg.py``: ``cg`` (:43) with its
-breakdown guard, stall and divergence detection and best-iterate return,
-``cg_operator`` (:224, the Jacobi Dirichlet solve), ``mask_projector`` and
-``cg_block`` (:309, all right-hand sides of a block at once).
+warm start, absolute tolerance, breakdown guard, stall and divergence
+detection and best-iterate return, ``cg_fixed_iters`` (:195),
+``cg_operator`` (:224, the Jacobi Dirichlet solve), ``cg_operator_fixed``
+(:250), ``mask_projector``, ``nullspace_projector`` (:274, the rigid-mode
+projection), ``solve_dirichlet`` (:296) and ``cg_block`` (:309, all
+right-hand sides of a block at once).
 The ``while_loop`` becomes a Python loop whose scalars stay on the device;
 the loop reads ONE flag back per iteration (its continue condition), so
 the host waits on the device once per iteration and no more.  Vectors are
@@ -16,6 +19,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..utils.linalg import orthonormalize
 
 # Plain CG on kappa ~ 1e7 systems can plateau for hundreds of iterations
 # and its residual oscillates by ~sqrt(kappa) between drops, so both guards
@@ -38,23 +43,28 @@ def _dot(a, b):
     return torch.vdot(a.reshape(-1), b.reshape(-1))
 
 
-def cg(A: Callable, b, *, M_inv: Callable | None = None,
+def cg(A: Callable, b, x0=None, *, M_inv: Callable | None = None,
        project: Callable | None = None, tol: float = 1e-10,
-       maxiter: int = 1000) -> CGResult:
-    """Solve A x = b with PCG from x = 0.  ``project`` must be an
-    orthogonal projector onto the feasible subspace; it is applied to b and
-    every operator output, keeping all iterates feasible."""
+       atol: float = 0.0, maxiter: int = 1000) -> CGResult:
+    """Solve A x = b with PCG from ``x0`` (default 0).  ``project`` must be
+    an orthogonal projector onto the feasible subspace; it is applied to b,
+    x0 and every operator output, keeping all iterates feasible.  The loop
+    stops once |r| <= max(tol |b|, atol)."""
     if project is None:
         project = lambda v: v
     if M_inv is None:
         M_inv = lambda v: v
 
     b = project(b)
-    x = torch.zeros_like(b)
-    r = b.clone()
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b.clone()
+    else:
+        x = project(x0.to(b.dtype)).clone()
+        r = project(b - A(x))
     z = project(M_inv(r))
     gamma = _dot(r, z)
-    stop2 = tol * tol * _dot(b, b)
+    stop2 = torch.clamp(tol * tol * _dot(b, b), min=atol * atol)
     p = z.clone()
     rr = _dot(r, r)
     rr_best = rr.clone()
@@ -92,6 +102,34 @@ def cg(A: Callable, b, *, M_inv: Callable | None = None,
     return CGResult(x, k, float(rnorm))
 
 
+def cg_fixed_iters(A: Callable, b, x0=None, *,
+                   M_inv: Callable | None = None,
+                   project: Callable | None = None,
+                   iters: int = 100) -> CGResult:
+    """CG with a fixed iteration count and no guards (``cg_fixed_iters``
+    :195, for benchmarks); ``resnorm`` is the final |r|."""
+    if project is None:
+        project = lambda v: v
+    if M_inv is None:
+        M_inv = lambda v: v
+    b = project(b)
+    x = torch.zeros_like(b) if x0 is None else project(x0.to(b.dtype))
+    r = project(b - A(x))
+    z = project(M_inv(r))
+    gamma = _dot(r, z)
+    p = z
+    for _ in range(iters):
+        Ap = project(A(p))
+        alpha = gamma / _dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = project(M_inv(r))
+        gamma_new = _dot(r, z)
+        p = z + (gamma_new / gamma) * p
+        gamma = gamma_new
+    return CGResult(x, iters, float(torch.sqrt(_dot(r, r))))
+
+
 def mask_projector(free_mask):
     """Projector zeroing fixed dofs.  ``free_mask`` broadcasts against the
     vector from the LEADING axes (trailing multi-RHS axes are appended), so
@@ -123,6 +161,50 @@ def cg_operator(op, b, diag, free_mask, fixed_values=None, *,
     res = cg(op, rhs, M_inv=M_inv, project=project, tol=tol, maxiter=maxiter)
     x = res.x if u_d is None else res.x + u_d
     return CGResult(x, res.iters, res.resnorm)
+
+
+def cg_operator_fixed(op, b, diag, free_mask, *,
+                      iters: int = 100) -> CGResult:
+    """Fixed-iteration Jacobi Dirichlet CG of ``op`` (``cg_operator_fixed``
+    :250), for benchmarks."""
+    free = free_mask.to(b.dtype)
+    safe = torch.where(diag > 0, diag, torch.ones_like(diag))
+    return cg_fixed_iters(op, b, M_inv=lambda r: r / safe,
+                          project=lambda v: v * free, iters=iters)
+
+
+def nullspace_projector(Z, dtype=None):
+    """Projector onto the orthogonal complement of span(Z) (``Z [n, k]``,
+    columns orthonormalized here by modified Gram-Schmidt in Z's dtype);
+    the rigid-mode projection that replaces the reference's Lagrange
+    "no rigid motion" rows.  ``dtype``: cast the orthonormal basis to it
+    after orthonormalizing (a float32 projector built in float64).  ``v``
+    of any shape is projected as the columns of ``v.reshape(n, -1)``
+    (``[Nd, d]`` is one column, a block ``[Nd, d, m]`` m of them); ``Qt``
+    is kept contiguous so that ``Q^T v`` reads the basis row by row."""
+    if Z.dim() == 1:
+        Z = Z[:, None]
+    Q = orthonormalize(Z)
+    if dtype is not None:
+        Q = Q.to(dtype)
+    Qt = Q.t().contiguous()
+
+    def project(v):
+        flat = v.reshape(Q.shape[0], -1)
+        return (flat - Q @ (Qt @ flat)).reshape(v.shape)
+
+    return project
+
+
+def solve_dirichlet(A: Callable, b, fixed_mask, fixed_values,
+                    **kw) -> CGResult:
+    """Solve A u = b with u[fixed] = fixed_values[fixed] (``solve_dirichlet``
+    :296): u = u_d + z, z on the free dofs with A_ff z = P (b - A u_d).
+    ``fixed_mask`` is bool or 1.0 / 0.0."""
+    fixed = fixed_mask.to(torch.bool)
+    u_d = torch.where(fixed, fixed_values, torch.zeros_like(fixed_values))
+    res = cg(A, b - A(u_d), project=mask_projector(~fixed), **kw)
+    return CGResult(res.x + u_d, res.iters, res.resnorm)
 
 
 BLOCK_CHUNK = 1024       # iterations between cg_block's stagnation checks

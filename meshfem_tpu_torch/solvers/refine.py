@@ -1,5 +1,5 @@
 """Mixed-precision iterative refinement (counterpart of
-``meshfem_tpu/solvers/refine.py::refine`` :33).
+``meshfem_tpu/solvers/refine.py::refine`` :33, with its warm start).
 
 The residual is evaluated in float64 (one accurate operator apply per
 round), the correction is solved in float32 to a loose inner tolerance, and
@@ -25,16 +25,20 @@ class RefineResult(NamedTuple):
 
 
 def refine(apply_hi: Callable, solve_lo: Callable, b, *,
-           tol: float = 1e-10, max_rounds: int = 12) -> RefineResult:
+           tol: float = 1e-10, max_rounds: int = 12,
+           x0=None) -> RefineResult:
     """Solve ``A x = b`` to float64 relative residual ``tol``.
 
     apply_hi(x_f64) -> A x in float64; solve_lo(r_f32) -> (dx, iters), an
-    approximate float32 solve of A dx = r; b: float64 right-hand side."""
+    approximate float32 solve of A dx = r; b: float64 right-hand side;
+    x0: float64 starting guess (default 0; already projected / constrained
+    as the caller needs).  A guess that already meets ``tol`` returns in 0
+    rounds."""
     b = b.to(torch.float64)
     bn = float(torch.linalg.norm(b))
     if bn == 0.0:
         return RefineResult(torch.zeros_like(b), 0, 0.0, 0)
-    x = torch.zeros_like(b)
+    x = torch.zeros_like(b) if x0 is None else x0.to(torch.float64)
     total_inner = 0
     history = []
     rel = float("inf")

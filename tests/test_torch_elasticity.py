@@ -8,9 +8,11 @@
     refinement) and ``solve(operator="ebe")`` against the reference's
     ``solve(operator="ebe", tol=1e-10)``: u and von Mises to 1e-8 relative;
 (d) (c) again in a subprocess where ``jax`` and ``meshfem_tpu`` cannot be
-    imported, with a homogenization and an ``auto`` solve of a clamped
+    imported, with a homogenization, an ``auto`` solve of a clamped
     grid_tet(8), which takes the structured multigrid (f64 relative
-    residual < 1e-10): the port stands alone.
+    residual < 1e-10), and a free body in uniform tension through
+    ``parse_bc`` and ``no_rigid_motion`` (stress to 1e-9): the port stands
+    alone, boundary-condition modules included.
 """
 
 import json
@@ -150,8 +152,6 @@ def test_solve_scope_raises():
         sim.solve(operator="routed", precond="twolevel")
     with pytest.raises(NotImplementedError, match="item 14"):
         sim.solve(operator="routed", precond="amg")
-    with pytest.raises(NotImplementedError):
-        sim.solve(operator="ebe", x0=torch.zeros(sim.num_dofs, 3))
 
 
 _STANDALONE = r"""
@@ -173,6 +173,10 @@ from meshfem_tpu_torch.analysis import homogenization as hom
 import meshfem_tpu_torch.mesh.periodic, meshfem_tpu_torch.solvers.precond
 import meshfem_tpu_torch.kernels.factored, meshfem_tpu_torch.interop
 from meshfem_tpu_torch.kernels import element_stiffness, factored_contract
+from meshfem_tpu_torch.physics import parse_bc, load_bc, load_material
+import meshfem_tpu_torch.physics.boundary_conditions
+import meshfem_tpu_torch.utils.expressions, meshfem_tpu_torch.utils.linalg
+import meshfem_tpu_torch.fem.tensor_projection, meshfem_tpu_torch.solvers
 V, T = generators.bar_tet(6, 2, 2)
 mesh = FEMMesh(V, T, degree=2)
 sim = ElasticitySimulator(mesh, Material.isotropic(3, 200.0, 0.3),
@@ -202,6 +206,17 @@ gfree = torch.as_tensor(~gsim.dirichlet_mask)
 out["grid_relres"] = float(torch.linalg.norm(
     (gsim.neumann_load - gsim.apply_K(ug)) * gfree)
     / torch.linalg.norm(gsim.neumann_load * gfree))
+free = ElasticitySimulator(FEMMesh(*generators.grid_tet(3, 2, 2), degree=2),
+                           Material.isotropic(3, 200.0, 0.3), device="cpu")
+free.apply_boundary_conditions(parse_bc(json.dumps({
+    "no_rigid_motion": True, "regions": [
+        {"type": "force", "value": [s, 0, 0], "box%": {
+            "minCorner": [x - 0.001, -0.001, -0.001],
+            "maxCorner": [x + 0.001, 1.001, 1.001]}}
+        for s, x in ((-1, 0.0), (1, 1.0))]})))
+uf, _ = free.solve(tol=1e-12)
+out["free_stress_err"] = float((free.average_stress_field(uf) - torch.tensor(
+    [1.0, 0, 0, 0, 0, 0], dtype=torch.float64)).abs().max())
 mat = Material.isotropic(3, 5.0, 0.3)
 cell = FEMMesh(*generators.grid_tet(2, 2, 2), degree=1)
 out["Ch_err"] = float((hom.homogenize(cell, mat, tol=1e-12, device="cpu").Ch
@@ -223,6 +238,7 @@ def test_port_stands_alone(reference_solution):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
     assert out["Ch_err"] < 1e-9        # the uniform cell homogenizes to D
+    assert out["free_stress_err"] < 1e-9   # a free body in uniform tension
     assert out["grid_mg"] == "StructuredMG"      # auto took the multigrid
     assert out["grid_iters"] <= 40 and out["grid_relres"] < 1e-10
     for op in ("routed", "ebe"):

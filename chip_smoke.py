@@ -114,7 +114,9 @@ of which raises on failure:
    CG timed alone beside the dense routed apply; (d) the README quick start
    (``bar_tet(12,3,3)``, 648 tets) on the card, which takes the refined
    EBE branch (kernel B in float and double), against the float64 CPU
-   solve (1e-8); the host seconds of the boundary-condition matching and
+   solve (1e-8), with kernel B held on that branch's own two plans (float
+   and double rows, bit for bit against B in planes and the CPU's plain
+   sum, to 1e-5 / 1e-12 of max against the card's plain); the host seconds of the boundary-condition matching and
    of the rigid modes printed;
 12. each kernel timed beside its bound, its plain version and one PyTorch
    call computing the same function (median of per-launch CUDA-event
@@ -135,8 +137,9 @@ of which raises on failure:
    A and B also at the shell correction's shapes, and the structured conv
    alone with the same timer;
    each kernel line also carries ``launches_bc_paths``, its launches on
-   phase 11's paths (``launches`` stays the count of the earlier main
-   path it was read from);
+   each of phase 11's paths in the line's own mode (a kernel B line its
+   dtype's, the widths of one dtype together; ``launches`` stays the
+   count of the earlier main path it was read from, in the same mode);
 13. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
@@ -365,32 +368,50 @@ def check_solution(sim, u, label, gate=1e-10):
     return relres
 
 
+def counted(label, fn, required=()):
+    """One counted run of ``fn``, the one form every phase measures a path
+    in: launch counts zeroed just before, read just after (synchronised);
+    each wrapper in ``required`` must have launched.  Returns (fn's result,
+    host seconds, counts): each wrapper's launches by its name, and kernel
+    B's float64 launches, a part of them, under ``<name>/f64``."""
+    from meshfem_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    counts.update({w.__name__ + "/f64": w.launches_f64
+                   for w in kernels.WRAPPERS if hasattr(w, "launches_f64")})
+    for name in required:
+        if counts[name] == 0:
+            raise RuntimeError(f"{label}: {name} was not launched")
+    return out, wall, counts
+
+
 def drive_solve(sim, label, required):
     """One counted run of the user's entry points ``sim.routed_kernel`` (the
     operator is built anew, timed apart) and ``sim.solve``: counts are
     zeroed just before and read just after; each wrapper in ``required``
     must have launched."""
-    from meshfem_tpu_torch import kernels
-
-    sim._routed = None
-    with ApplyCounter() as applies:
-        kernels.reset_launch_counts()
+    def build_and_solve():
         t0 = time.time()
         sim.routed_kernel()
         torch.cuda.synchronize()
         t_build = time.time() - t0
-        t0 = time.time()
-        u, res = sim.solve(operator="routed", tol=1e-10)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        return sim.solve(operator="routed", tol=1e-10), t_build
+
+    sim._routed = None
+    with ApplyCounter() as applies:
+        ((u, res), t_build), wall, counts = counted(label, build_and_solve,
+                                                    required)
+    wall -= t_build
     log(f"{label}: operator built in {t_build:.3f} s; "
         f"solve {wall:.3f} s, {res.rounds} refinement rounds, "
         f"{res.iters} inner CG iterations, relres {res.resnorm:.3e}, "
         f"launches {counts}")
-    for name in required:
-        if counts[name] == 0:
-            raise RuntimeError(f"{label}: {name} was not launched")
     return u, res, wall, counts, applies.count
 
 
@@ -430,7 +451,6 @@ def drive_homogenize(mesh, material, label, env, required):
     just after; each wrapper in ``required`` must have launched.  The block
     CG is wrapped to record the inner iterations of every refinement
     round."""
-    from meshfem_tpu_torch import kernels
     from meshfem_tpu_torch.analysis import homogenization as hom
     from meshfem_tpu_torch.solvers import cg as cg_mod
 
@@ -454,13 +474,9 @@ def drive_homogenize(mesh, material, label, env, required):
         with warnings.catch_warnings(record=True) as caught, \
                 ApplyCounter() as applies:
             warnings.simplefilter("always")
-            kernels.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.time()
-            res = hom.homogenize(mesh, material, tol=1e-10)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
+            res, wall, counts = counted(
+                label, lambda: hom.homogenize(mesh, material, tol=1e-10),
+                required)
     finally:
         cg_mod.cg_block = inner
         for k in env:
@@ -476,9 +492,6 @@ def drive_homogenize(mesh, material, label, env, required):
         f"clock around the block CG), launches {counts}")
     for msg in stagnated:
         log(f"{label}: WARNING {msg}")
-    for name in required:
-        if counts[name] == 0:
-            raise RuntimeError(f"{label}: {name} was not launched")
     return res, dict(seconds=wall, block_cg_seconds=cg_s,
                      block_iter_ms=cg_s / max(iters, 1) * 1e3,
                      rounds=len(rounds), round_iters=rounds,
@@ -553,18 +566,11 @@ def structured_solve(sim, label, mg_name, required):
     rounds come from what the solve records (``sim._mg``,
     ``res.history``); the ms per MG-PCG iteration from one inner solve of
     the first round's right-hand side, timed alone after the run."""
-    from meshfem_tpu_torch import kernels
-
     sim._mg = None
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        kernels.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        u, res = sim.solve(tol=1e-10)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        (u, res), wall, counts = counted(
+            label, lambda: sim.solve(tol=1e-10), required)
     mg = sim._mg[1] if sim._mg is not None else None
     if type(mg).__name__ != mg_name or mg.free_ch.dtype != torch.float32:
         raise RuntimeError(f"{label}: the default call did not build a "
@@ -603,15 +609,12 @@ def structured_solve(sim, label, mg_name, required):
         f"MG-PCG iteration (one inner solve alone, {int(inner.iters)} "
         f"iterations in {inner_s:.3f} s, host clock); launches gather_rows "
         f"{counts['gather_rows']}, segment_sum_rows "
-        f"{counts['segment_sum_rows']} (kernel B: {counts['gather_rows']} "
-        f"float32 shell sums, "
-        f"{counts['segment_sum_rows'] - counts['gather_rows']} float64 EBE "
+        f"{counts['segment_sum_rows']} (kernel B: "
+        f"{counts['segment_sum_rows'] - counts['segment_sum_rows/f64']} "
+        f"float32 shell sums, {counts['segment_sum_rows/f64']} float64 EBE "
         f"residual sums)")
     for msg in out["stagnated"]:
         log(f"{label}: WARNING {msg}")
-    for name in required:
-        if counts[name] == 0:
-            raise RuntimeError(f"{label}: {name} was not launched")
     return u, res, mg, out
 
 
@@ -911,25 +914,6 @@ FREE_BODY_BC = bc_json([{"type": "force", "value": [-1, 0, 0], **FACE_X0},
                        no_rigid_motion=True)
 
 
-def counted(label, fn, required):
-    """One counted run of ``fn``: launch counts zeroed just before, read
-    just after (synchronised); each wrapper in ``required`` must have
-    launched.  Returns (fn's result, host seconds, counts)."""
-    from meshfem_tpu_torch import kernels
-
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    out = fn()
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
-    for name in required:
-        if counts[name] == 0:
-            raise RuntimeError(f"{label}: {name} was not launched")
-    return out, wall, counts
-
-
 def bc_simulator(mesh, dev, text, label):
     """A simulator of ``mesh`` with ``parse_bc(text)`` applied, the host
     seconds of the boundary-condition matching printed."""
@@ -946,6 +930,48 @@ def bc_simulator(mesh, dev, text, label):
         f"{int(sim.dirichlet_mask.sum())} fixed dofs, total load "
         f"{sim.neumann_load.sum(dim=0).tolist()}")
     return sim, t_bc
+
+
+def own_mode(counts, name):
+    """The launches, in ``counts`` (as ``counted`` reads them), of the
+    report line ``name``'s own mode: a kernel B line takes its dtype's
+    (``.../f64`` lines the float64 launches, the others the float32 ones;
+    the widths of one dtype together), any other line its wrapper's."""
+    wrapper = name.split("/")[0]
+    if wrapper + "/f64" not in counts:
+        return counts[wrapper]
+    f64 = counts[wrapper + "/f64"]
+    return f64 if "/f64" in name else counts[wrapper] - f64
+
+
+def check_rows_on_plan(plan, dtype, label, gen):
+    """Kernel B in rows on a path's own ``plan`` and shapes: random
+    contribution rows ``[R, 3]`` in ``dtype`` on the card must sum bit for
+    bit as B in planes sums them, and as the plain version sums them on
+    the CPU (in the kernel's order); the plain version on the card (float
+    atomics) must agree to 1e-5 (float32) or 1e-12 (float64) of max|y|.
+    Returns the max abs error against the card's plain version."""
+    from meshfem_tpu_torch import kernels
+
+    src = torch.randn((plan.num_rows, 3), generator=gen, device=gen.device,
+                      dtype=dtype)
+    y = kernels.segment_sum_rows(src, plan.perm, plan.offsets)
+    yp = kernels.segment_sum_csr(src.t().contiguous(), plan.perm,
+                                 plan.offsets)
+    y_cpu = kernels.segment_sum_rows_plain(src.cpu(), plan.perm.cpu(),
+                                           plan.offsets.cpu())
+    ref = kernels.segment_sum_rows_plain(src, plan.perm, plan.offsets)
+    err = float((y - ref).abs().max())
+    gate = (1e-5 if dtype == torch.float32 else 1e-12) \
+        * float(ref.abs().max())
+    if not (torch.equal(y.t(), yp) and torch.equal(y.cpu(), y_cpu)):
+        raise RuntimeError(f"{label}: segment_sum_rows {dtype} on the path's "
+                           f"plan != segment_sum_csr / the CPU plain sum bit "
+                           f"for bit")
+    if not err <= gate:
+        raise RuntimeError(f"{label}: segment_sum_rows {dtype} disagrees "
+                           f"with plain: {err:.3e}")
+    return err
 
 
 def drive_bc(mesh, dev):
@@ -1127,6 +1153,14 @@ def drive_bc(mesh, dev):
             if qsim._kernel32 is None or rq.rounds < 1:
                 raise RuntimeError("README quick start: the card did not "
                                    "take the refined EBE branch")
+            # B on this branch's own plans: the float32 inner CG's and the
+            # float64 residual's (a wrong float32 B would only slow the
+            # refinement, so the u gate below cannot catch it)
+            gen = torch.Generator(device=dev).manual_seed(6)
+            b_err = {str(t).split(".")[1]: check_rows_on_plan(
+                k.plan, t, "README quick start", gen) for k, t in (
+                    (qsim._kernel32, torch.float32),
+                    (qsim._kernel, torch.float64))}
         else:
             uq, rq = qsim.solve(tol=1e-10)
         qs[where] = (uq.cpu(), rq)
@@ -1137,12 +1171,16 @@ def drive_bc(mesh, dev):
         f"{qs['card'][1].iters} inner iterations, relres "
         f"{qs['card'][1].resnorm:.3e}, {wall:.3f} s; CPU float64 CG "
         f"{qs['cpu'][1].iters} iterations; u card vs CPU {dq:.3e} of max|u|; "
-        f"launches {paths['readme_quickstart']}")
+        f"B rows on its plans ([{qsim._kernel.plan.num_rows}, 3]) equal bit "
+        f"for bit to B in planes and to the CPU's plain sum, max abs err "
+        f"against the card's plain {b_err}; launches "
+        f"{paths['readme_quickstart']}")
     if not (dq <= 1e-8 and qs["card"][1].resnorm <= 1e-10):
         raise RuntimeError(f"README quick start: card and CPU differ ({dq})")
     out["readme_quickstart"] = dict(
         rounds=qs["card"][1].rounds, inner_iters=qs["card"][1].iters,
-        solve_s=wall, cpu_iters=qs["cpu"][1].iters, card_vs_cpu=dq)
+        solve_s=wall, cpu_iters=qs["cpu"][1].iters, card_vs_cpu=dq,
+        segment_sum_rows_max_abs_err=b_err)
     return out, paths
 
 
@@ -1450,15 +1488,14 @@ def main() -> int:
         raise RuntimeError("small-input solve disagrees with the CPU path")
 
     # -- 6. the assembly path (kernel E) -----------------------------------
-    kernels.reset_launch_counts()
-    t0 = time.time()
-    Ke32 = kernels.element_stiffness(gl32, vol32, sim.D, 2)
-    rk32 = RoutedEBE.build(Ke32, sim.mesh.elem_nodes, N, 3,
-                           coords=sim.mesh.node_positions, device=dev)
-    y32 = rk32.apply_planes(inputs[0])
-    torch.cuda.synchronize()
-    wall_asm = time.time() - t0
-    counts_asm = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    def assemble_and_apply():
+        Ke32 = kernels.element_stiffness(gl32, vol32, sim.D, 2)
+        rk32 = RoutedEBE.build(Ke32, sim.mesh.elem_nodes, N, 3,
+                               coords=sim.mesh.node_positions, device=dev)
+        return Ke32, rk32, rk32.apply_planes(inputs[0])
+
+    (Ke32, rk32, y32), wall_asm, counts_asm = counted(
+        "assembly path", assemble_and_apply, ("element_stiffness",))
     rk64 = RoutedEBE.build(sim.Ke, sim.mesh.elem_nodes, N, 3,
                            coords=sim.mesh.node_positions, device=dev)
     y64 = rk64.apply_planes(inputs[0])
@@ -1467,8 +1504,6 @@ def main() -> int:
     log(f"assembly path: f32 Ke from kernel E -> RoutedEBE.build -> apply in "
         f"{wall_asm:.3f} s; apply vs the operator built from the f64 Ke: "
         f"{rel_asm:.3e} of max|y|; launches {counts_asm}")
-    if counts_asm["element_stiffness"] == 0:
-        raise RuntimeError("assembly path: element_stiffness not launched")
     if not rel_asm <= 5e-6:
         raise RuntimeError(f"assembly path disagrees: {rel_asm}")
     summary.update(assembly_path_s=wall_asm, assembly_vs_f64_apply=rel_asm)
@@ -1547,10 +1582,9 @@ def main() -> int:
                             .astype(np.int32), device=dev)
     plidx = torch.as_tensor(prng.integers(0, 128, (NV, 8, 128))
                             .astype(np.int32), device=dev)
-    kernels.reset_launch_counts()
-    f_out = kernels.route_window(px, pwin0, pwidx, plidx, CHAIN)
-    torch.cuda.synchronize()
-    counts_probe = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    f_out, _, counts_probe = counted(
+        "route_window", lambda: kernels.route_window(px, pwin0, pwidx,
+                                                     plidx, CHAIN))
     f_ref = kernels.route_window_plain(px, pwin0, pwidx, plidx, CHAIN)
     if counts_probe["route_window"] != 1 or not torch.equal(f_out, f_ref):
         raise RuntimeError("route_window disagrees with its plain version")
@@ -1944,8 +1978,8 @@ def main() -> int:
     rows3 = fsrc.reshape(3, 10, E).permute(2, 1, 0).reshape(S, 3)
     acc_r3 = torch.zeros((N, 3), device=dev)
     entry("segment_sum_rows", "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
-          "meshfem_tpu/sparse/route.py:162", counts_dense["segment_sum_rows"],
-          err_rows[("f32", 3)],
+          "meshfem_tpu/sparse/route.py:162",
+          own_mode(counts_dense, "segment_sum_rows"), err_rows[("f32", 3)],
           lambda: kernels.segment_sum_rows(rows3, perm_em, offs,
                                            planes_out=True),
           lambda: kernels.segment_sum_rows_plain(rows3, perm_em, offs, True),
@@ -1953,7 +1987,7 @@ def main() -> int:
           3 * S * 4 + S * 4 + (N + 1) * 4 + 3 * N * 4, 3 * S,
           also_replaces="meshfem_tpu/sparse/route.py:207 (_reduce_kernel)",
           mode="rows [S, 3] -> planes [3, N], as apply_planes runs it",
-          launches_path="dense clamped solve, f32 and f64 together",
+          launches_path="dense clamped solve, float32 launches",
           library_call="Tensor.index_add_ (float atomics, not "
                        "deterministic)",
           shape=f"src [{S}, 3] f32 -> [3, {N}]")
@@ -1963,13 +1997,14 @@ def main() -> int:
     acc_r18 = torch.zeros((Nh, 18), device=dev)
     entry("segment_sum_rows/18", "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
           "meshfem_tpu/sparse/route.py:162",
-          homog["dense"]["launches"]["segment_sum_rows"], err_b18r,
+          own_mode(homog["dense"]["launches"], "segment_sum_rows/18"),
+          err_b18r,
           lambda: kernels.segment_sum_rows(g18r, h_perm_em, hoffs),
           lambda: kernels.segment_sum_rows_plain(g18r, h_perm_em, hoffs),
           lambda: acc_r18.index_add_(0, h_ids_em_long, g18r),
           18 * Sh * 4 + Sh * 4 + (Nh + 1) * 4 + 18 * Nh * 4, 18 * Sh,
           mode="rows [Sh, 18] -> rows [Nh, 18], as apply_block runs it",
-          launches_path="dense homogenize, f32 and f64 together",
+          launches_path="dense homogenize, float32 launches",
           library_call="Tensor.index_add_ (float atomics)",
           shape=f"src [{Sh}, 18] f32 -> [{Nh}, 18]")
     rows64 = dsrc.t().contiguous()
@@ -1977,8 +2012,8 @@ def main() -> int:
     acc_r64 = torch.zeros((N, 3), device=dev, dtype=torch.float64)
     entry("segment_sum_rows/f64", "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
           "meshfem_tpu/sparse/route.py:162 (f64: the XLA scatter of "
-          "meshfem_tpu/sparse/scatter.py)", counts_dense["segment_sum_rows"],
-          err_rows[("f64", 3)],
+          "meshfem_tpu/sparse/scatter.py)",
+          own_mode(counts_dense, "segment_sum_rows/f64"), err_rows[("f64", 3)],
           lambda: plan64.sum_rows(rows64),
           lambda: kernels.segment_sum_rows_plain(rows64, plan64.perm,
                                                  plan64.offsets),
@@ -1986,7 +2021,7 @@ def main() -> int:
           3 * R64 * 8 + R64 * 4 + (N + 1) * 4 + 3 * N * 8, 3 * R64,
           flop_rate=F64_FLOP_PER_S,
           mode="f64 rows [R, 3] -> rows [N, 3]: the EBE residual apply",
-          launches_path="dense clamped solve, f32 and f64 together",
+          launches_path="dense clamped solve, float64 launches",
           library_call="Tensor.index_add_ (float atomics)",
           shape=f"src [{R64}, 3] f64 -> [{N}, 3]")
     hR64 = hplan64.num_rows
@@ -2005,7 +2040,8 @@ def main() -> int:
           "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
           "meshfem_tpu/sparse/route.py:162 (f64: the XLA scatter of "
           "meshfem_tpu/sparse/scatter.py)",
-          homog["dense"]["launches"]["segment_sum_rows"], err_b18r64,
+          own_mode(homog["dense"]["launches"], "segment_sum_rows/f64/18"),
+          err_b18r64,
           lambda: hplan64.sum_rows(rows64_18),
           lambda: kernels.segment_sum_rows_plain(rows64_18, hplan64.perm,
                                                  hplan64.offsets),
@@ -2013,7 +2049,7 @@ def main() -> int:
           18 * hR64 * 8 + hR64 * 4 + (Nh + 1) * 4 + 18 * Nh * 8, 18 * hR64,
           flop_rate=F64_FLOP_PER_S,
           mode="f64 rows [R, 18] -> rows [Nh, 18]: the block residual",
-          launches_path="dense homogenize, f32 and f64 together",
+          launches_path="dense homogenize, float64 launches",
           library_call="Tensor.index_add_ (float atomics)",
           shape=f"src [{hR64}, 18] f64 -> [{Nh}, 18]")
 
@@ -2107,8 +2143,8 @@ def main() -> int:
         cg_iter_ms=wall / max(res.iters, 1) * 1e3,
         factored_cg_iter_ms=wallf / max(resf.iters, 1) * 1e3)
     for r in report:          # the launches of phase 11's paths
-        wrapper = r["name"].split("/")[0]
-        r["launches_bc_paths"] = {p: c[wrapper] for p, c in bc_paths.items()}
+        r["launches_bc_paths"] = {p: own_mode(c, r["name"])
+                                  for p, c in bc_paths.items()}
     summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))

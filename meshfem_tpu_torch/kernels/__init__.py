@@ -4,7 +4,8 @@ Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises), counting launches in
 ``<wrapper>.launches``.  Kernels A and B have one wrapper per layout
 (planes for the factored contractions, node rows for the dense ones), so
-the counts show which layout a path ran.
+the counts show which layout a path ran; kernel B's wrappers also count
+their float64 launches apart, in ``<wrapper>.launches_f64``.
 """
 
 from .gather import (gather_planes, gather_planes_plain,  # noqa: F401
@@ -25,3 +26,5 @@ WRAPPERS = (gather_planes, gather_rows, segment_sum_csr, segment_sum_rows,
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
+        if hasattr(w, "launches_f64"):
+            w.launches_f64 = 0

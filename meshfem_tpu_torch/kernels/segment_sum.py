@@ -86,10 +86,13 @@ def segment_sum_csr(src: torch.Tensor, perm: torch.Tensor,
     out = _launch("segment_sum_csr", src, perm, offsets, P, (1, S), (P, N),
                   (1, N))
     segment_sum_csr.launches += 1
+    if src.dtype == torch.float64:
+        segment_sum_csr.launches_f64 += 1
     return out
 
 
 segment_sum_csr.launches = 0
+segment_sum_csr.launches_f64 = 0
 
 
 def segment_sum_rows(src: torch.Tensor, perm: torch.Tensor,
@@ -108,7 +111,10 @@ def segment_sum_rows(src: torch.Tensor, perm: torch.Tensor,
     out = _launch("segment_sum_rows", src, perm, offsets, P, (P, 1),
                   out_shape, out_strides)
     segment_sum_rows.launches += 1
+    if src.dtype == torch.float64:
+        segment_sum_rows.launches_f64 += 1
     return out
 
 
 segment_sum_rows.launches = 0
+segment_sum_rows.launches_f64 = 0

@@ -258,8 +258,11 @@ def test_wrappers_registered_with_launch_counts():
                      "segment_sum_rows", "qp_contract", "factored_contract",
                      "element_stiffness", "route_window"]
     kernels.factored_contract.launches = 3
+    kernels.segment_sum_rows.launches_f64 = 2
     kernels.reset_launch_counts()
     assert all(w.launches == 0 for w in kernels.WRAPPERS)
+    assert kernels.segment_sum_csr.launches_f64 == 0
+    assert kernels.segment_sum_rows.launches_f64 == 0
 
 
 RAGGED = [1, 333, 1000, 4099]     # 1000 and 4099: no multiple of a tile

@@ -345,11 +345,14 @@ def test_cuda_segment_sum_rows(cuda, dtype, planes):
                           device=cuda)
     rows = src.t().contiguous()
     before = kernels.segment_sum_rows.launches
+    before_f64 = kernels.segment_sum_rows.launches_f64
     out = kernels.segment_sum_rows(rows, sp.perm, sp.offsets)
     out_p = kernels.segment_sum_rows(rows, sp.perm, sp.offsets,
                                      planes_out=True)
     torch.cuda.synchronize()
     assert kernels.segment_sum_rows.launches == before + 2
+    assert kernels.segment_sum_rows.launches_f64 == before_f64 + (
+        2 if dtype == torch.float64 else 0)
     assert torch.equal(out_p, kernels.segment_sum_csr(src, sp.perm,
                                                       sp.offsets))
     assert torch.equal(out.t(), out_p)

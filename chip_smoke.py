@@ -116,9 +116,54 @@ of which raises on failure:
    EBE branch (kernel B in float and double), against the float64 CPU
    solve (1e-8), with kernel B held on that branch's own two plans (float
    and double rows, bit for bit against B in planes and the CPU's plain
-   sum, to 1e-5 / 1e-12 of max against the card's plain); the host seconds of the boundary-condition matching and
-   of the rigid modes printed;
-12. each kernel timed beside its bound, its plain version and one PyTorch
+   sum, to 1e-5 / 1e-12 of max against the card's plain); the host
+   seconds of the boundary-condition matching and of the rigid modes
+   printed;
+12. voxel homogenization, the orthotropic cell, the two-level
+   preconditioner and SIMP topology optimization, each path counted
+   (counts zeroed just before, read just after), and kernels A and B held
+   against their plain versions on every plan those paths launch them on
+   (bit for bit against B in planes and the CPU's plain sum, 1e-5 / 1e-12
+   of max against the card's plain): (a) ``homogenize_voxels`` on the
+   cross lattice of ``examples/homogenize_voxels.py`` at 36^3 (279,936
+   tets, 373,248 periodic nodes, 1,119,744 unknowns x 6 columns, float64,
+   void 1e-6, tol 1e-9) through the periodic torus multigrid: block CG
+   iterations < 60, ``Ch`` symmetric positive definite, the normal
+   moduli's relative spread <= 1e-6, every column's float64 relative
+   residual through the periodic simulator's EBE operator <= 1e-8, B
+   float64 on that operator's plan, the torus operator against it on a
+   seeded field <= 1e-12, the card's ``Ch`` against the CPU's at 6^3 <=
+   1e-8; then the same cell by its parts, ``PeriodicVarMG.build`` and
+   ``solve_cell_problems_grid(sim, mg=mg)`` timed apart, ms per block
+   iteration and peak memory printed; (b)
+   ``homogenize_orthotropic(precond="multigrid")`` on ``grid_tet(36)``
+   over [0, 0.5]^3 with a 1000:1 sphere: ``Ch`` SPD, its non-orthotropic
+   entries 0 (true by construction of the reconstruction), w nonzero,
+   each probe's float64 relative residual through the EBE operator with
+   that probe's pins <= 1e-9, B float64 on that operator's plan, card
+   against CPU at 6^3 <= 1e-8, the six probes' build and solve times
+   (``HomogenizationResult.timings``) and iterations printed; (c)
+   ``solve(operator="routed", precond="twolevel", tol=1e-10)`` on a
+   perturbed ``grid_tet(16)`` P2 with a 1000:1 sphere, clamped: float64
+   relative residual <= 1e-10, fewer inner iterations than Jacobi on the
+   same problem, u against the CPU's float64 EBE two-level solve <= 1e-8;
+   the transfers (prolong, kernel A, bit for bit; restrict, kernel B),
+   A on the routed operator's ids, B float32 on its element-major plan
+   and B float64 on the EBE plan held against their plain versions; then
+   ``homogenize(precond="twolevel")`` on the void cell at ``grid_tet(16)``
+   (float64: kernel A on float64 rows, B in float64) against
+   ``precond="block"``, ``Ch`` within 1e-8; the same preconditioner built
+   again on the cell's periodic simulator, its host Galerkin product and
+   SuperLU times printed apart, its transfers and B float64 on the EBE
+   plan held; (d) ``ComplianceTopOpt(64, 32, 32)`` (float32, 393,216
+   tets), 5 iterations of ``run``: compliance finite and falling, MG-PCG
+   iterations < 200, filtered volume within 0.02 of volfrac; the last
+   iteration again by its steps (filter, MG build, solve, gradient, OC
+   update), each timed, its state solve's true relative residual read in
+   float64 <= solve_tol + 20x the float32 floor (the residual of the
+   float64 solution rounded to float32), u within 1e-4 of the float64 u;
+   the card's float64 history at (4, 2, 2) against the CPU's <= 1e-8;
+13. each kernel timed beside its bound, its plain version and one PyTorch
    call computing the same function (median of per-launch CUDA-event
    times, L2 flushed before each launch, the call queued before its first
    event fires), A and B in planes also at the 18
@@ -139,8 +184,11 @@ of which raises on failure:
    each kernel line also carries ``launches_bc_paths``, its launches on
    each of phase 11's paths in the line's own mode (a kernel B line its
    dtype's, the widths of one dtype together; ``launches`` stays the
-   count of the earlier main path it was read from, in the same mode);
-13. last, ``{"ok": true, "device": {...}}``.
+   count of the earlier main path it was read from, in the same mode),
+   and ``launches_cell_paths`` likewise on phase 12's paths (kernel A in
+   rows also split by dtype: its ``gather_rows/f64/18`` line times it on
+   float64 rows at the two-level prolongation's shapes);
+14. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -1184,6 +1232,546 @@ def drive_bc(mesh, dev):
     return out, paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: voxel homogenization, the orthotropic cell, the two-level
+# preconditioner and SIMP topology optimization
+# ---------------------------------------------------------------------------
+
+VOXEL_N = 36                  # the cross lattice at grid_tet(36)'s width
+ORTHO_N = 36                  # the orthotropic 1/8 cell, grid_tet(36)
+TWOLEVEL_N = 16               # host SuperLU of the P1 coarse space bounds it
+TOPOPT_SHAPE = (64, 32, 32)   # 65,536 cells, 393,216 tets
+TOPOPT_ITERS = 5
+SMALL_N = 6                   # card against CPU
+
+
+def cross_lattice(n):
+    """The cross lattice of ``examples/homogenize_voxels.py`` at n^3."""
+    lo, hi = n // 2 - max(n // 8, 1), n // 2 + max(n // 8, 1)
+    occ = np.zeros((n, n, n), bool)
+    occ[lo:hi, :, lo:hi] = True
+    occ[:, lo:hi, lo:hi] = True
+    occ[lo:hi, lo:hi, :] = True
+    return occ
+
+
+def sphere_field(V, T, centre, r2, contrast=1000.0):
+    """A ``MaterialField`` with a ``contrast``:1 stiff sphere."""
+    from meshfem_tpu_torch.physics import MaterialField
+
+    cent = V[T].mean(axis=1)
+    young = np.where(((cent - centre) ** 2).sum(axis=1) < r2, contrast, 1.0)
+    return MaterialField.isotropic_field(3, young, np.full(len(young), 0.3))
+
+
+def timed(fn):
+    """(fn(), host seconds), synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def rel_err(a, b):
+    return float((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max())
+
+
+def check_tensor(Ch, label):
+    """Ch finite, symmetric to 1e-8 of max|Ch|, positive definite; returns
+    (asymmetry, smallest eigenvalue)."""
+    Ch = Ch.detach().cpu()
+    if tuple(Ch.shape) != (6, 6) or not bool(torch.isfinite(Ch).all()):
+        raise RuntimeError(f"{label}: Ch not a finite 6 x 6 tensor")
+    asym = float((Ch - Ch.t()).abs().max() / Ch.abs().max())
+    emin = float(torch.linalg.eigvalsh(0.5 * (Ch + Ch.t())).min())
+    if not asym <= 1e-8:
+        raise RuntimeError(f"{label}: Ch not symmetric: {asym:.3e}")
+    if not emin > 0:
+        raise RuntimeError(f"{label}: Ch not positive definite ({emin})")
+    return asym, emin
+
+
+def drive_voxels(dev):
+    """12a: ``homogenize_voxels`` on the cross lattice at VOXEL_N; then the
+    same cell by its parts (the periodic simulator, ``PeriodicVarMG.build``
+    and ``solve_cell_problems_grid(sim, mg=mg)``), timed apart."""
+    from meshfem_tpu_torch.analysis import homogenization as hom
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.ops import structured_periodic as sp
+    from meshfem_tpu_torch.physics import MaterialField
+
+    n = VOXEL_N
+    occ = cross_lattice(n)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, counts = counted(
+        "voxels", lambda: hom.homogenize_voxels(occ, device=dev),
+        ("segment_sum_rows",))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    iters = max(res.cg_iters)
+
+    # the same cell by its parts: the build and the block CG apart
+    V, T = generators.grid_tet(n, n, n)
+    E_field = np.repeat(np.where(occ.reshape(-1), 1.0, 1e-6), 6)
+    sim = hom.periodic_simulator(
+        FEMMesh(V, T, degree=2), MaterialField.isotropic_field(
+            3, E_field, np.full(len(E_field), 0.3)), device=dev)
+    mg, build_s = timed(lambda: sp.PeriodicVarMG.build(
+        sim.mesh, sim.D, sim.dof_map, dtype=sim.Ke.dtype, device=dev))
+    (_, iters2), solve_s = timed(lambda: sp.solve_cell_problems_grid(
+        sim, mg=mg, tol=1e-9, maxiter=100000))
+    out = dict(n=n, volume_fraction=float(occ.mean()), seconds=wall,
+               block_iters=iters, mg_build_s=build_s, solve_s=solve_s,
+               parts_block_iters=iters2[0],
+               ms_per_block_iter=solve_s / max(iters2[0], 1) * 1e3,
+               levels=[list(lvl.n3) for lvl in mg.levels],
+               coarse="dense pinv" if mg.coarse_inv is not None
+               else "host SuperLU", lam=list(mg.lam),
+               peak_device_gib=peak, launches=counts)
+    log(f"12a voxels (cross lattice {n}^3, volume fraction "
+        f"{out['volume_fraction']:.4f}, {6 * n ** 3} tets, {8 * n ** 3} "
+        f"periodic nodes, {24 * n ** 3} unknowns x 6 columns, float64): "
+        f"homogenize_voxels {wall:.3f} s, {iters} block CG iterations, peak "
+        f"device memory {peak:.2f} GiB; launches {counts}; by its parts: "
+        f"PeriodicVarMG build {build_s:.3f} s (levels {out['levels']}, "
+        f"coarsest {out['coarse']}), solve_cell_problems_grid "
+        f"{solve_s:.3f} s, {iters2[0]} iterations, "
+        f"{out['ms_per_block_iter']:.3f} ms per block iteration (host "
+        f"clock)")
+
+    # the gates: iterations, the tensor, cubic symmetry
+    Ch = res.Ch.cpu()
+    asym, emin = check_tensor(Ch, "12a voxels")
+    d = torch.diagonal(Ch)[:3]
+    spread = float((d - d.mean()).abs().max() / d.mean())
+    out.update(Ch=Ch.tolist(), asymmetry=asym, min_eig=emin,
+               cubic_spread=spread)
+    log(f"12a voxels: Ch diag {torch.diagonal(Ch).tolist()}, asymmetry "
+        f"{asym:.2e}, min eigenvalue {emin:.4e}, normal moduli spread "
+        f"{spread:.2e}")
+    if not iters < 60:
+        raise RuntimeError(f"12a voxels: {iters} block CG iterations")
+    if not spread <= 1e-6:
+        raise RuntimeError(f"12a voxels: not cubic ({spread:.3e})")
+
+    # every column's residual through the f64 EBE operator of the
+    # periodic simulator, B on that operator's plan (the loads' path), and
+    # the torus operator against it
+    relres, cols = block_residual(sim, res.w)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b_err = check_rows_on_plan(sim._kernel.plan, torch.float64, "12a voxels",
+                               gen)
+    u = torch.randn((sim.num_dofs, 3), generator=gen, device=dev,
+                    dtype=torch.float64)
+    y_ebe = sim.apply_K(u)
+    op_err = float((mg.fine(u) - y_ebe).abs().max() / y_ebe.abs().max())
+    out.update(relres=relres, column_relres=cols, torus_vs_ebe=op_err,
+               segment_sum_rows_f64_max_abs_err=b_err)
+    log(f"12a voxels: f64 relative residual per column through the EBE "
+        f"operator " + ", ".join(f"{c:.2e}" for c in cols)
+        + f" (block {relres:.2e}); B f64 rows on the periodic simulator's "
+        f"plan ([{sim._kernel.plan.num_rows}, 3]) equal bit for bit to B in "
+        f"planes and to the CPU's plain sum, max abs err against the card's "
+        f"plain {b_err:.3e}; torus apply vs f64 EBE apply on a seeded field "
+        f"{op_err:.3e} of max|y|")
+    if not max(cols) <= 1e-8:
+        raise RuntimeError(f"12a voxels: a column's residual is "
+                           f"{max(cols):.3e}")
+    if not op_err <= 1e-12:
+        raise RuntimeError(f"12a voxels: torus operator vs EBE {op_err}")
+    del sim, mg, u, y_ebe
+
+    # card against CPU on a small lattice
+    small = {w: hom.homogenize_voxels(cross_lattice(SMALL_N), device=d)
+             for w, d in (("card", dev), ("cpu", "cpu"))}
+    dC = rel_err(small["card"].Ch, small["cpu"].Ch)
+    out["small_card_vs_cpu"] = dC
+    log(f"12a voxels at {SMALL_N}^3: card {small['card'].cg_iters[0]} / CPU "
+        f"{small['cpu'].cg_iters[0]} iterations, Ch card vs CPU {dC:.3e} of "
+        f"max")
+    if not dC <= 1e-8:
+        raise RuntimeError(f"12a voxels: card and CPU differ ({dC})")
+    return out, counts
+
+
+def drive_ortho(dev):
+    """12b: ``homogenize_orthotropic(precond="multigrid")`` on the 1/8 cell
+    with the reference test's 1000:1 sphere at ORTHO_N; each probe's
+    residual through the f64 EBE operator with that probe's pins."""
+    from meshfem_tpu_torch.analysis import homogenization as hom
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.physics import ElasticitySimulator
+
+    def cell(n):
+        V, T = generators.grid_tet(n, n, n, hi=(0.5, 0.5, 0.5))
+        return FEMMesh(V, T, degree=2), sphere_field(V, T, 0.25, 0.02)
+
+    def run(n, device):
+        return hom.homogenize_orthotropic(*cell(n), tol=1e-10,
+                                          precond="multigrid", device=device)
+
+    res, wall, counts = counted("ortho", lambda: run(ORTHO_N, dev),
+                                ("segment_sum_rows",))
+    t = res.timings
+    Ch = res.Ch.cpu()
+    asym, emin = check_tensor(Ch, "12b ortho")
+    off = torch.ones(6, 6, dtype=torch.bool)
+    off[:3, :3] = False
+    off[range(6), range(6)] = False
+    nonzero_off = int((Ch[off] != 0).sum())
+    w_max = float(res.w.abs().max())
+    out = dict(n=ORTHO_N, seconds=wall, probe_build_s=t["probe_build_s"],
+               probe_solve_s=t["probe_solve_s"], probe_iters=res.cg_iters,
+               Ch=Ch.tolist(), asymmetry=asym, min_eig=emin, max_w=w_max,
+               launches=counts)
+    log(f"12b ortho (grid_tet({ORTHO_N}) on [0, 0.5]^3, 1000:1 sphere, "
+        f"float64 VarStructuredMG per probe): {wall:.3f} s; probes (build / "
+        f"solve / iterations, host clock) " + ", ".join(
+            f"{b:.3f} s / {s:.3f} s / {i}" for b, s, i in zip(
+                t["probe_build_s"], t["probe_solve_s"], res.cg_iters))
+        + f"; Ch diag {torch.diagonal(Ch).tolist()}, min eigenvalue "
+        f"{emin:.4e}, {nonzero_off} non-orthotropic entries nonzero (zero "
+        f"by construction of the reflection-sign reconstruction), max|w| "
+        f"{w_max:.3e}; launches {counts}")
+    if nonzero_off or not w_max > 0 or len(res.cg_iters) != 6:
+        raise RuntimeError("12b ortho: not an orthotropic tensor from six "
+                           "nonzero probes")
+
+    # each probe's f64 relative residual through the EBE operator, with
+    # that probe's symmetry-plane pins; B on that operator's plan
+    mesh, mat = cell(ORTHO_N)
+    sim = ElasticitySimulator(mesh, mat, device=dev)
+    stretch, shear = hom._ortho_fixed_masks(mesh)
+    cols = []
+    for i, m in enumerate([stretch] * 3 + list(shear)):
+        free = torch.as_tensor(~m, dtype=torch.float64, device=dev)
+        b = sim.constant_strain_load(
+            -hom.canonical_strain(3, i, torch.float64)) * free
+        r = (b - sim.apply_K(res.w[i])) * free
+        cols.append(float(torch.linalg.norm(r) / torch.linalg.norm(b)))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b_err = check_rows_on_plan(sim._kernel.plan, torch.float64, "12b ortho",
+                               gen)
+    out.update(probe_relres=cols, segment_sum_rows_f64_max_abs_err=b_err)
+    log(f"12b ortho: f64 relative residual per probe through the EBE "
+        f"operator " + ", ".join(f"{c:.2e}" for c in cols)
+        + f"; B f64 rows on its plan equal bit for bit to B in planes and to "
+        f"the CPU's plain sum, max abs err against the card's plain "
+        f"{b_err:.3e}")
+    if not max(cols) <= 1e-9:
+        raise RuntimeError(f"12b ortho: a probe's residual is {max(cols)}")
+    del sim, res
+
+    dC = rel_err(run(SMALL_N, dev).Ch, run(SMALL_N, "cpu").Ch)
+    out["small_card_vs_cpu"] = dC
+    log(f"12b ortho at {SMALL_N}^3: Ch card vs CPU {dC:.3e} of max")
+    if not dC <= 1e-8:
+        raise RuntimeError(f"12b ortho: card and CPU differ ({dC})")
+    return out, counts
+
+
+def twolevel_problem(device):
+    """grid_tet(TWOLEVEL_N) P2 with its interior vertices moved (not a Kuhn
+    grid), the 1000:1 sphere, clamped as ``clamped_problem``."""
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.physics import ElasticitySimulator
+
+    n = TWOLEVEL_N
+    V, T = generators.grid_tet(n, n, n)
+    V = V.copy()
+    interior = ((V > 1e-9) & (V < 1 - 1e-9)).all(axis=1)
+    rng = np.random.default_rng(12)
+    V[interior] += (0.15 / n) * rng.uniform(-1, 1, (interior.sum(), 3))
+    mesh = FEMMesh(V, T, degree=2)
+    sim = ElasticitySimulator(mesh, sphere_field(V, T, 0.5, 0.08),
+                              device=device)
+    X = mesh.node_positions
+    sim.fix_nodes(np.flatnonzero(X[:, 0] < 1e-9))
+    load = np.zeros((mesh.num_nodes, 3))
+    load[X[:, 0] > X[:, 0].max() - 1e-9, 1] = -1.0
+    sim.neumann_load = torch.as_tensor(load, device=sim.device)
+    return sim
+
+
+def check_transfers(tl, dev, label):
+    """The two-level transfers on the card against their plain versions:
+    prolong (kernel A, float32 and float64) bit for bit; restrict (kernel
+    B) bit for bit against the CPU's plain sum (the same order) and to
+    1e-5 / 1e-12 of max against the card's plain one (float atomics)."""
+    from meshfem_tpu_torch import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ND = tl.ids_ab.shape[0] // 2
+    errs = {}
+    for dt, gate in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        xc = torch.randn((tl.n_coarse, 3, 6), generator=gen, device=dev,
+                         dtype=dt)
+        rows = kernels.gather_rows_plain(xc.reshape(tl.n_coarse, 18),
+                                         tl.ids_ab)
+        ref = (0.5 * (rows[:ND] + rows[ND:])).reshape(ND, 3, 6)
+        if not torch.equal(tl.prolong(xc), ref):
+            raise RuntimeError(f"{label}: prolong ({dt}) != plain")
+        r = torch.randn((ND, 3, 6), generator=gen, device=dev, dtype=dt)
+        y = tl.restrict(r)
+        half = (0.5 * r).reshape(ND, 18)
+        y_cpu = kernels.segment_sum_rows_plain(
+            half.cpu(), tl.plan.perm.cpu(), tl.plan.offsets.cpu())
+        y_plain = kernels.segment_sum_rows_plain(half, tl.plan.perm,
+                                                 tl.plan.offsets)
+        err = float((y.reshape(-1, 18) - y_plain).abs().max())
+        if not torch.equal(y.reshape(-1, 18).cpu(), y_cpu):
+            raise RuntimeError(f"{label}: restrict ({dt}) != the CPU's "
+                               f"plain sum bit for bit")
+        if not err <= gate * float(y_plain.abs().max()):
+            raise RuntimeError(f"{label}: restrict ({dt}) disagrees {err}")
+        errs[str(dt).split(".")[1]] = err
+    return errs
+
+
+def drive_twolevel(dev):
+    """12c: the routed two-level solve at TWOLEVEL_N beside Jacobi and the
+    CPU, and ``homogenize(precond="twolevel")`` on the void cell; every
+    plan those paths launch A or B on is held against the plain version."""
+    from meshfem_tpu_torch import kernels
+    from meshfem_tpu_torch.analysis import homogenization as hom
+    from meshfem_tpu_torch.mesh import FEMMesh
+    from meshfem_tpu_torch.physics import Material
+    from meshfem_tpu_torch.solvers.twolevel import TwoLevel
+
+    out, paths = {}, {}
+    sim = twolevel_problem(dev)
+    (u, res), wall, paths["twolevel_routed"] = counted(
+        "12c two-level routed",
+        lambda: sim.solve(operator="routed", precond="twolevel", tol=1e-10),
+        ("gather_rows", "segment_sum_rows"))
+    tl = next(iter(sim._twolevel.values()))
+    relres = check_solution(sim, u, "12c two-level routed")
+    (_, res_j), wall_j, _ = counted(
+        "12c jacobi routed",
+        lambda: sim.solve(operator="routed", precond="jacobi", tol=1e-10))
+    t = tl.timings
+    out["routed"] = dict(
+        tets=sim.mesh.num_elements, dofs=3 * sim.num_dofs, solve_s=wall,
+        rounds=res.rounds, inner_iters=res.iters, relres=relres,
+        galerkin_s=t["galerkin_s"], splu_s=t["splu_s"],
+        build_s=t["total_s"], coarse_dofs=t["coarse_dofs"],
+        coarse_nnz=t["coarse_nnz"], jacobi_solve_s=wall_j,
+        jacobi_inner_iters=res_j.iters, launches=paths["twolevel_routed"])
+    log(f"12c two-level routed (grid_tet({TWOLEVEL_N}) P2 perturbed, "
+        f"{sim.mesh.num_elements} tets, {3 * sim.num_dofs} dofs, 1000:1 "
+        f"sphere): {wall:.3f} s with the build; host Galerkin P^T A P "
+        f"{t['galerkin_s']:.3f} s, SuperLU {t['splu_s']:.3f} s "
+        f"({t['coarse_dofs']} coarse dofs, {t['coarse_nnz']} nonzeros); "
+        f"{res.rounds} rounds, {res.iters} inner iterations; Jacobi "
+        f"{res_j.rounds} rounds, {res_j.iters} inner iterations in "
+        f"{wall_j:.3f} s; launches {paths['twolevel_routed']}")
+    if not res.iters < res_j.iters:
+        raise RuntimeError("12c: the two-level solve took no fewer inner "
+                           "iterations than Jacobi")
+    # A and B on this path's own plans: the transfers, the routed
+    # operator's gather ids and element-major plan (float32), the EBE
+    # residual's plan (float64); a wrong float32 kernel would only slow
+    # the refinement, so the u gates cannot catch it
+    rk = sim.routed_kernel()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    src = torch.randn((3, sim.num_dofs), generator=gen, device=dev)
+    if not torch.equal(kernels.gather_rows(src, rk.ids_em, planes_in=True),
+                       kernels.gather_rows_plain(src, rk.ids_em, True)):
+        raise RuntimeError("12c routed: gather_rows on the operator's ids "
+                           "!= plain")
+    checks = dict(
+        transfers=check_transfers(tl, dev, "12c routed"),
+        routed_f32=check_rows_on_plan(rk.plan_em, torch.float32,
+                                      "12c routed", gen),
+        ebe_f64=check_rows_on_plan(sim._kernel.plan, torch.float64,
+                                   "12c routed", gen))
+    del rk, src
+    cpu = twolevel_problem("cpu")
+    u_cpu, res_cpu = cpu.solve(operator="ebe", precond="twolevel", tol=1e-12)
+    du = rel_err(u, u_cpu)
+    out["routed"].update(card_vs_cpu=du, cpu_iters=res_cpu.iters,
+                         max_abs_err=checks)
+    log(f"12c two-level routed: A on the operator's ids and the "
+        f"prolongation equal to plain; B max abs err against the card's "
+        f"plain (bit for bit against the CPU's) {checks}; u card vs CPU "
+        f"float64 EBE two-level ({res_cpu.iters} iterations) {du:.3e} of "
+        f"max|u|")
+    if not du <= 1e-8:
+        raise RuntimeError(f"12c: card and CPU differ ({du})")
+    del sim, cpu
+
+    # homogenize(precond="twolevel") on the void cell against "block"
+    V, T = void_cell(TWOLEVEL_N)
+    mesh = FEMMesh(V, T, degree=2)
+    mat = Material.isotropic(3, 200.0, 0.3)
+    res_t, wall_t, paths["twolevel_homogenize"] = counted(
+        "12c two-level homogenize",
+        lambda: hom.homogenize(mesh, mat, tol=1e-11, precond="twolevel",
+                               device=dev),
+        ("gather_rows", "segment_sum_rows"))
+    res_b, wall_b, _ = counted(
+        "12c block homogenize",
+        lambda: hom.homogenize(mesh, mat, tol=1e-11, precond="block",
+                               device=dev))
+    check_tensor(res_t.Ch, "12c two-level homogenize")
+    dC = rel_err(res_t.Ch, res_b.Ch)
+    c = paths["twolevel_homogenize"]
+    # the same preconditioner built again on the same periodic simulator:
+    # its host times, and A and B on its plans and the EBE plan
+    hsim = hom.periodic_simulator(mesh, mat, device=dev)
+    tl_c = TwoLevel.from_simulator(hsim)
+    t = tl_c.timings
+    cell_checks = dict(
+        transfers=check_transfers(tl_c, dev, "12c cell"),
+        ebe_f64=check_rows_on_plan(hsim._kernel.plan, torch.float64,
+                                   "12c cell", gen))
+    out["homogenize"] = dict(
+        tets=mesh.num_elements, seconds=wall_t, block_iters=res_t.cg_iters[0],
+        galerkin_s=t["galerkin_s"], splu_s=t["splu_s"],
+        coarse_dofs=t["coarse_dofs"], block_precond_s=wall_b,
+        block_precond_iters=res_b.cg_iters[0], Ch_vs_block=dC, launches=c,
+        max_abs_err=cell_checks)
+    log(f"12c two-level homogenize (void cell grid_tet({TWOLEVEL_N}), "
+        f"{mesh.num_elements} tets, float64 EBE block CG): {wall_t:.3f} s, "
+        f"{res_t.cg_iters[0]} block iterations; precond='block' (routed, "
+        f"float32 in refinement) {wall_b:.3f} s, {res_b.cg_iters[0]} inner "
+        f"iterations; Ch two-level vs block {dC:.3e} of max; kernel A "
+        f"float64 launches {c['gather_rows/f64']}, kernel B float64 "
+        f"{c['segment_sum_rows/f64']}; the preconditioner built again: host "
+        f"Galerkin {t['galerkin_s']:.3f} s, SuperLU {t['splu_s']:.3f} s "
+        f"({t['coarse_dofs']} coarse dofs), prolongation equal to plain, B "
+        f"max abs err {cell_checks}")
+    if not dC <= 1e-8:
+        raise RuntimeError(f"12c: two-level and block tensors differ ({dC})")
+    if not (c["gather_rows/f64"] > 0 and c["segment_sum_rows/f64"] > 0):
+        raise RuntimeError("12c: the float64 two-level transfers did not "
+                           "run on kernels A and B")
+    # kernel A on float64 rows at the prolongation's shapes, for the table
+    out["prolong_f64_inputs"] = tl_c
+    return out, paths
+
+
+def drive_topopt(dev):
+    """12d: ``ComplianceTopOpt.run`` at TOPOPT_SHAPE in float32,
+    TOPOPT_ITERS iterations; one more iteration from the last one's input
+    by its public steps, each timed, whose state solve is held against a
+    float64 solve of the same system; the card against the CPU at
+    (4, 2, 2) in float64."""
+    from meshfem_tpu_torch.analysis.topopt import ComplianceTopOpt
+    from meshfem_tpu_torch.fem import elasticity_tensor as et
+    from meshfem_tpu_torch.ops.structured_mg import VarStructuredMG
+
+    top = ComplianceTopOpt(*TOPOPT_SHAPE, device=dev)
+    rhos = [torch.full((top.nx, top.ny, top.nz), top.volfrac,
+                       dtype=top.dtype, device=dev)]
+    (rho_end, hist), wall, counts = counted(
+        "12d topopt", lambda: top.run(
+            iters=TOPOPT_ITERS, callback=lambda it, rho, h: rhos.append(rho)))
+    cs = [h["compliance"] for h in hist]
+    inner = [h["inner_iters"] for h in hist]
+    vols = [h["volume"] for h in hist]
+    if not (all(np.isfinite(cs)) and cs[-1] < cs[0]):
+        raise RuntimeError("12d: the compliance did not decrease")
+    if not max(inner) < 200:
+        raise RuntimeError(f"12d: {max(inner)} MG-PCG iterations")
+    if not abs(vols[-1] - top.volfrac) <= 0.02:
+        raise RuntimeError(f"12d: filtered volume {vols[-1]}")
+
+    # the last iteration again, step by step (compliance_and_grad's and
+    # run's steps), each synchronised and timed
+    rho_in = rhos[-2]
+    split = {}
+    rho_f, split["filter"] = timed(lambda: top.filtered(rho_in))
+    mg, split["mg_build"] = timed(lambda: top._mg_for(rho_f))
+    (u, res), split["solve"] = timed(lambda: mg.solve(
+        top.load, tol=top.solve_tol, maxiter=300))
+
+    def gradient():
+        dE = top.penal * rho_f ** (top.penal - 1.0) * (top.E0 - top.E_min)
+        return top.filter_adjoint(-(dE * top.cell_energies(u)))
+
+    dc, split["gradient"] = timed(gradient)
+    rho_new, split["oc_update"] = timed(lambda: top.oc_update(rho_in, dc))
+    d_rho = float((rho_new - rho_end).abs().max())
+    del mg, dc
+
+    # that state solve's true residual, read in float64 through the
+    # structured operator of the same design; float32 cannot hold u to
+    # better than the residual of the float64 solution rounded to float32
+    E_elem = torch.repeat_interleave(top.modulus(rho_f.double()).reshape(-1),
+                                     top.tets_per_cell)
+    mg64 = VarStructuredMG.build(
+        top.mesh, et.isotropic(3, E_elem, torch.full_like(E_elem, top.nu)),
+        fixed_mask=torch.as_tensor(top.fixed), dtype=torch.float64,
+        device=dev)
+    u64, res64 = mg64.solve(top.load.double(), tol=1e-10, maxiter=300)
+    free = torch.as_tensor(~top.fixed, dtype=torch.float64, device=dev)
+    b = top.load.double() * free
+
+    def relres(v):
+        r = (b - mg64.fine(v.double())) * free
+        return float(torch.linalg.norm(r) / torch.linalg.norm(b))
+
+    rr, rr_floor, rr64 = relres(u), relres(u64.float()), relres(u64)
+    du = rel_err(u.double(), u64)
+    del mg64, u64, u
+    per_it = wall / TOPOPT_ITERS
+    out = dict(shape=list(TOPOPT_SHAPE), tets=top.mesh.num_elements,
+               dofs=3 * top.mesh.num_nodes, seconds=wall,
+               s_per_iteration=per_it, split_last_iteration=split,
+               compliance=cs, inner_iters=inner, volume=vols,
+               last_solve=dict(iters=int(res.iters), relres=rr,
+                               f32_floor=rr_floor, f64_relres=rr64,
+                               f64_iters=int(res64.iters), u_vs_f64=du),
+               rho_step_vs_run=d_rho, launches=counts)
+    log(f"12d topopt ({TOPOPT_SHAPE}, {top.mesh.num_elements} tets, "
+        f"{3 * top.mesh.num_nodes} unknowns, float32, {TOPOPT_ITERS} "
+        f"iterations): {wall:.3f} s, {per_it:.3f} s an iteration; compliance "
+        f"{cs}; MG-PCG iterations {inner}; filtered volume {vols}; launches "
+        f"{counts}")
+    log(f"12d topopt, the last iteration again by its steps: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items())
+        + f" s (sum {sum(split.values()):.3f}); its density vs the run's "
+        f"{d_rho:.2e} max abs; its state solve {int(res.iters)} iterations, "
+        f"true relative residual {rr:.3e} in float64 (solve_tol "
+        f"{top.solve_tol:.0e}; the float64 solution rounded to float32 "
+        f"{rr_floor:.3e}; the float64 solve {rr64:.3e} in "
+        f"{int(res64.iters)} iterations), u vs the float64 u {du:.3e} of "
+        f"max")
+    if not (rr <= top.solve_tol + 20 * rr_floor and rr64 <= 1e-9
+            and du <= 1e-4):
+        raise RuntimeError(f"12d: the state solve is off: residual {rr}, "
+                           f"float32 floor {rr_floor}, u {du}")
+    hists = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        small = ComplianceTopOpt(4, 2, 2, dtype=torch.float64,
+                                 solve_tol=1e-11, device=device)
+        hists[where] = [h["compliance"] for h in small.run(
+            iters=TOPOPT_ITERS)[1]]
+    dc = max(abs(a - b) / abs(b) for a, b in zip(hists["card"],
+                                                  hists["cpu"]))
+    out["small_card_vs_cpu"] = dc
+    log(f"12d topopt at (4, 2, 2) float64: compliance history card vs CPU "
+        f"{dc:.3e} (relative, worst iteration)")
+    if not dc <= 1e-8:
+        raise RuntimeError(f"12d: card and CPU histories differ ({dc})")
+    return out, counts
+
+
+def drive_cells(dev):
+    """Phase 12a-d; returns (summary, launch counts per path)."""
+    out, paths = {}, {}
+    t0 = time.time()
+    out["voxels"], paths["voxels"] = drive_voxels(dev)
+    out["ortho"], paths["ortho"] = drive_ortho(dev)
+    out["twolevel"], tl_paths = drive_twolevel(dev)
+    paths.update(tl_paths)
+    out["topopt"], paths["topopt"] = drive_topopt(dev)
+    out["phase_s"] = time.time() - t0
+    log(f"phase 12 (12a-d): {out['phase_s']:.1f} s")
+    return out, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1687,7 +2275,12 @@ def main() -> int:
     log(f"boundary-condition phases (11a-d): {bc_out['phase_s']:.1f} s")
     summary["boundary_conditions"] = bc_out
 
-    # -- 12. kernels timed beside bound, plain version and library call ----
+    # -- 12. voxel homogenization, the orthotropic cell, two-level, SIMP ---
+    cells, cell_paths = drive_cells(dev)
+    tl_h = cells["twolevel"].pop("prolong_f64_inputs")
+    summary["cells"] = cells
+
+    # -- 13. kernels timed beside bound, plain version and library call ----
     timer = Timer(dev)
     report = []
 
@@ -1974,6 +2567,30 @@ def main() -> int:
           launches_path="dense homogenize", library_call="torch.index_select",
           shape=f"U [{Nh}, 18] f32, ids_em [{Sh}] int32")
 
+    # A on float64 rows (moved as float32 pairs) at the two-level
+    # prolongation's shapes: the void cell's 6 columns, phase 12c
+    NCh, NDh = tl_h.n_coarse, tl_h.ids_ab.shape[0] // 2
+    xc64 = torch.randn((NCh, 18), generator=gen, device=dev,
+                       dtype=torch.float64)
+    ab_long = tl_h.ids_ab.long()
+    g64 = kernels.gather_rows(xc64, tl_h.ids_ab)
+    if not torch.equal(g64, kernels.gather_rows_plain(xc64, tl_h.ids_ab)):
+        raise RuntimeError("gather_rows (float64, two-level) != plain")
+    entry("gather_rows/f64/18", "meshfem_tpu_torch/csrc/gather_planes.cu",
+          "meshfem_tpu/sparse/route.py:139 (here the two-level "
+          "prolongation, a jnp gather at meshfem_tpu/solvers/twolevel.py:170)",
+          cell_paths["twolevel_homogenize"]["gather_rows/f64"], 0.0,
+          lambda: kernels.gather_rows(xc64, tl_h.ids_ab),
+          lambda: kernels.gather_rows_plain(xc64, tl_h.ids_ab),
+          lambda: torch.index_select(xc64, 0, ab_long),
+          2 * NDh * 4 + NCh * 18 * 8 + 2 * NDh * 18 * 8, 0,
+          mode="f64 rows [NC, 18] -> [2 ND, 18], as TwoLevel.prolong runs "
+               "it (the kernel moves [NC, 36] float32 pairs)",
+          launches_path="two-level homogenize (12c), float64 launches",
+          library_call="torch.index_select",
+          shape=f"src [{NCh}, 18] f64, ids_ab [{2 * NDh}] int32")
+    del g64
+
     perm_em, h_perm_em = rk.plan_em.perm, hrk_d.plan_em.perm
     rows3 = fsrc.reshape(3, 10, E).permute(2, 1, 0).reshape(S, 3)
     acc_r3 = torch.zeros((N, 3), device=dev)
@@ -2145,6 +2762,8 @@ def main() -> int:
     for r in report:          # the launches of phase 11's paths
         r["launches_bc_paths"] = {p: own_mode(c, r["name"])
                                   for p, c in bc_paths.items()}
+        r["launches_cell_paths"] = {p: own_mode(c, r["name"])
+                                    for p, c in cell_paths.items()}
     summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))

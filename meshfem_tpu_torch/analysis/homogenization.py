@@ -9,19 +9,29 @@
   float32 on the routed operator (``RoutedEBE.apply_block``: one gather and
   one segment sum for all 18 planes at dim 3) inside float64 iterative
   refinement (``_solve_cell_problems_routed``);
+* ``precond="multigrid"`` on Kuhn-grid cells: the periodic torus V-cycle
+  (``ops/structured_periodic.py``), all fl columns in one block CG in
+  float64; ``homogenize_voxels`` builds such a cell from an occupancy
+  array;
+* ``precond="twolevel"`` / ``"twolevel-mult"``: the P1-coarse two-level
+  preconditioner (``solvers/twolevel.py``) with the translation projector;
+* the orthotropic base cell (``homogenize_orthotropic``): symmetry-plane
+  pinning instead of periodicity, one block CG with a per-column mask
+  (jacobi, twolevel) or one ``VarStructuredMG`` per probe (multigrid), and
+  the reflection-sign reconstruction of the full tensor;
 * the homogenized tensor in stress form and in boundary (displacement)
   form, macro-to-micro strain tensors and probes.
 
-Tetrahedral cells only (2D cells wait for triangle meshes).  Not ported
-yet, each raising NotImplementedError with its ROADMAP item: the two-level
-preconditioners and the orthotropic base cell (Queue 1, item 11), the
-periodic multigrid and ``homogenize_voxels`` (Queue 1, item 13).
+Tetrahedral cells only: 2D cells and pixel occupancies wait for triangle
+meshes (ROADMAP Queue 1, item 3) and raise NotImplementedError naming it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
+import numpy as np
 import torch
 
 from ..fem import elasticity_tensor as et
@@ -35,24 +45,21 @@ from ..solvers import cg as cg_mod
 from ..solvers import precond as pc
 from ..solvers.refine import refine as mp_refine
 
-_NO_TWOLEVEL = ("precond='twolevel*' (solvers/twolevel.py) is queued in "
-                "ROADMAP.md (Queue 1, item 11)")
-_NO_MULTIGRID = ("precond='multigrid' (ops/structured_periodic.py) and "
-                 "homogenize_voxels are queued in ROADMAP.md (Queue 1, "
-                 "item 13)")
-_NO_ORTHO = ("the orthotropic base cell (homogenize_orthotropic, "
-             "orthotropic_cell=True) is queued in ROADMAP.md (Queue 1, "
-             "item 11)")
+_NO_2D = ("2D cells and pixel occupancies need triangle meshes, queued in "
+          "ROADMAP.md (Queue 1, item 3)")
 
 
 @dataclasses.dataclass
 class HomogenizationResult:
-    """Mirrors the reference's ``HomogenizationResult``."""
+    """Mirrors the reference's ``HomogenizationResult``; ``timings``
+    holds host seconds of the solve's parts where a path records them
+    (the orthotropic multigrid: each probe's build and solve)."""
 
     Ch: torch.Tensor           # [fl, fl] homogenized tensor (D matrix)
     w: torch.Tensor            # [fl, N, dim] fluctuation displacements
     strain_w: torch.Tensor     # [fl, E, fl] average fluctuation strains
     cg_iters: list
+    timings: dict = dataclasses.field(default_factory=dict)
 
 
 def canonical_strain(dim: int, i: int, dtype=torch.float64):
@@ -85,17 +92,21 @@ def solve_cell_problems(sim: ElasticitySimulator, tol: float = 1e-11,
     fl right-hand sides.
 
     ``precond``: 'jacobi' | 'block' (d x d node blocks) | 'chebyshev'
-    (k-step polynomial in the block-Jacobi-preconditioned operator).
-    ``operator``: 'auto' runs the routed multi-RHS operator on CUDA past
-    ``MESHFEM_ROUTED_MIN_E`` elements for the jacobi / block
+    (k-step polynomial in the block-Jacobi-preconditioned operator) |
+    'twolevel' / 'twolevel-mult' (P1-coarse two-level,
+    ``solvers/twolevel.py``) | 'multigrid' (the periodic torus V-cycle for
+    Kuhn-GRID cells, ``ops/structured_periodic.py``; raises ValueError
+    off-grid).  ``operator``: 'auto' runs the routed multi-RHS operator on
+    CUDA past ``MESHFEM_ROUTED_MIN_E`` elements for the jacobi / block
     preconditioners, wrapped in float64 iterative refinement below float32
     reach; 'routed' / 'ebe' force a path.
     Returns (w [fl, N, dim], iters list)."""
-    if precond in ("twolevel", "twolevel-mult"):
-        raise NotImplementedError(_NO_TWOLEVEL)
     if precond == "multigrid":
-        raise NotImplementedError(_NO_MULTIGRID)
-    if precond not in ("jacobi", "block", "chebyshev"):
+        from ..ops.structured_periodic import solve_cell_problems_grid
+
+        return solve_cell_problems_grid(sim, tol=tol, maxiter=maxiter)
+    if precond not in ("jacobi", "block", "chebyshev", "twolevel",
+                       "twolevel-mult"):
         raise ValueError(f"unknown precond {precond!r}")
     dim = sim.dim
     fl = flat_len(dim)
@@ -109,6 +120,13 @@ def solve_cell_problems(sim: ElasticitySimulator, tol: float = 1e-11,
         diag = sim.K_diagonal()
         safe = torch.where(diag > 0, diag, torch.ones_like(diag))
         M_inv = lambda r: r / (safe if r.dim() == 2 else safe[..., None])
+    elif precond in ("twolevel", "twolevel-mult"):
+        # P1-coarse two-level: bounded iteration counts at high contrast
+        from ..solvers.twolevel import TwoLevel
+
+        M_inv = TwoLevel.from_simulator(
+            sim, mode=("multiplicative" if precond.endswith("mult")
+                       else "additive"), project=project).M_inv
     else:
         blocks = pc.node_block_diagonal(sim.Ke, sim.elem_dofs, sim.num_dofs,
                                         dim)
@@ -257,16 +275,28 @@ def probe(sim: ElasticitySimulator, w, macro_strain_flat):
 
 def homogenize_voxels(occupancy, E_solid: float = 1.0, nu: float = 0.3,
                       void_ratio: float = 1e-6, tol: float = 1e-9,
-                      cell=None):
-    """Voxel microstructures run on the periodic multigrid: not ported."""
-    raise NotImplementedError(_NO_MULTIGRID)
+                      cell=None, device=None) -> HomogenizationResult:
+    """Homogenize a VOXEL microstructure directly: occupancy [nx, ny, nz]
+    (bool or 0/1) -> grid cell with a two-phase material field (void as
+    ``void_ratio * E_solid``, the topology-optimization ersatz) -> periodic
+    torus multigrid cell problems (``ops/structured_periodic.py``).  A 2D
+    (pixel) occupancy raises NotImplementedError."""
+    from ..mesh import generators
+    from ..physics.materials import MaterialField
 
-
-def homogenize_orthotropic(mesh: FEMMesh, material, tol: float = 1e-11,
-                           base_cell_volume: float | None = None,
-                           precond: str = "jacobi"):
-    """The orthotropic base cell variant: not ported."""
-    raise NotImplementedError(_NO_ORTHO)
+    occ = np.asarray(occupancy)
+    if occ.ndim != 3:
+        raise NotImplementedError(_NO_2D)
+    if cell is None:
+        cell = (1.0,) * 3
+    V, T = generators.grid_tet(*occ.shape, hi=tuple(cell))
+    mesh = FEMMesh(V, T, degree=2)
+    E_cell = np.where(occ.reshape(-1) > 0, E_solid, void_ratio * E_solid)
+    E_field = np.repeat(E_cell, 6)
+    mats = MaterialField.isotropic_field(3, E_field,
+                                         np.full(len(E_field), nu))
+    return homogenize(mesh, mats, tol=tol, precond="multigrid",
+                      device=device)
 
 
 def homogenize(mesh: FEMMesh, material, orthotropic_cell: bool = False,
@@ -274,10 +304,21 @@ def homogenize(mesh: FEMMesh, material, orthotropic_cell: bool = False,
                base_cell_volume: float | None = None,
                precond: str = "block", device=None) -> HomogenizationResult:
     """One-call homogenization: periodic simulator, cell problems
-    (``operator="auto"``), stress-form tensor.  Runs on the CUDA device
+    (``operator="auto"``), stress-form tensor.  ``precond`` as in
+    :func:`solve_cell_problems`; with ``orthotropic_cell`` the twolevel
+    variants take 'twolevel', 'multigrid' stays and any other takes
+    'jacobi' (:func:`homogenize_orthotropic`).  Runs on the CUDA device
     unless ``device="cpu"``."""
     if orthotropic_cell:
-        raise NotImplementedError(_NO_ORTHO)
+        if precond.startswith("twolevel"):
+            oprecond = "twolevel"
+        elif precond == "multigrid":
+            oprecond = "multigrid"
+        else:
+            oprecond = "jacobi"
+        return homogenize_orthotropic(
+            mesh, material, tol=tol, base_cell_volume=base_cell_volume,
+            precond=oprecond, device=device)
     sim = periodic_simulator(mesh, material, device=device)
     w, iters = solve_cell_problems(sim, tol=tol, precond=precond)
     if center_fluctuations:
@@ -286,3 +327,142 @@ def homogenize(mesh: FEMMesh, material, orthotropic_cell: bool = False,
     strain_w = torch.stack([sim.average_strain_field(w[i])
                             for i in range(w.shape[0])])
     return HomogenizationResult(Ch, w, strain_w, iters)
+
+
+# ---------------------------------------------------------------------------
+# Orthotropic base cell
+# ---------------------------------------------------------------------------
+
+def _ortho_fixed_masks(mesh: FEMMesh, eps: float = 1e-7):
+    """Per-probe Dirichlet component masks on the symmetry planes.
+
+    Returns (stretch_mask [N, 3] bool, shear_masks list of [N, 3]).
+    Stretch probes w^ii fix component c on the faces with normal e_c;
+    shear probe s (plane ij) fixes component s on every face, plus the
+    third component on the perpendicular faces."""
+    dim = mesh.dim
+    fm = per.face_membership(mesh.node_positions, mesh.bbox(), eps)
+    on_face = fm.on_min | fm.on_max                      # [N, dim]
+    stretch = np.zeros((mesh.num_nodes, dim), dtype=bool)
+    for c in range(dim):
+        stretch[on_face[:, c], c] = True
+    shear_masks = []
+    for s in range(flat_len(dim) - dim):
+        m = np.zeros((mesh.num_nodes, dim), dtype=bool)
+        for c in range(dim):
+            face_nodes = on_face[:, c]
+            m[face_nodes, s] = True
+            if c != s:
+                m[face_nodes, 3 - (c + s)] = True
+        shear_masks.append(m)
+    return stretch, shear_masks
+
+
+def homogenize_orthotropic(mesh: FEMMesh, material, tol: float = 1e-11,
+                           base_cell_volume: float | None = None,
+                           precond: str = "jacobi",
+                           device=None) -> HomogenizationResult:
+    """Homogenize on an orthotropic base cell (1/8 of the period cell):
+    per-face normal pinning replaces periodicity, and the full-cell tensor
+    follows from the reflection-sign reconstruction.  ``precond``:
+    'jacobi' | 'twolevel' (one block CG over the fl probes with a
+    per-column mask; the two-level coarse matrix is masked by the union of
+    all pins) | 'multigrid' (Kuhn-grid cells: one ``VarStructuredMG`` per
+    probe, sharing the fine P1 cell matrices)."""
+    if mesh.dim != 3:
+        raise NotImplementedError(_NO_2D)
+    if precond not in ("jacobi", "twolevel", "multigrid"):
+        raise ValueError(f"unknown precond {precond!r}")
+    dim = mesh.dim
+    fl = flat_len(dim)
+    sim = ElasticitySimulator(mesh, material, device=device)
+    stretch_mask, shear_masks = _ortho_fixed_masks(mesh)
+    masks = [stretch_mask if i < dim else shear_masks[i - dim]
+             for i in range(fl)]
+    if base_cell_volume is None:
+        base_cell_volume = mesh.bbox().volume()
+
+    if precond == "multigrid":
+        from ..ops.structured_mg import (VarStructuredMG,
+                                         _p1_cell_matrices_var)
+
+        D = sim.D
+        if D.dim() == 2:
+            D = D.expand((mesh.num_elements,) + tuple(D.shape))
+        # the fine P1 cell matrices depend only on (mesh, D): computed
+        # once and shared by the fl builds (masks, diagonals and the
+        # coarse factorization differ per probe)
+        Kc_shared = _p1_cell_matrices_var(mesh, D, sim.device)
+        ws, iters = [], []
+        timings = dict(probe_build_s=[], probe_solve_s=[])
+        for i in range(fl):
+            t0 = time.perf_counter()
+            mg = VarStructuredMG.build(mesh, D,
+                                       fixed_mask=torch.as_tensor(masks[i]),
+                                       dtype=sim.Ke.dtype, Kc_fine=Kc_shared,
+                                       device=sim.device)
+            t1 = time.perf_counter()
+            rhs = sim.constant_strain_load(
+                -canonical_strain(dim, i, sim.Ke.dtype))
+            u, res = mg.solve(rhs, tol=tol)
+            ws.append(u)
+            iters.append(int(res.iters))
+            timings["probe_build_s"].append(t1 - t0)
+            timings["probe_solve_s"].append(time.perf_counter() - t1)
+        w = torch.stack(ws)
+    else:
+        if precond == "twolevel":
+            # the probes pin different faces; the coarse matrix is masked
+            # with the UNION of all pins (the intersection of the free
+            # masks), so its solve is well-posed and every correction lies
+            # inside each column's subspace after the outer projector
+            from ..solvers.twolevel import TwoLevel
+
+            free_all = np.ones((sim.num_dofs, dim), bool)
+            for m in masks:
+                free_all &= ~m
+            M_inv = TwoLevel.from_simulator(sim, mode="additive",
+                                            free_mask=free_all).M_inv
+        else:
+            diag = sim.K_diagonal()
+            safe = torch.where(diag > 0, diag, torch.ones_like(diag))
+            M_inv = lambda r: r / safe[..., None]
+        # ONE block CG over the fl probes with a per-column mask projector
+        free_cols = torch.stack(
+            [torch.as_tensor(~m, dtype=sim.Ke.dtype, device=sim.device)
+             for m in masks], dim=-1)                       # [Nd, d, fl]
+        res = cg_mod.cg_block(sim.apply_K, _cell_loads(sim), M_inv=M_inv,
+                              project=lambda v: v * free_cols, tol=tol,
+                              maxiter=100000)
+        w = res.x.movedim(-1, 0)
+        iters = [int(res.iters)] * fl
+        timings = {}
+
+    EhO = homogenized_tensor_stress_form(sim, w, base_cell_volume)
+    Ch = reconstruct_from_ortho_cell(EhO, dim)
+    strain_w = torch.stack([sim.average_strain_field(w[i])
+                            for i in range(fl)])
+    return HomogenizationResult(Ch, w, strain_w, iters, timings)
+
+
+def reconstruct_from_ortho_cell(EhO, dim: int):
+    """Reflection-sign reconstruction: averages sign-weighted copies over
+    the 2^dim reflections, zeroing the non-orthotropic couplings."""
+    fl = flat_len(dim)
+    n_refl = 1 << dim
+
+    def sign(ij, r):
+        if ij < dim:
+            return 1.0
+        bits = [(r >> b) & 1 for b in range(dim)]
+        if dim == 3:
+            bits[ij - dim] = 0
+        return -1.0 if sum(bits) == 1 else 1.0
+
+    W = np.zeros((fl, fl))
+    for r in range(n_refl):
+        for kl in range(fl):
+            for ij in range(fl):
+                W[ij, kl] += sign(ij, r) * sign(kl, r)
+    W /= n_refl
+    return EhO * torch.as_tensor(W, dtype=EhO.dtype, device=EhO.device)

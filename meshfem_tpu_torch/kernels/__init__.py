@@ -4,8 +4,9 @@ Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises), counting launches in
 ``<wrapper>.launches``.  Kernels A and B have one wrapper per layout
 (planes for the factored contractions, node rows for the dense ones), so
-the counts show which layout a path ran; kernel B's wrappers also count
-their float64 launches apart, in ``<wrapper>.launches_f64``.
+the counts show which layout a path ran; kernel B's wrappers and kernel A
+in rows also count their float64 launches apart, in
+``<wrapper>.launches_f64``.
 """
 
 from .gather import (gather_planes, gather_planes_plain,  # noqa: F401

@@ -7,6 +7,9 @@ two output layouts:
   node rows ``[N, P]`` or from planes ``[P, N]`` read through strides.
   With element-major slots (``s = e * n + a``) the output is the dense
   contraction's ``bmm`` operand ``[E, n*d, m]`` under the node-major Ke.
+  Float64 node rows move as float32 pairs (a gather copies bits, so the
+  float32 kernel serves them unchanged): the two-level preconditioner's
+  prolongation in a float64 solve.
 
 Replaces ``meshfem_tpu/sparse/route.py::_copy_kernel_p`` (:139, planes
 mode) and ``::_copy_kernel`` (:187, one plane), the routed gather of every
@@ -67,12 +70,24 @@ def gather_rows_plain(src: torch.Tensor, ids: torch.Tensor,
 def gather_rows(src: torch.Tensor, ids: torch.Tensor,
                 planes_in: bool = False) -> torch.Tensor:
     """src [N, P] node rows (or [P, N] planes when ``planes_in``) float32,
-    ids [S] int32 (every id < N) -> rows [S, P].
+    or float64 node rows, ids [S] int32 (every id < N) -> rows [S, P].
+    Float64 rows are gathered as float32 pairs ``[N, 2P]`` (bit copies)
+    and counted in ``launches_f64`` too.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises)."""
     if src.device.type == "cpu":
         return gather_rows_plain(src, ids, planes_in)
+    if src.dtype == torch.float64 and not planes_in and src.dim() == 2:
+        _build.check_cuda_args("gather_rows", src, ids,
+                               dtypes=(torch.float64,))
+        out = _gather_rows_f32(src.view(torch.float32), ids, False)
+        gather_rows.launches_f64 += 1
+        return out.view(torch.float64)
+    return _gather_rows_f32(src, ids, planes_in)
+
+
+def _gather_rows_f32(src, ids, planes_in):
     _build.check_cuda_args("gather_rows", src, ids, dtypes=(torch.float32,))
     if planes_in:
         P, N = src.shape
@@ -97,3 +112,4 @@ def gather_rows(src: torch.Tensor, ids: torch.Tensor,
 
 
 gather_rows.launches = 0
+gather_rows.launches_f64 = 0

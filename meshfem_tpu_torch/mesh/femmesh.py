@@ -9,8 +9,10 @@ numbers edges exactly as the reference's native host core does (both sort
 the (min, max) vertex pairs).  The region queries (``nodes_in_box``,
 ``boundary_elems_in_box``) and barycenters are numpy on the host; volumes
 and the lumped nodal measure are torch on the requested device, the latter
-summed by ``ScatterPlan`` (kernel B on the card).  Triangle meshes and the
-other node orders are not ported yet (ROADMAP).
+summed by ``ScatterPlan`` (kernel B on the card).  ``vertex_nodes`` and
+``node_endpoint_vertices`` give the two-level preconditioner its P1
+transfers.  Triangle meshes and the other node orders are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -91,6 +93,9 @@ class FEMMesh:
         self.bdry_elems = bdry.astype(np.int64)
         self.bdry_elem_nodes = self._boundary_nodes_of(bdry)
         self.bdry_nodes = np.unique(self.bdry_elem_nodes)
+        # vertex i -> its node id: the identity in the reference node
+        # order, the only one ported
+        self.vertex_nodes = np.arange(nv, dtype=np.int64)
 
     def _boundary_nodes_of(self, belems: np.ndarray) -> np.ndarray:
         """Boundary triangle -> volume node indices (vertices, then edge
@@ -140,6 +145,17 @@ class FEMMesh:
         bcorners = X[torch.as_tensor(self.bdry_elems, device=dev)]
         normal, bvol = geom.boundary_normals(bcorners)
         return ElementGeometry(grad_lambda, volume, normal, bvol)
+
+    def node_endpoint_vertices(self) -> np.ndarray:
+        """[N, 2] vertex ids (va, vb) whose midpoint is node i (va == vb
+        for vertex nodes)."""
+        nv = len(self.V)
+        ends = np.empty((self.num_nodes, 2), dtype=np.int64)
+        ends[:nv] = np.arange(nv)[:, None]
+        if self.num_nodes > nv:
+            ends[nv:, 0] = self._edge_keys // nv
+            ends[nv:, 1] = self._edge_keys % nv
+        return ends
 
     def volume(self, device=None) -> float:
         return float(self.geometry(device).volume.sum())

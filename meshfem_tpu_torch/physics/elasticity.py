@@ -27,7 +27,9 @@ Counterpart of ``meshfem_tpu/physics/elasticity.py::ElasticitySimulator``:
   reference gates on the TPU).  Every branch but the structured one takes
   the rigid-mode projection (``no_rigid_motion``) and a warm start
   (``x0``); ``precond`` is 'jacobi', 'block' or 'chebyshev'
-  (``solvers/precond.py``);
+  (``solvers/precond.py``), or 'twolevel' / 'twolevel-mult' (the P1-coarse
+  two-level preconditioner, ``solvers/twolevel.py``, cached by
+  ``_twolevel_for`` :165-183) on the float64 EBE and the routed branches;
 * the homogenization load ``constant_strain_load``, the strain, stress and
   von Mises fields and the strain energy.
 
@@ -136,6 +138,7 @@ class ElasticitySimulator:
         self._routed = None
         self._mg = None                 # (Dirichlet mask bytes, multigrid,
         #                                  build seconds on the host clock)
+        self._twolevel = {}             # (precond, mask, ordered) -> TwoLevel
         d = self.dim
         self.dirichlet_mask = np.zeros((self.num_dofs, d), dtype=bool)
         self.dirichlet_values = np.zeros((self.num_dofs, d))
@@ -203,6 +206,28 @@ class ElasticitySimulator:
             return False
         return self.mesh.num_elements >= int(
             os.environ.get("MESHFEM_ROUTED_MIN_E", "16384"))
+
+    def _twolevel_for(self, precond, free, node_order=None, project=None,
+                      apply_A=None):
+        """Cached TwoLevel build (host Galerkin product and SuperLU
+        factorization once per (mode, Dirichlet mask, ordering); the
+        projector and operator closures do not depend on the load).  At
+        most 4 are kept."""
+        from ..solvers.twolevel import TwoLevel
+
+        free_np = torch.as_tensor(free).cpu().numpy()
+        key = (precond, free_np.tobytes(), node_order is not None)
+        tl = self._twolevel.get(key)
+        if tl is None:
+            tl = TwoLevel.from_simulator(
+                self, mode=("multiplicative" if precond.endswith("mult")
+                            else "additive"),
+                free_mask=free_np, node_order=node_order, project=project,
+                apply_A=apply_A)
+            if len(self._twolevel) >= 4:
+                self._twolevel.pop(next(iter(self._twolevel)))
+            self._twolevel[key] = tl
+        return tl
 
     def _structured_eligible(self) -> bool:
         """The reference's pre-filter for its structured multigrid path
@@ -426,7 +451,10 @@ class ElasticitySimulator:
         float64 refinement on the routed path.  ``precond``: 'jacobi' |
         'block' (exact d x d node blocks) | 'chebyshev' (k-step polynomial
         in the block-Jacobi-preconditioned operator),
-        ``solvers/precond.py``.  With ``no_rigid_motion`` set the solve
+        ``solvers/precond.py`` | 'twolevel' / 'twolevel-mult' (P1-coarse
+        two-level, additive or multiplicative, ``solvers/twolevel.py``;
+        its host Galerkin product and SuperLU factorization are cached
+        per Dirichlet mask).  With ``no_rigid_motion`` set the solve
         runs on the complement of the rigid modes (``nullspace_projector``).
 
         ``operator``: 'structured' (geometric multigrid on a Kuhn grid,
@@ -443,16 +471,16 @@ class ElasticitySimulator:
         multigrid surfaces.  'structured' raises ValueError on a mesh that
         fails either check or with ``x0``.
 
-        On CUDA, an 'auto' or 'ebe' solve with no ``x0``, a float64 load
-        and ``tol < 1e-5`` takes ``_solve_ebe_refined``: float32 EBE CG
+        On CUDA, an 'auto' or 'ebe' solve with no ``x0``, a float64 load,
+        ``tol < 1e-5`` and a jacobi, block or chebyshev ``precond`` takes
+        ``_solve_ebe_refined``: float32 EBE CG
         inside float64 refinement, where the reference takes it on the TPU
         (:510-515); elsewhere 'ebe' is the float64 CG.  Refinement stops
         with a RuntimeWarning when the float32 floor (kappa eps32) lies
         above ``tol``: check ``CGResult.resnorm`` on ill-conditioned
         meshes.  On refined paths ``maxiter`` bounds each inner solve,
         ``CGResult.iters`` counts all inner iterations and ``rounds`` the
-        refinement rounds.  The two-level and AMG preconditioners are not
-        ported."""
+        refinement rounds.  The AMG preconditioner is not ported."""
         b = self.neumann_load
         if extra_load is not None:
             b = b + torch.as_tensor(extra_load, dtype=b.dtype,
@@ -487,15 +515,12 @@ class ElasticitySimulator:
                     "structured solve requires a 3D P2 mesh with uniform "
                     "material, identity dof map, some Dirichlet "
                     "constraint and no rigid-mode projection")
-        if precond in ("twolevel", "twolevel-mult"):
-            raise NotImplementedError(
-                "precond='twolevel*' (solvers/twolevel.py) is queued in "
-                "ROADMAP.md (Queue 1, item 11)")
         if precond == "amg":
             raise NotImplementedError(
                 "precond='amg' (solvers/amg.py) is queued in ROADMAP.md "
                 "(Queue 1, item 14)")
-        if precond not in ("jacobi", "block", "chebyshev"):
+        if precond not in ("jacobi", "block", "chebyshev", "twolevel",
+                           "twolevel-mult"):
             raise ValueError(f"unknown precond {precond!r}")
         if operator not in ("auto", "routed", "ebe"):
             raise ValueError(f"unknown operator {operator!r}")
@@ -505,7 +530,8 @@ class ElasticitySimulator:
                                             precond, chebyshev_degree, x0)
             return u_dof[self._dof_map_t], res
         if (x0 is None and b.dtype == torch.float64 and tol < 1e-5
-                and self.device.type == "cuda"):
+                and self.device.type == "cuda"
+                and precond in ("jacobi", "block", "chebyshev")):
             return self._solve_ebe_refined(b, fixed, vals, tol, maxiter,
                                            precond, chebyshev_degree)
         return self._solve_ebe(b, fixed, vals, tol, maxiter, precond,
@@ -515,8 +541,9 @@ class ElasticitySimulator:
                    chebyshev_degree, x0):
         """Float64 EBE CG (reference :521-574): the Jacobi fast path
         (``cg_operator``) when there is nothing to project but the mask and
-        no ``x0``; else the mask and rigid-mode projectors, Jacobi, block or
-        Chebyshev preconditioning and ``x0`` handed to ``cg``."""
+        no ``x0``; else the mask and rigid-mode projectors, Jacobi, block,
+        Chebyshev or two-level preconditioning and ``x0`` handed to
+        ``cg``."""
         free = ~fixed
         if not self.no_rigid_motion and x0 is None and precond == "jacobi":
             res = cg_mod.cg_operator(self._kernel, b, self.K_diagonal(),
@@ -531,6 +558,8 @@ class ElasticitySimulator:
             diag = self.K_diagonal()
             safe = torch.where(diag > 0, diag, torch.ones_like(diag))
             M_inv = lambda r: r / safe
+        elif precond in ("twolevel", "twolevel-mult"):
+            M_inv = self._twolevel_for(precond, free, project=project).M_inv
         else:
             M_inv = self._block_precond(self.Ke, self.apply_K, free, project,
                                         precond, chebyshev_degree)
@@ -703,6 +732,18 @@ class ElasticitySimulator:
             diag_p = rk.diagonal_planes()
             safe = torch.where(diag_p > 0, diag_p, torch.ones_like(diag_p))
             M_inv = lambda r: r / safe
+        elif precond in ("twolevel", "twolevel-mult"):
+            # the two-level transfers and smoother blocks follow the
+            # internal order (rk.order); it works on [Nd, d], the CG on
+            # the planes [d, Nd]; -mult applies the routed operator itself
+            free_i = free_p.t()
+            tl = self._twolevel_for(
+                precond, free,
+                node_order=None if rk.order is None
+                else rk.order.cpu().numpy(),
+                project=lambda v: v * free_i.to(v.dtype),
+                apply_A=rk if precond.endswith("mult") else None)
+            M_inv = lambda r: tl.M_inv(r.t()).t()
         else:   # block Jacobi, permuted into the internal ordering
             blocks = pc.node_block_diagonal(self.Ke.to(f32), self.elem_dofs,
                                             Nd, d)

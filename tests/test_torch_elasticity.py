@@ -148,10 +148,10 @@ def test_solve_scope_raises():
     sim, _ = _clamped_bar(FEMMesh, ElasticitySimulator, Material, "cpu")
     with pytest.raises(ValueError, match="requires a 3D P2 mesh"):
         sim.solve(operator="structured")      # 144 tets: not eligible
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sim.solve(operator="routed", precond="twolevel")
     with pytest.raises(NotImplementedError, match="item 14"):
         sim.solve(operator="routed", precond="amg")
+    with pytest.raises(ValueError, match="unknown precond"):
+        sim.solve(operator="ebe", precond="nope")
 
 
 _STANDALONE = r"""
@@ -177,6 +177,8 @@ from meshfem_tpu_torch.physics import parse_bc, load_bc, load_material
 import meshfem_tpu_torch.physics.boundary_conditions
 import meshfem_tpu_torch.utils.expressions, meshfem_tpu_torch.utils.linalg
 import meshfem_tpu_torch.fem.tensor_projection, meshfem_tpu_torch.solvers
+import meshfem_tpu_torch.ops.structured_periodic
+import meshfem_tpu_torch.solvers.twolevel, meshfem_tpu_torch.analysis.topopt
 V, T = generators.bar_tet(6, 2, 2)
 mesh = FEMMesh(V, T, degree=2)
 sim = ElasticitySimulator(mesh, Material.isotropic(3, 200.0, 0.3),

@@ -445,19 +445,20 @@ def test_structured_prefilter_conditions():
 
 
 def test_unported_options_name_their_roadmap_items():
+    """What still raises names its ROADMAP item: a 2D (pixel) occupancy
+    (item 3) and ``differentiable_displacement`` (item 12); an unknown
+    ``precond`` is a ValueError."""
+    from meshfem_tpu_torch.analysis.topopt import (
+        ComplianceTopOpt, differentiable_displacement)
+
     mat = Material.isotropic(3, 5.0, 0.3)
     mesh = FEMMesh(*generators.grid_tet(2, 2, 2), degree=1)
     sim = hom.periodic_simulator(mesh, mat, device="cpu")
-    for precond, item in (("twolevel", "item 11"), ("twolevel-mult",
-                                                    "item 11"),
-                          ("multigrid", "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            hom.solve_cell_problems(sim, precond=precond)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        hom.homogenize(mesh, mat, orthotropic_cell=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        hom.homogenize_orthotropic(mesh, mat)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        hom.homogenize_voxels(np.ones((2, 2, 2)))
+    with pytest.raises(NotImplementedError, match="item 3"):
+        hom.homogenize_voxels(np.ones((2, 2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        differentiable_displacement(ComplianceTopOpt(2, 1, 1, device="cpu"))
     with pytest.raises(ValueError):
         hom.solve_cell_problems(sim, precond="nope")
+    with pytest.raises(ValueError):
+        hom.homogenize_orthotropic(mesh, mat, precond="nope", device="cpu")

@@ -21,7 +21,8 @@ Pallas kernels run in interpret mode, as the reference's own tests run them
   ``probe_route.build``, exactly.
 
 The ``cuda``-marked cases hold each CUDA kernel against its plain version
-(and B rows against B planes, bitwise) on the card and skip without one.
+(and B rows against B planes, bitwise; A rows also on float64 rows, which
+it moves as float32 pairs) on the card and skip without one.
 They need neither JAX nor the reference package: ``python -m pytest
 --noconftest -m cuda tests/test_torch_rows.py``.
 """
@@ -332,6 +333,26 @@ def test_cuda_gather_rows(cuda, planes, planes_in, n_slots):
     torch.cuda.synchronize()
     assert kernels.gather_rows.launches == before + 1
     assert torch.equal(out, kernels.gather_rows_plain(src, sid, planes_in))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 3, 18])
+def test_cuda_gather_rows_f64(cuda, planes):
+    """Float64 node rows move as float32 pairs: the same bits as the plain
+    gather, counted in ``launches`` and ``launches_f64``."""
+    rng = np.random.default_rng(planes)
+    sid = torch.as_tensor(_local_ids(rng, 30000, 7001).astype(np.int32),
+                          device=cuda)
+    src = torch.as_tensor(rng.standard_normal((30000, planes)),
+                          dtype=torch.float64, device=cuda)
+    before = kernels.gather_rows.launches
+    before_f64 = kernels.gather_rows.launches_f64
+    out = kernels.gather_rows(src, sid)
+    torch.cuda.synchronize()
+    assert kernels.gather_rows.launches == before + 1
+    assert kernels.gather_rows.launches_f64 == before_f64 + 1
+    assert out.dtype == torch.float64
+    assert torch.equal(out, kernels.gather_rows_plain(src, sid))
 
 
 @pytest.mark.cuda

@@ -163,7 +163,49 @@ of which raises on failure:
    float64 <= solve_tol + 20x the float32 floor (the residual of the
    float64 solution rounded to float32), u within 1e-4 of the float64 u;
    the card's float64 history at (4, 2, 2) against the CPU's <= 1e-8;
-13. each kernel timed beside its bound, its plain version and one PyTorch
+13. triangle meshes, 2D elasticity and 2D homogenization, each path
+   counted (counts zeroed just before, read just after, its kernels
+   required): (a) the 2D cantilever of BASELINE config 1 over [0, 4] x
+   [0, 1], P1, clamped at x = 0 and loaded in -y at the tip through
+   ``parse_bc(..., dim=2)``, by the default call ``solve(tol=1e-10)`` (the
+   routed dense operator: E at (2, 1), A and B rows at 2 values a node;
+   every apply in rows), float64 relative residual <= 1e-10; the uniaxial
+   bar of the reference's ``tests/test_elasticity.py:50-70`` on the same
+   mesh at tol 1e-12, every element's stress (t, 0, 0) and strain
+   (t/E, -nu t/E, 0) to 1e-7; the card's u against the CPU's at
+   grid_tri(32, 8) (1e-8); (b) the P2 cantilever through
+   ``solve(operator="routed")`` dense (E at (2, 2)), ``MESHFEM_FACTORED=1``
+   (C, A and B in planes) and ``MESHFEM_FACTORED_TQ=1`` (D), each to
+   1e-10, each factored apply against the dense one (5e-6 of max|y|) and u
+   against the dense u (1e-8); the sizes are cut (``CANT_P1_N``,
+   ``CANT_P2_N``: float32 CG inside float64 refinement stalls above 1e-10
+   on the larger meshes); (c) ``homogenize`` on grid_tri(256, 256) P2 with
+   a void disc of radius 0.3, precond 'block' and 'jacobi' (one 3-column
+   routed block CG, A and B at 6 values a node, inside float64
+   refinement): Ch symmetric, positive definite, under the Voigt bound,
+   |C00 - C11| <= 1e-7 C00, every column's float64 residual <= 1e-9, the
+   two Ch within 1e-8, card against CPU at grid_tri(8, 8) (1e-8); (d)
+   ``homogenize_voxels`` on a 512^2 pixel cross through the 2D torus
+   multigrid (float64, tol 1e-9): fewer than 60 block iterations, Ch SPD
+   with |d0 - d1| <= 1e-7 d0, every column's residual <= 1e-8,
+   ``apply_channels`` against the float64 EBE ``apply_K`` (1e-12), card
+   against CPU at 8^2 (1e-8), its build, solve, ms per block iteration
+   and peak memory printed; (f) the cuts' witness: the cantilever at the
+   sizes above them (P1 at twice and four times ``CANT_P1_N``, P2 at two,
+   four (factored) and eight times ``CANT_P2_N``), one routed solve each,
+   its rounds and where its refinement stopped printed, not gated; (e) in
+   phase 14, kernels A-E held against
+   their plain versions at their 2D shapes on the uncut meshes
+   (grid_tri(1024, 256) P1 and grid_tri(512, 128) P2) and the 13c cell:
+   A rows at 2 and 6 values with an odd slot count (exact), A planes at 2
+   and 6, B rows float32 and float64 at 2 and 6 values and B planes at 2
+   and 6 (bit-identical across two runs, B rows bit for bit against B in
+   planes, 1e-5 / 1e-12 of max|y| against plain), C and D at (2, 1) and
+   (2, 2) (1e-5, D against C 5e-6), E at (2, 1) and (2, 2) (1e-5 of
+   max|Ke|, one float32 ulp of the float64 Ke on the mesh and on seeded
+   random inputs with an isotropic and an anisotropic [3, 3] material),
+   each then timed as phase 14 times the others;
+14. each kernel timed beside its bound, its plain version and one PyTorch
    call computing the same function (median of per-launch CUDA-event
    times, L2 flushed before each launch, the call queued before its first
    event fires), A and B in planes also at the 18
@@ -187,8 +229,10 @@ of which raises on failure:
    count of the earlier main path it was read from, in the same mode),
    and ``launches_cell_paths`` likewise on phase 12's paths (kernel A in
    rows also split by dtype: its ``gather_rows/f64/18`` line times it on
-   float64 rows at the two-level prolongation's shapes);
-14. last, ``{"ok": true, "device": {...}}``.
+   float64 rows at the two-level prolongation's shapes), and
+   ``launches_2d_paths`` on phase 13's (the ``.../2d/...`` lines are
+   phase 13e's);
+15. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -393,7 +437,7 @@ def clamped_problem(size, device):
 def check_solution(sim, u, label, gate=1e-10):
     """u finite, of the right shape, float64 relative residual <= ``gate``
     through the EBE operator, and the energy balance u.Ku == b.u."""
-    if tuple(u.shape) != (sim.num_dofs, 3) or not bool(
+    if tuple(u.shape) != (sim.num_dofs, sim.dim) or not bool(
             torch.isfinite(u).all()):
         raise RuntimeError(f"{label}: bad solution {tuple(u.shape)}")
     free = torch.as_tensor(~sim.dirichlet_mask, dtype=torch.float64,
@@ -493,12 +537,13 @@ def block_residual(sim, w):
     return float(torch.linalg.norm(R) / torch.linalg.norm(B)), cols.tolist()
 
 
-def drive_homogenize(mesh, material, label, env, required):
-    """One counted run of the user's entry point ``homogenize`` under the
-    contraction switches ``env``: counts are zeroed just before and read
-    just after; each wrapper in ``required`` must have launched.  The block
-    CG is wrapped to record the inner iterations of every refinement
-    round."""
+def drive_homogenize(mesh, material, label, env, required,
+                     precond="block"):
+    """One counted run of the user's entry point ``homogenize`` (with
+    ``precond``) under the contraction switches ``env``: counts are zeroed
+    just before and read just after; each wrapper in ``required`` must
+    have launched.  The block CG is wrapped to record the inner iterations
+    of every refinement round."""
     from meshfem_tpu_torch.analysis import homogenization as hom
     from meshfem_tpu_torch.solvers import cg as cg_mod
 
@@ -523,7 +568,8 @@ def drive_homogenize(mesh, material, label, env, required):
                 ApplyCounter() as applies:
             warnings.simplefilter("always")
             res, wall, counts = counted(
-                label, lambda: hom.homogenize(mesh, material, tol=1e-10),
+                label, lambda: hom.homogenize(mesh, material, tol=1e-10,
+                                              precond=precond),
                 required)
     finally:
         cg_mod.cg_block = inner
@@ -555,7 +601,8 @@ def check_homogenized(sim, res, label, D, phi, gate):
         + ", ".join(f"{c:.2e}" for c in cols) + ")")
     if not relres <= gate:
         raise RuntimeError(f"{label}: block residual {relres:.3e} > {gate}")
-    if tuple(Ch.shape) != (6, 6) or not bool(torch.isfinite(Ch).all()) \
+    if tuple(Ch.shape) != tuple(D.shape) \
+            or not bool(torch.isfinite(Ch).all()) \
             or not bool(torch.isfinite(res.w).all()):
         raise RuntimeError(f"{label}: Ch or w not finite")
     scale = float(Ch.abs().max())
@@ -992,16 +1039,16 @@ def own_mode(counts, name):
     return f64 if "/f64" in name else counts[wrapper] - f64
 
 
-def check_rows_on_plan(plan, dtype, label, gen):
+def check_rows_on_plan(plan, dtype, label, gen, P=3):
     """Kernel B in rows on a path's own ``plan`` and shapes: random
-    contribution rows ``[R, 3]`` in ``dtype`` on the card must sum bit for
+    contribution rows ``[R, P]`` in ``dtype`` on the card must sum bit for
     bit as B in planes sums them, and as the plain version sums them on
     the CPU (in the kernel's order); the plain version on the card (float
     atomics) must agree to 1e-5 (float32) or 1e-12 (float64) of max|y|.
     Returns the max abs error against the card's plain version."""
     from meshfem_tpu_torch import kernels
 
-    src = torch.randn((plan.num_rows, 3), generator=gen, device=gen.device,
+    src = torch.randn((plan.num_rows, P), generator=gen, device=gen.device,
                       dtype=dtype)
     y = kernels.segment_sum_rows(src, plan.perm, plan.offsets)
     yp = kernels.segment_sum_csr(src.t().contiguous(), plan.perm,
@@ -1277,12 +1324,12 @@ def rel_err(a, b):
     return float((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max())
 
 
-def check_tensor(Ch, label):
+def check_tensor(Ch, label, fl=6):
     """Ch finite, symmetric to 1e-8 of max|Ch|, positive definite; returns
     (asymmetry, smallest eigenvalue)."""
     Ch = Ch.detach().cpu()
-    if tuple(Ch.shape) != (6, 6) or not bool(torch.isfinite(Ch).all()):
-        raise RuntimeError(f"{label}: Ch not a finite 6 x 6 tensor")
+    if tuple(Ch.shape) != (fl, fl) or not bool(torch.isfinite(Ch).all()):
+        raise RuntimeError(f"{label}: Ch not a finite {fl} x {fl} tensor")
     asym = float((Ch - Ch.t()).abs().max() / Ch.abs().max())
     emin = float(torch.linalg.eigvalsh(0.5 * (Ch + Ch.t())).min())
     if not asym <= 1e-8:
@@ -1770,6 +1817,810 @@ def drive_cells(dev):
     out["phase_s"] = time.time() - t0
     log(f"phase 12 (12a-d): {out['phase_s']:.1f} s")
     return out, paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: triangle meshes, 2D elasticity and 2D homogenization
+# ---------------------------------------------------------------------------
+
+# The 2D cantilever of BASELINE config 1 over [0, 4] x [0, 1].  Its solves
+# run at cut sizes: at grid_tri(1024, 256) P1 and grid_tri(512, 128) P2
+# (526,850 dofs each) float32 CG inside float64 refinement stalls above
+# 1e-10 (the inner CG's residual plateaus past its 2,048-iteration stall
+# window, and the dense float32 Ke's rounding, ~eps32 times the condition
+# number, slows the rounds); halved until every backend passes (PERF.md).
+CANT_P1_N = 256               # grid_tri(256, 64) P1: 33,410 dofs
+CANT_P2_N = 64                # grid_tri(64, 16) P2: 8,514 dofs
+FULL_P1_N = 1024              # the kernels' timing shapes: the uncut meshes
+FULL_P2_N = 512
+TRI_CELL_N = 256              # grid_tri(256, 256) P2 with a void disc
+PIXEL_N = 512                 # the pixel cross, 512^2 pixels
+SMALL_2D_N = 32               # card against CPU: grid_tri(32, 8)
+SMALL_CELL_2D_N = 8           # and the 8^2 cells
+E_2D, NU_2D, BAR_T = 200.0, 0.3, 1.0
+
+EDGE_X0 = {"box%": {"minCorner": [-0.001, -0.001],
+                    "maxCorner": [0.001, 1.001]}}
+EDGE_X1 = {"box%": {"minCorner": [0.999, -0.001],
+                    "maxCorner": [1.001, 1.001]}}
+EDGE_Y0 = {"box%": {"minCorner": [-0.001, -0.001],
+                    "maxCorner": [1.001, 0.001]}}
+# x = 0 clamped, the tip loaded in -y
+CANTILEVER_2D_BC = bc_json([{"type": "dirichlet", "value": [0, 0],
+                             **EDGE_X0},
+                            {"type": "force", "value": [0, -1], **EDGE_X1}])
+# the uniaxial bar of the reference's tests/test_elasticity.py:50-70:
+# rollers on x = 0 and y = 0, a uniform traction on the far edge
+UNIAXIAL_BC = bc_json([{"type": "dirichletx", "value": [0, 0], **EDGE_X0},
+                       {"type": "dirichlety", "value": [0, 0], **EDGE_Y0},
+                       {"type": "traction", "value": [BAR_T, 0],
+                        **EDGE_X1}])
+ROWS_2D = ("gather_rows", "segment_sum_rows", "element_stiffness")
+
+
+def cantilever_2d(n, deg, device, text=CANTILEVER_2D_BC):
+    """grid_tri(n, n / 4) over [0, 4] x [0, 1], isotropic (plane stress),
+    the regions of ``text`` applied through ``parse_bc(..., dim=2)``."""
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.physics import (ElasticitySimulator, Material,
+                                           parse_bc)
+
+    V, F = generators.grid_tri(n, n // 4, hi=(4.0, 1.0))
+    sim = ElasticitySimulator(FEMMesh(V, F, degree=deg),
+                              Material.isotropic(2, E_2D, NU_2D),
+                              device=device)
+    sim.apply_boundary_conditions(parse_bc(text, dim=2))
+    return sim
+
+
+def counted_solve(sim, label, required, **kw):
+    """``sim.solve(**kw)`` counted, the routed operator built anew inside
+    the count; returns (u, result, seconds, counts, routed applies)."""
+    sim._routed = None
+    with ApplyCounter() as applies:
+        (u, res), wall, counts = counted(label, lambda: sim.solve(**kw),
+                                         required)
+    log(f"{label}: solve {wall:.3f} s, {res.rounds} refinement rounds, "
+        f"{res.iters} inner CG iterations ({wall / max(res.iters, 1) * 1e3:.4f}"
+        f" ms each on the host clock), relres {res.resnorm:.3e}, round "
+        f"history {[(f'{r:.1e}', i) for r, i in res.history]}, launches "
+        f"{counts}")
+    return u, res, wall, counts, applies.count
+
+
+def drive_cantilever_2d(dev):
+    """13a: the P1 cantilever by the default call (routed dense: E at
+    (2, 1), A and B rows at 2 values), the uniaxial bar's closed form on the
+    same mesh, and the card against the CPU at grid_tri(32, 8)."""
+    out, paths = {}, {}
+    sim, t_set = timed(lambda: cantilever_2d(CANT_P1_N, 1, dev))
+    N = sim.num_dofs
+    label = f"13a P1 cantilever grid_tri({CANT_P1_N}, {CANT_P1_N // 4})"
+    log(f"{label}: {sim.mesh.num_elements} triangles, {N} nodes, {2 * N} "
+        f"dofs; mesh, simulator and parse_bc {t_set:.3f} s")
+    u, res, wall, counts, applies = counted_solve(sim, label, ROWS_2D,
+                                                  tol=1e-10)
+    check_rows_path(label, counts, applies)
+    relres = check_solution(sim, u, label)
+    paths["cantilever_p1"] = counts
+    out["cantilever_p1"] = dict(
+        triangles=sim.mesh.num_elements, dofs=2 * N, rounds=res.rounds,
+        inner_iters=res.iters, relres=relres, solve_s=wall,
+        ms_per_inner_iter=wall / max(res.iters, 1) * 1e3,
+        tip_deflection=float(u[:, 1].min()), applies=applies)
+    rk = sim.routed_kernel()
+    x = torch.randn((2, N), generator=torch.Generator(device=dev)
+                    .manual_seed(13), device=dev)
+    out["cantilever_p1"]["apply_ms"] = median_apply_ms(
+        rk.apply_planes, [x * (1 + i) for i in range(9)])
+    del sim, rk
+
+    bar = cantilever_2d(CANT_P1_N, 1, dev, UNIAXIAL_BC)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ub, resb, wallb, countsb, _ = counted_solve(
+            bar, "13a uniaxial bar", ROWS_2D, tol=1e-12)
+    for c in caught:
+        log(f"13a uniaxial bar: WARNING {c.message}")
+    stress = bar.average_stress_field(ub)
+    strain = bar.average_strain_field(ub)
+    s_exact = torch.tensor([BAR_T, 0.0, 0.0], dtype=torch.float64,
+                           device=dev)
+    e_exact = torch.tensor([BAR_T / E_2D, -NU_2D * BAR_T / E_2D, 0.0],
+                           dtype=torch.float64, device=dev)
+    s_err = float((stress - s_exact).abs().max()) / BAR_T
+    e_err = float((strain - e_exact).abs().max()) / (BAR_T / E_2D)
+    paths["uniaxial_bar"] = countsb
+    out["uniaxial_bar"] = dict(rounds=resb.rounds, inner_iters=resb.iters,
+                               relres=resb.resnorm, solve_s=wallb,
+                               stress_err=s_err, strain_err=e_err)
+    log(f"13a uniaxial bar (traction {BAR_T} on x = 4, rollers): every "
+        f"element's stress against (t, 0, 0) {s_err:.3e} of t, strain "
+        f"against (t/E, -nu t/E, 0) {e_err:.3e} of t/E (plane stress)")
+    if not (s_err <= 1e-7 and e_err <= 1e-7):
+        raise RuntimeError("13a uniaxial bar: the closed form does not hold")
+    del bar
+
+    card = cantilever_2d(SMALL_2D_N, 1, dev)
+    uc, _ = card.solve(operator="routed", tol=1e-10)
+    cpu = cantilever_2d(SMALL_2D_N, 1, "cpu")
+    ux, _ = cpu.solve(tol=1e-12)
+    du = rel_err(uc, ux)
+    out["small_card_vs_cpu"] = du
+    log(f"13a grid_tri({SMALL_2D_N}, {SMALL_2D_N // 4}) P1: card routed vs "
+        f"CPU f64 EBE u {du:.3e} of max")
+    if not du <= 1e-8:
+        raise RuntimeError(f"13a: card and CPU differ ({du})")
+    return out, paths
+
+
+def drive_p2_backends(dev):
+    """13b: the P2 cantilever through the three contraction backends of
+    ``solve(operator="routed")``: dense (E at (2, 2)), ``MESHFEM_FACTORED``
+    (C, A and B in planes) and ``MESHFEM_FACTORED_TQ`` (D)."""
+    out, paths, ops = {}, {}, {}
+    sim = cantilever_2d(CANT_P2_N, 2, dev)
+    N = sim.num_dofs
+    variants = (
+        ("p2_dense", {}, ROWS_2D),
+        ("p2_factored", {"MESHFEM_FACTORED": "1"},
+         ("gather_planes", "segment_sum_csr", "qp_contract")),
+        ("p2_factored_tq", {"MESHFEM_FACTORED": "1",
+                            "MESHFEM_FACTORED_TQ": "1"},
+         ("gather_planes", "segment_sum_csr", "factored_contract")))
+    us = {}
+    for name, env, required in variants:
+        for k in ("MESHFEM_FACTORED", "MESHFEM_FACTORED_TQ"):
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        label = (f"13b P2 cantilever grid_tri({CANT_P2_N}, {CANT_P2_N // 4})"
+                 f" {name}")
+        try:
+            u, res, wall, counts, applies = counted_solve(
+                sim, label, required, operator="routed", tol=1e-10)
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+        if name == "p2_dense":
+            check_rows_path(label, counts, applies)
+        relres = check_solution(sim, u, label)
+        ops[name], us[name], paths[name] = sim._routed, u, counts
+        out[name] = dict(rounds=res.rounds, inner_iters=res.iters,
+                         relres=relres, solve_s=wall)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((2, N), generator=gen, device=dev)
+    yd = ops["p2_dense"].apply_planes(x)
+    for name in ("p2_factored", "p2_factored_tq"):
+        d_apply = float((ops[name].apply_planes(x) - yd).abs().max()
+                        / yd.abs().max())
+        d_u = rel_err(us[name], us["p2_dense"])
+        out[name].update(vs_dense_apply=d_apply, vs_dense_u=d_u)
+        log(f"13b {name}: apply vs dense {d_apply:.3e} of max|y|, u vs "
+            f"dense {d_u:.3e} of max|u|")
+        if not (d_apply <= 5e-6 and d_u <= 1e-8):
+            raise RuntimeError(f"13b {name} disagrees with the dense "
+                               f"backend")
+    out["triangles"], out["dofs"] = sim.mesh.num_elements, 2 * N
+    return out, paths
+
+
+def tri_void_cell(n):
+    """grid_tri(n, n) on the unit square with the triangles whose centroid
+    lies within 0.3 of the centre removed, vertices renumbered."""
+    from meshfem_tpu_torch.mesh import generators
+
+    V, F = generators.grid_tri(n, n)
+    cent = V[F].mean(axis=1)
+    F2 = F[((cent - 0.5) ** 2).sum(axis=1) > 0.3 ** 2]
+    used = np.unique(F2)
+    remap = -np.ones(len(V), dtype=np.int64)
+    remap[used] = np.arange(len(used))
+    return V[used], remap[F2].astype(np.int32)
+
+
+def drive_tri_cell(dev):
+    """13c: ``homogenize`` on the triangle void cell, precond 'block' and
+    'jacobi': one 3-column routed block CG (A and B at 6 values a node)
+    inside float64 refinement."""
+    from meshfem_tpu_torch.analysis import homogenization as hom
+    from meshfem_tpu_torch.mesh import FEMMesh
+    from meshfem_tpu_torch.physics import Material
+
+    out, paths, Chs = {}, {}, {}
+    mesh = FEMMesh(*tri_void_cell(TRI_CELL_N), degree=2)
+    mat = Material.isotropic(2, E_2D, NU_2D)
+    D = mat.D.to(dev)
+    hsim = hom.periodic_simulator(mesh, mat, device=dev)
+    phi = 1.0 - float(hsim.geom.volume.sum())
+    for precond in ("block", "jacobi"):
+        label = f"13c triangle cell grid_tri({TRI_CELL_N}) P2 ({precond})"
+        res, info = drive_homogenize(mesh, mat, label, {}, ROWS_2D,
+                                     precond=precond)
+        check_rows_path(label, info["launches"], info["applies"])
+        relres, cols = check_homogenized(hsim, res, label, D, phi, 1e-9)
+        Ch = res.Ch
+        sq = abs(float(Ch[0, 0] - Ch[1, 1])) / float(Ch[0, 0])
+        log(f"{label}: Ch {Ch.cpu().tolist()}; |C00 - C11| {sq:.3e} of C00")
+        if not max(cols) <= 1e-9:
+            raise RuntimeError(f"{label}: a column's residual is "
+                               f"{max(cols):.3e}")
+        if not sq <= 1e-7:
+            raise RuntimeError(f"{label}: not square symmetric ({sq:.3e})")
+        info.update(relres=relres, column_relres=cols, square_spread=sq)
+        Chs[precond], paths[f"tri_cell_{precond}"] = Ch, info.pop("launches")
+        out[precond] = info
+    dC = rel_err(Chs["jacobi"], Chs["block"])
+    log(f"13c: Ch (jacobi) vs Ch (block) {dC:.3e} of max|Ch|")
+    if not dC <= 1e-8:
+        raise RuntimeError(f"13c: the two preconditioners' Ch differ ({dC})")
+    small = FEMMesh(*tri_void_cell(SMALL_CELL_2D_N), degree=2)
+    Cs = {}
+    for name, device, op in (("card", dev, "routed"), ("cpu", "cpu", "ebe")):
+        s = hom.periodic_simulator(small, mat, device=device)
+        w, _ = hom.solve_cell_problems(s, tol=1e-12, operator=op)
+        Cs[name] = hom.homogenized_tensor_stress_form(
+            s, w - w.mean(dim=1, keepdim=True))
+    dS = rel_err(Cs["card"], Cs["cpu"])
+    log(f"13c at grid_tri({SMALL_CELL_2D_N}): card routed vs CPU f64 EBE Ch "
+        f"{dS:.3e} of max")
+    if not dS <= 1e-8:
+        raise RuntimeError(f"13c: card and CPU differ ({dS})")
+    out.update(triangles=mesh.num_elements, dofs=2 * hsim.num_dofs,
+               void_share=phi, Ch=Chs["block"].cpu().tolist(),
+               jacobi_vs_block=dC, small_card_vs_cpu=dS)
+    return out, paths, hsim
+
+
+def pixel_cross(n):
+    """Two struts of width n/4 crossing: the reference test's pixel cell
+    (tests/test_structured_periodic.py:164-175) at n^2."""
+    occ = np.zeros((n, n), bool)
+    occ[3 * n // 8:5 * n // 8, :] = True
+    occ[:, 3 * n // 8:5 * n // 8] = True
+    return occ
+
+
+def drive_pixels(dev):
+    """13d: ``homogenize_voxels`` on the pixel cross through the 2D torus
+    multigrid (float64, void 1e-6, tol 1e-9); then the same cell by its
+    parts, timed apart."""
+    from meshfem_tpu_torch.analysis import homogenization as hom
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.ops import structured_periodic2d as sp2
+    from meshfem_tpu_torch.physics import MaterialField
+
+    n = PIXEL_N
+    occ = pixel_cross(n)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, counts = counted(
+        "13d pixels", lambda: hom.homogenize_voxels(occ, device=dev),
+        ("segment_sum_rows",))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    iters = max(res.cg_iters)
+    V, F = generators.grid_tri(n, n, diagonal="right")
+    E_field = np.repeat(np.where(occ.reshape(-1), 1.0, 1e-6), 2)
+    sim, sim_s = timed(lambda: hom.periodic_simulator(
+        FEMMesh(V, F, degree=2), MaterialField.isotropic_field(
+            2, E_field, np.full(len(E_field), 0.3)), device=dev))
+    mg, build_s = timed(lambda: sp2.PeriodicVarMG2D.build(
+        sim.mesh, sim.D, sim.dof_map, dtype=sim.Ke.dtype, device=dev))
+    (_, iters2), solve_s = timed(lambda: sp2.solve_cell_problems_grid2d(
+        sim, mg=mg, tol=1e-9, maxiter=100000))
+    out = dict(n=n, volume_fraction=float(occ.mean()), seconds=wall,
+               block_iters=iters, simulator_s=sim_s, mg_build_s=build_s,
+               solve_s=solve_s, parts_block_iters=iters2[0],
+               ms_per_block_iter=solve_s / max(iters2[0], 1) * 1e3,
+               levels=[list(lvl.n2) for lvl in mg.levels],
+               coarse="dense pinv" if mg.coarse_inv is not None
+               else "host SuperLU", peak_device_gib=peak)
+    log(f"13d pixels (cross {n}^2, volume fraction "
+        f"{out['volume_fraction']:.4f}, {2 * n * n} triangles, "
+        f"{8 * n * n} unknowns x 3 columns, float64): homogenize_voxels "
+        f"{wall:.3f} s, {iters} block CG iterations, peak device memory "
+        f"{peak:.2f} GiB; launches {counts}; by its parts: periodic "
+        f"simulator {sim_s:.3f} s, PeriodicVarMG2D build {build_s:.3f} s "
+        f"(levels {out['levels']}, coarsest {out['coarse']}), "
+        f"solve_cell_problems_grid2d {solve_s:.3f} s, {iters2[0]} "
+        f"iterations, {out['ms_per_block_iter']:.3f} ms per block iteration "
+        f"(host clock)")
+    Ch = res.Ch.cpu()
+    asym, emin = check_tensor(Ch, "13d pixels", fl=3)
+    d = torch.diagonal(Ch)
+    spread = float((d[0] - d[1]).abs() / d[0])
+    out.update(Ch=Ch.tolist(), asymmetry=asym, min_eig=emin,
+               square_spread=spread)
+    log(f"13d pixels: Ch {Ch.tolist()}, asymmetry {asym:.2e}, min "
+        f"eigenvalue {emin:.4e}, |d0 - d1| {spread:.2e} of d0")
+    if not iters < 60:
+        raise RuntimeError(f"13d pixels: {iters} block CG iterations")
+    if not spread <= 1e-7:
+        raise RuntimeError(f"13d pixels: not square symmetric ({spread})")
+    relres, cols = block_residual(sim, res.w)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    u = torch.randn((sim.num_dofs, 2), generator=gen, device=dev,
+                    dtype=torch.float64)
+    y_ebe = sim.apply_K(u)
+    op_err = float((mg.fine(u) - y_ebe).abs().max() / y_ebe.abs().max())
+    out.update(relres=relres, column_relres=cols, torus_vs_ebe=op_err)
+    log(f"13d pixels: f64 relative residual per column through the EBE "
+        f"operator " + ", ".join(f"{c:.2e}" for c in cols)
+        + f"; torus apply_channels vs f64 EBE apply_K on a seeded field "
+        f"{op_err:.3e} of max|y|")
+    if not max(cols) <= 1e-8:
+        raise RuntimeError(f"13d pixels: a column's residual is "
+                           f"{max(cols):.3e}")
+    if not op_err <= 1e-12:
+        raise RuntimeError(f"13d pixels: torus operator vs EBE {op_err}")
+    del sim, mg, u, y_ebe
+    small = {w: hom.homogenize_voxels(pixel_cross(SMALL_CELL_2D_N),
+                                      device=d)
+             for w, d in (("card", dev), ("cpu", "cpu"))}
+    dC = rel_err(small["card"].Ch, small["cpu"].Ch)
+    out["small_card_vs_cpu"] = dC
+    log(f"13d pixels at {SMALL_CELL_2D_N}^2: card "
+        f"{small['card'].cg_iters[0]} / CPU {small['cpu'].cg_iters[0]} "
+        f"iterations, Ch card vs CPU {dC:.3e} of max")
+    if not dC <= 1e-8:
+        raise RuntimeError(f"13d pixels: card and CPU differ ({dC})")
+    return out, counts
+
+
+# the sizes the 13a / 13b cuts stop short of, each solved once through
+# ``solve(operator="routed", tol=1e-10)`` and reported, not gated: the
+# witness of the cut (deg, n, contraction switches)
+CUT_WITNESS = ((1, 2 * CANT_P1_N, {}), (1, 4 * CANT_P1_N, {}),
+               (2, 2 * CANT_P2_N, {}),
+               (2, 4 * CANT_P2_N, {"MESHFEM_FACTORED": "1"}),
+               (2, 8 * CANT_P2_N, {}))
+
+
+def drive_cut_witness(dev):
+    """13f: the cantilever at the sizes above the cuts, one routed solve
+    each: the refinement's rounds, inner iterations and the float64
+    residual where it stopped (a RuntimeWarning when above 1e-10)."""
+    out = []
+    for deg, n, env in CUT_WITNESS:
+        for k in ("MESHFEM_FACTORED", "MESHFEM_FACTORED_TQ"):
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        try:
+            sim = cantilever_2d(n, deg, dev)
+            with warnings.catch_warnings(record=True):
+                warnings.simplefilter("always")
+                (u, res), wall = timed(lambda: sim.solve(operator="routed",
+                                                         tol=1e-10))
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+        rec = dict(deg=deg, n=n, dofs=2 * sim.num_dofs,
+                   backend="factored" if env else "dense",
+                   rounds=res.rounds, inner_iters=res.iters,
+                   relres=res.resnorm, solve_s=wall,
+                   history=[list(h) for h in res.history])
+        out.append(rec)
+        log(f"13f cut witness: grid_tri({n}, {n // 4}) P{deg} "
+            f"{rec['backend']} ({rec['dofs']} dofs): {res.rounds} rounds, "
+            f"{res.iters} inner iterations, stopped at relres "
+            f"{res.resnorm:.3e} ({'reached' if res.resnorm <= 1e-10 else 'above'}"
+            f" 1e-10), {wall:.2f} s; rounds "
+            f"{[(f'{r:.1e}', i) for r, i in res.history]}")
+        del sim, u
+    return out
+
+
+def drive_2d(dev):
+    """Phase 13a-d and 13f; returns (summary, launch counts per path, the
+    13c cell's periodic simulator for 13e)."""
+    out, paths = {}, {}
+    t0 = time.time()
+    out["cantilever"], p = drive_cantilever_2d(dev)
+    paths.update(p)
+    out["p2_backends"], p = drive_p2_backends(dev)
+    paths.update(p)
+    out["tri_cell"], p, hsim = drive_tri_cell(dev)
+    paths.update(p)
+    out["pixels"], paths["pixels"] = drive_pixels(dev)
+    out["cut_witness"] = drive_cut_witness(dev)
+    out["phase_s"] = time.time() - t0
+    log(f"phase 13 (13a-d, f): {out['phase_s']:.1f} s")
+    return out, paths, hsim
+
+
+def kernels_2d(dev, entry, paths, hsim):
+    """13e: kernels A-E held against their plain versions at their 2D
+    shapes (the uncut P1 and P2 cantilever meshes, whose operators the
+    cut paths share in form, and the 13c cell's operator at 6 values a
+    node), then timed with ``entry``."""
+    from meshfem_tpu_torch import kernels
+    from meshfem_tpu_torch.fem import elasticity_tensor as et
+    from meshfem_tpu_torch.ops import element_matrices as em
+    from meshfem_tpu_torch.sparse.contract import qp_tables
+    from meshfem_tpu_torch.sparse.routed_ebe import RoutedEBE
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out = {}
+    src_dir = "meshfem_tpu_torch/csrc/"
+    A_TPU, B_TPU = ("meshfem_tpu/sparse/route.py:139",
+                    "meshfem_tpu/sparse/route.py:162")
+    d, K1 = 2, 3
+    launches = lambda path, name: own_mode(paths[path], name) \
+        if path in paths else 0
+    for deg, n in ((1, FULL_P1_N), (2, FULL_P2_N)):
+        sim = cantilever_2d(n, deg, dev)
+        E, N, nn = sim.mesh.num_elements, sim.num_dofs, \
+            sim.mesh.nodes_per_elem
+        tag = f"2d/{deg}"
+        shape = f"grid_tri({n}, {n // 4}) P{deg}: {E} triangles, {N} nodes"
+        # E: against plain, the f64 Ke (one ulp) and on random inputs
+        gl32 = sim.geom.grad_lambda.float().contiguous()
+        vol32 = sim.geom.volume.float().contiguous()
+        D_host = sim.D.cpu()
+        Ke32 = kernels.element_stiffness(gl32, vol32, D_host, deg)
+        e_ref = kernels.element_stiffness_plain(gl32, vol32, D_host, deg)
+        ke_max = float(e_ref.abs().max())
+        err_e = float((Ke32 - e_ref).abs().max())
+        err_e64 = float((Ke32 - sim.Ke.float()).abs().max())
+        ulps = ulps_from(Ke32, sim.Ke)
+        del Ke32, e_ref
+        gl_r = torch.randn((E, K1, d), generator=gen, device=dev)
+        vol_r = torch.rand((E,), generator=gen, device=dev) + 0.5
+        A_r = np.random.default_rng(6).standard_normal((3, 3))
+        D_aniso = torch.as_tensor(50.0 * (A_r @ A_r.T + 3.0 * np.eye(3)))
+        rand = {}
+        for kind, Dm in (("isotropic", D_host), ("anisotropic", D_aniso)):
+            e_out = kernels.element_stiffness(gl_r, vol_r, Dm, deg)
+            e_pl = kernels.element_stiffness_plain(gl_r, vol_r, Dm, deg)
+            k64 = em.element_elasticity_fused(gl_r.double(), vol_r.double(),
+                                              Dm, deg)
+            rand[kind] = dict(
+                rel_err=float((e_out - e_pl).abs().max() / e_pl.abs().max()),
+                ulps=ulps_from(e_out, k64))
+            del e_out, e_pl, k64
+        log(f"13e E element_stiffness ({tag}, {shape}): max abs err "
+            f"{err_e:.3e} against plain (max|Ke| {ke_max:.3e}), {err_e64:.3e} "
+            f"against the f64 Ke, {ulps:.3f} ulp of each entry from it; "
+            f"random inputs {rand}")
+        if not (err_e <= 1e-5 * ke_max and err_e64 <= 1e-5 * ke_max
+                and ulps <= 1.0 and all(r["rel_err"] <= 1e-5
+                                        and r["ulps"] <= 1.0
+                                        for r in rand.values())):
+            raise RuntimeError(f"13e element_stiffness ({tag}) disagrees")
+        M32 = torch.as_tensor(em.fused_matrix_for(sim.D, 2, deg),
+                              dtype=torch.float32, device=dev)
+        nd = nn * d
+        entry(f"element_stiffness/{tag}", src_dir + "element_stiffness.cu",
+              "meshfem_tpu/kernels/element_stiffness.py:42",
+              launches("cantilever_p1" if deg == 1 else "p2_dense",
+                       "element_stiffness"), err_e,
+              lambda: kernels.element_stiffness(gl32, vol32, D_host, deg),
+              lambda: kernels.element_stiffness_plain(gl32, vol32, D_host,
+                                                      deg),
+              lambda: em.element_elasticity_fused_apply(gl32, vol32, M32,
+                                                        nn),
+              (K1 * d + 1 + nd * nd) * E * 4 + 9 * 8,
+              (2 * ((K1 * d) ** 2 * d * d + nd * nd * K1 * K1) + nd * nd) * E,
+              algorithm_flops=(2 * (K1 * (K1 + 1) // 2 * (d * d + d ** 4)
+                                    + nd * nd * K1 * K1) + nd * nd) * E,
+              algorithm_flop_rate=F64_FLOP_PER_S, max_abs_Ke=ke_max,
+              max_abs_err_vs_f64=err_e64, max_ulps_vs_f64=ulps,
+              random_inputs=rand,
+              launches_path="13a P1 cantilever" if deg == 1
+              else "13b P2 dense",
+              library_call="ops.element_matrices."
+                           "element_elasticity_fused_apply",
+              shape=f"{shape}; grad_lambda [{E}, 3, 2], vol [{E}] f32, "
+                    f"D [3, 3]")
+
+        # C and D on the factored operator's inputs
+        rk = sim.routed_kernel()
+        lam, mu = et.lame_parameters(sim.D)
+        rkf = RoutedEBE.build(None, sim.mesh.elem_nodes, N, d,
+                              coords=sim.mesh.node_positions,
+                              factor=(sim.geom.grad_lambda, sim.geom.volume,
+                                      lam, mu, deg), device=dev)
+        ue = torch.randn((d, nn, E), generator=gen, device=dev)
+        c_out = kernels.qp_contract(rkf.g, rkf.vol, ue, lam, mu)
+        c_ref = kernels.qp_contract_plain(rkf.g, rkf.vol, ue, lam, mu)
+        d_out = kernels.factored_contract(rkf.g, rkf.vol, ue, lam, mu)
+        d_ref = kernels.factored_contract_plain(rkf.g, rkf.vol, ue, lam, mu)
+        rel_c = float((c_out - c_ref).abs().max() / c_ref.abs().max())
+        rel_d = float((d_out - d_ref).abs().max() / d_ref.abs().max())
+        rel_dc = float((d_out - c_out).abs().max() / c_out.abs().max())
+        del c_ref, d_ref, d_out
+        log(f"13e C qp_contract ({tag}) {rel_c:.3e} of max|y| against "
+            f"plain; D factored_contract {rel_d:.3e}, D vs C {rel_dc:.3e}")
+        if not (rel_c <= 1e-5 and rel_d <= 1e-5 and rel_dc <= 5e-6):
+            raise RuntimeError(f"13e C or D ({tag}) disagrees")
+        Q = qp_tables(d, deg)[0].shape[0]
+        qp_flops = Q * (2 * nn * K1 * d + 2 * d * d * nn + d + 1
+                        + 4 * d * d + 2 * d + 2 * nn * d * d)
+        ue_dense = ue.permute(2, 1, 0).reshape(E, nd, 1)
+        KeP = rk.KeP
+        c_bytes = (K1 * d + 1 + 2 * d * nn) * E * 4
+        entry(f"qp_contract/{tag}", src_dir + "qp_contract.cu",
+              "meshfem_tpu/sparse/contract.py:232",
+              launches("p2_factored", "qp_contract") if deg == 2 else 0,
+              float((c_out - kernels.qp_contract_plain(
+                  rkf.g, rkf.vol, ue, lam, mu)).abs().max()),
+              lambda: kernels.qp_contract(rkf.g, rkf.vol, ue, lam, mu),
+              lambda: kernels.qp_contract_plain(rkf.g, rkf.vol, ue, lam, mu),
+              lambda: torch.bmm(KeP, ue_dense), c_bytes, qp_flops * E,
+              max_rel_err=rel_c,
+              launches_path="13b P2 factored" if deg == 2
+              else "none (13a runs the dense backend)",
+              library_call="torch.bmm with the dense f32 Ke",
+              shape=f"{shape}; g [6, {E}], vol [{E}], ue [2, {nn}, {E}] f32")
+        NG, NPAIR = K1 * (K1 + 1) // 2, nn * (nn + 1) // 2
+        fma_d = (K1 * nn * d + (K1 * nn) ** 2 + d * nn * K1 + NG * d
+                 + NPAIR * NG + d * nn * nn + d * nn)
+        entry(f"factored_contract/{tag}", src_dir + "factored_contract.cu",
+              "meshfem_tpu/sparse/contract.py:91",
+              launches("p2_factored_tq", "factored_contract")
+              if deg == 2 else 0, rel_d * float(c_out.abs().max()),
+              lambda: kernels.factored_contract(rkf.g, rkf.vol, ue, lam, mu),
+              lambda: kernels.factored_contract_plain(rkf.g, rkf.vol, ue,
+                                                      lam, mu),
+              lambda: torch.bmm(KeP, ue_dense), c_bytes, qp_flops * E,
+              algorithm_flops=2 * fma_d * E, max_rel_err=rel_d,
+              vs_kernel_c=rel_dc,
+              launches_path="13b P2 factored TQ" if deg == 2
+              else "none (13a runs the dense backend)",
+              library_call="torch.bmm with the dense f32 Ke",
+              shape=f"{shape}; g [6, {E}], vol [{E}], ue [2, {nn}, {E}] f32")
+        del c_out, ue, ue_dense
+
+        if deg == 1:
+            # A and B in node rows at 2 values a node: 13a's dense applies
+            ids_em, S = rk.ids_em, rk.ids_em.shape[0]
+            src2 = torch.randn((2, N), generator=gen, device=dev)
+            rows2 = src2.t().contiguous()
+            for S_ in (S, S - 1):            # odd S: the scalar path
+                ids_ = ids_em[:S_].contiguous()
+                ref = kernels.gather_rows_plain(rows2, ids_)
+                if not (torch.equal(kernels.gather_rows(rows2, ids_), ref)
+                        and torch.equal(kernels.gather_rows(
+                            src2, ids_, planes_in=True), ref)):
+                    raise RuntimeError(f"13e gather_rows (2 values, S = "
+                                       f"{S_}) != plain")
+            ids_long = ids_em.long()
+            entry("gather_rows/2d/2", src_dir + "gather_planes.cu", A_TPU,
+                  launches("cantilever_p1", "gather_rows"), 0.0,
+                  lambda: kernels.gather_rows(src2, ids_em, planes_in=True),
+                  lambda: kernels.gather_rows_plain(src2, ids_em, True),
+                  lambda: torch.index_select(rows2, 0, ids_long),
+                  S * 4 + 2 * N * 4 + 2 * S * 4, 0,
+                  odd_S_checked=S - 1,
+                  mode="rows out [S, 2] from planes [2, N], as apply_planes "
+                       "runs it",
+                  launches_path="13a P1 cantilever",
+                  library_call="torch.index_select",
+                  shape=f"{shape}; src [2, {N}] f32, ids_em [{S}] int32")
+            perm_em, offs = rk.plan_em.perm, rk.plan_em.offsets
+            fr = torch.randn((S, 2), generator=gen, device=dev)
+            out["rows_f32_2"] = check_b_rows(fr, rk, offs, "13e B rows f32 "
+                                             "(2 values)")
+            acc = torch.zeros((N, 2), device=dev)
+            entry("segment_sum_rows/2d/2", src_dir + "segment_sum_csr.cu",
+                  B_TPU, launches("cantilever_p1", "segment_sum_rows/2d/2"),
+                  out["rows_f32_2"],
+                  lambda: kernels.segment_sum_rows(fr, perm_em, offs,
+                                                   planes_out=True),
+                  lambda: kernels.segment_sum_rows_plain(fr, perm_em, offs,
+                                                         True),
+                  lambda: acc.index_add_(0, ids_long, fr),
+                  2 * S * 4 + S * 4 + (N + 1) * 4 + 2 * N * 4, 2 * S,
+                  mode="rows [S, 2] -> planes [2, N], as apply_planes runs "
+                       "it",
+                  launches_path="13a P1 cantilever, float32 launches",
+                  library_call="Tensor.index_add_ (float atomics)",
+                  shape=f"{shape}; src [{S}, 2] f32 -> [2, {N}]")
+            plan64 = sim._kernel.plan
+            R = plan64.num_rows
+            dr = torch.randn((R, 2), generator=gen, device=dev,
+                             dtype=torch.float64)
+            out["rows_f64_2"] = check_rows_on_plan(
+                plan64, torch.float64, "13e B rows f64 (2 values)", gen, P=2)
+            dst64 = sim._kernel.elem_dofs.reshape(-1)
+            acc64 = torch.zeros((N, 2), device=dev, dtype=torch.float64)
+            entry("segment_sum_rows/f64/2d/2", src_dir + "segment_sum_csr.cu",
+                  B_TPU + " (f64: the XLA scatter of "
+                  "meshfem_tpu/sparse/scatter.py)",
+                  launches("cantilever_p1", "segment_sum_rows/f64/2d/2"),
+                  out["rows_f64_2"], lambda: plan64.sum_rows(dr),
+                  lambda: kernels.segment_sum_rows_plain(dr, plan64.perm,
+                                                         plan64.offsets),
+                  lambda: acc64.index_add_(0, dst64, dr),
+                  2 * R * 8 + R * 4 + (N + 1) * 4 + 2 * N * 8, 2 * R,
+                  flop_rate=F64_FLOP_PER_S,
+                  mode="f64 rows [R, 2] -> rows [N, 2]: the EBE residual",
+                  launches_path="13a P1 cantilever, float64 launches",
+                  library_call="Tensor.index_add_ (float atomics)",
+                  shape=f"{shape}; src [{R}, 2] f64 -> [{N}, 2]")
+        else:
+            # A and B in planes at 2 planes: 13b's factored applies
+            ids, S = rkf.ids, rkf.ids.shape[0]
+            src2 = torch.randn((2, N), generator=gen, device=dev)
+            if not torch.equal(kernels.gather_planes(src2, ids),
+                               kernels.gather_planes_plain(src2, ids)):
+                raise RuntimeError("13e gather_planes (2 planes) != plain")
+            ids_long = ids.long()
+            entry("gather_planes/2d/2", src_dir + "gather_planes.cu", A_TPU,
+                  launches("p2_factored", "gather_planes"), 0.0,
+                  lambda: kernels.gather_planes(src2, ids),
+                  lambda: kernels.gather_planes_plain(src2, ids),
+                  lambda: torch.index_select(src2, 1, ids_long),
+                  S * 4 + 2 * N * 4 + 2 * S * 4, 0,
+                  launches_path="13b P2 factored and factored TQ",
+                  launches_2d_factored_tq=launches("p2_factored_tq",
+                                                   "gather_planes"),
+                  library_call="torch.index_select",
+                  shape=f"{shape}; src [2, {N}] f32, ids [{S}] int32")
+            perm, offs = rkf.plan.perm, rkf.plan.offsets
+            fp = torch.randn((2, S), generator=gen, device=dev)
+            out["planes_f32_2"] = check_b_planes(fp, perm, offs,
+                                                 "13e B planes (2)")
+            acc = torch.zeros((2, N), device=dev)
+            entry("segment_sum_csr/2d/2", src_dir + "segment_sum_csr.cu",
+                  B_TPU, launches("p2_factored", "segment_sum_csr/2d/2"),
+                  out["planes_f32_2"],
+                  lambda: kernels.segment_sum_csr(fp, perm, offs),
+                  lambda: kernels.segment_sum_csr_plain(fp, perm, offs),
+                  lambda: acc.index_add_(1, ids_long, fp),
+                  2 * S * 4 + S * 4 + (N + 1) * 4 + 2 * N * 4, 2 * S,
+                  launches_path="13b P2 factored and factored TQ",
+                  launches_2d_factored_tq=launches(
+                      "p2_factored_tq", "segment_sum_csr/2d/2"),
+                  library_call="Tensor.index_add_ (float atomics)",
+                  shape=f"{shape}; src [2, {S}] f32 -> [2, {N}]")
+        del sim, rk, rkf
+
+    # 6 values a node: the 13c cell's block apply (3 columns x 2)
+    hrk = hsim.routed_kernel(block_rhs=3)
+    Nh = hsim.num_dofs
+    ids_em, S = hrk.ids_em, hrk.ids_em.shape[0]
+    U6 = torch.randn((Nh, 6), generator=gen, device=dev)
+    for S_ in (S, S - 1):
+        ids_ = ids_em[:S_].contiguous()
+        if not torch.equal(kernels.gather_rows(U6, ids_),
+                           kernels.gather_rows_plain(U6, ids_)):
+            raise RuntimeError(f"13e gather_rows (6 values, S = {S_}) != "
+                               f"plain")
+    shape = f"13c cell: {hsim.mesh.num_elements} triangles, {Nh} nodes"
+    ids_long = ids_em.long()
+    entry("gather_rows/2d/6", src_dir + "gather_planes.cu", A_TPU,
+          launches("tri_cell_block", "gather_rows"), 0.0,
+          lambda: kernels.gather_rows(U6, ids_em),
+          lambda: kernels.gather_rows_plain(U6, ids_em),
+          lambda: torch.index_select(U6, 0, ids_long),
+          S * 4 + 6 * Nh * 4 + 6 * S * 4, 0, odd_S_checked=S - 1,
+          mode="rows [N, 6] -> [S, 6], as apply_block runs it",
+          launches_path="13c triangle cell (block)",
+          launches_2d_jacobi=launches("tri_cell_jacobi", "gather_rows"),
+          library_call="torch.index_select",
+          shape=f"{shape}; U [{Nh}, 6] f32, ids_em [{S}] int32")
+    perm_em, offs = hrk.plan_em.perm, hrk.plan_em.offsets
+    f6 = torch.randn((S, 6), generator=gen, device=dev)
+    out["rows_f32_6"] = check_b_rows(f6, hrk, offs, "13e B rows f32 (6)")
+    acc = torch.zeros((Nh, 6), device=dev)
+    entry("segment_sum_rows/2d/6", src_dir + "segment_sum_csr.cu", B_TPU,
+          launches("tri_cell_block", "segment_sum_rows/2d/6"),
+          out["rows_f32_6"],
+          lambda: kernels.segment_sum_rows(f6, perm_em, offs),
+          lambda: kernels.segment_sum_rows_plain(f6, perm_em, offs),
+          lambda: acc.index_add_(0, ids_long, f6),
+          6 * S * 4 + S * 4 + (Nh + 1) * 4 + 6 * Nh * 4, 6 * S,
+          mode="rows [S, 6] -> rows [N, 6], as apply_block runs it",
+          launches_path="13c triangle cell (block), float32 launches",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"{shape}; src [{S}, 6] f32 -> [{Nh}, 6]")
+    plan64 = hsim._kernel.plan
+    R = plan64.num_rows
+    d6 = torch.randn((R, 6), generator=gen, device=dev, dtype=torch.float64)
+    out["rows_f64_6"] = check_rows_on_plan(plan64, torch.float64,
+                                           "13e B rows f64 (6)", gen, P=6)
+    dst64 = hsim._kernel.elem_dofs.reshape(-1)
+    acc64 = torch.zeros((Nh, 6), device=dev, dtype=torch.float64)
+    entry("segment_sum_rows/f64/2d/6", src_dir + "segment_sum_csr.cu",
+          B_TPU + " (f64: the XLA scatter of meshfem_tpu/sparse/scatter.py)",
+          launches("tri_cell_block", "segment_sum_rows/f64/2d/6"),
+          out["rows_f64_6"], lambda: plan64.sum_rows(d6),
+          lambda: kernels.segment_sum_rows_plain(d6, plan64.perm,
+                                                 plan64.offsets),
+          lambda: acc64.index_add_(0, dst64, d6),
+          6 * R * 8 + R * 4 + (Nh + 1) * 4 + 6 * Nh * 8, 6 * R,
+          flop_rate=F64_FLOP_PER_S,
+          mode="f64 rows [R, 6] -> rows [N, 6]: the block residual",
+          launches_path="13c triangle cell (block), float64 launches",
+          launches_2d_pixels=launches("pixels", "segment_sum_rows/f64"),
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"{shape}; src [{R}, 6] f64 -> [{Nh}, 6]")
+    # A and B in planes at 6 planes: the factored block apply's layout
+    for k in ("MESHFEM_FACTORED", "MESHFEM_FACTORED_TQ"):
+        os.environ.pop(k, None)
+    os.environ["MESHFEM_FACTORED"] = "1"
+    try:
+        hsim._routed = None
+        hrf = hsim.routed_kernel(block_rhs=3)
+    finally:
+        os.environ.pop("MESHFEM_FACTORED", None)
+        hsim._routed = None
+    ids, Sf = hrf.ids, hrf.ids.shape[0]
+    src6 = torch.randn((6, Nh), generator=gen, device=dev)
+    if not torch.equal(kernels.gather_planes(src6, ids),
+                       kernels.gather_planes_plain(src6, ids)):
+        raise RuntimeError("13e gather_planes (6 planes) != plain")
+    ids_long = ids.long()
+    entry("gather_planes/2d/6", src_dir + "gather_planes.cu", A_TPU,
+          0, 0.0, lambda: kernels.gather_planes(src6, ids),
+          lambda: kernels.gather_planes_plain(src6, ids),
+          lambda: torch.index_select(src6, 1, ids_long),
+          Sf * 4 + 6 * Nh * 4 + 6 * Sf * 4, 0,
+          launches_path="none (13c runs the dense backend; the factored "
+                        "block apply's 6 planes)",
+          library_call="torch.index_select",
+          shape=f"{shape}; src [6, {Nh}] f32, ids [{Sf}] int32")
+    fp6 = torch.randn((6, Sf), generator=gen, device=dev)
+    out["planes_f32_6"] = check_b_planes(fp6, hrf.plan.perm, hrf.plan.offsets,
+                                         "13e B planes (6)")
+    acc6 = torch.zeros((6, Nh), device=dev)
+    entry("segment_sum_csr/2d/6", src_dir + "segment_sum_csr.cu", B_TPU, 0,
+          out["planes_f32_6"],
+          lambda: kernels.segment_sum_csr(fp6, hrf.plan.perm,
+                                          hrf.plan.offsets),
+          lambda: kernels.segment_sum_csr_plain(fp6, hrf.plan.perm,
+                                                hrf.plan.offsets),
+          lambda: acc6.index_add_(1, ids_long, fp6),
+          6 * Sf * 4 + Sf * 4 + (Nh + 1) * 4 + 6 * Nh * 4, 6 * Sf,
+          launches_path="none (13c runs the dense backend; the factored "
+                        "block apply's 6 planes)",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"{shape}; src [6, {Sf}] f32 -> [6, {Nh}]")
+    return out
+
+
+def check_b_rows(src, op, offsets, label):
+    """Kernel B in rows on a routed operator's element-major plan: twice
+    bit for bit, bit for bit against B in planes on the same contributions
+    through the slot-major plan, and to 1e-5 of max|y| of its plain
+    version.  Returns the max abs error against plain."""
+    from meshfem_tpu_torch import kernels
+
+    S, P = src.shape
+    n, E = op.nodes_per_elem, op.num_elements
+    perm_em = op.plan_em.perm
+    y1 = kernels.segment_sum_rows(src, perm_em, offsets)
+    y2 = kernels.segment_sum_rows(src, perm_em, offsets)
+    yp = kernels.segment_sum_csr(src.reshape(E, n, P).permute(2, 1, 0)
+                                 .reshape(P, S).contiguous(), op.plan.perm,
+                                 op.plan.offsets)
+    ref = kernels.segment_sum_rows_plain(src, perm_em, offsets)
+    err = float((y1 - ref).abs().max())
+    if not (torch.equal(y1, y2) and torch.equal(y1.t(), yp)):
+        raise RuntimeError(f"{label}: not bit-identical run to run or "
+                           f"against B in planes")
+    if not err <= 1e-5 * float(ref.abs().max()):
+        raise RuntimeError(f"{label}: disagrees with plain ({err:.3e})")
+    log(f"{label}: bit-identical across two runs and against B in planes; "
+        f"max abs err against plain {err:.3e}")
+    return err
+
+
+def check_b_planes(src, perm, offsets, label):
+    """Kernel B in planes: twice bit for bit, and to 1e-5 of max|y| of its
+    plain version.  Returns the max abs error against plain."""
+    from meshfem_tpu_torch import kernels
+
+    y1 = kernels.segment_sum_csr(src, perm, offsets)
+    y2 = kernels.segment_sum_csr(src, perm, offsets)
+    ref = kernels.segment_sum_csr_plain(src, perm, offsets)
+    err = float((y1 - ref).abs().max())
+    if not torch.equal(y1, y2):
+        raise RuntimeError(f"{label}: not bit-identical run to run")
+    if not err <= 1e-5 * float(ref.abs().max()):
+        raise RuntimeError(f"{label}: disagrees with plain ({err:.3e})")
+    log(f"{label}: bit-identical across two runs; max abs err against "
+        f"plain {err:.3e}")
+    return err
 
 
 def main() -> int:
@@ -2280,7 +3131,11 @@ def main() -> int:
     tl_h = cells["twolevel"].pop("prolong_f64_inputs")
     summary["cells"] = cells
 
-    # -- 13. kernels timed beside bound, plain version and library call ----
+    # -- 13. triangle meshes, 2D elasticity and 2D homogenization ---------
+    two_d, paths_2d, hsim_2d = drive_2d(dev)
+    summary["two_d"] = two_d
+
+    # -- 14. kernels timed beside bound, plain version and library call ----
     timer = Timer(dev)
     report = []
 
@@ -2754,6 +3609,11 @@ def main() -> int:
                 f"{r['shell_library_ms']:.4f}; launches in the structured "
                 f"default solve {r['launches_structured']}")
 
+    # 13e: the kernels at their 2D shapes
+    t0 = time.time()
+    two_d["kernel_checks"] = kernels_2d(dev, entry, paths_2d, hsim_2d)
+    two_d["kernels_s"] = time.time() - t0
+    del hsim_2d
     summary.update(
         dense_bmm_ms=timer(lambda: torch.bmm(rk.KeP, ue_dense)),
         dense_bmm_bound_ms=rk.KeP.numel() * 4 / HBM_BYTES_PER_S * 1e3,
@@ -2764,6 +3624,8 @@ def main() -> int:
                                   for p, c in bc_paths.items()}
         r["launches_cell_paths"] = {p: own_mode(c, r["name"])
                                     for p, c in cell_paths.items()}
+        r["launches_2d_paths"] = {p: own_mode(c, r["name"])
+                                  for p, c in paths_2d.items()}
     summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))

@@ -9,21 +9,23 @@
   float32 on the routed operator (``RoutedEBE.apply_block``: one gather and
   one segment sum for all 18 planes at dim 3) inside float64 iterative
   refinement (``_solve_cell_problems_routed``);
-* ``precond="multigrid"`` on Kuhn-grid cells: the periodic torus V-cycle
-  (``ops/structured_periodic.py``), all fl columns in one block CG in
-  float64; ``homogenize_voxels`` builds such a cell from an occupancy
-  array;
+* ``precond="multigrid"`` on Kuhn-grid cells and on pixel cells: the
+  periodic torus V-cycle (``ops/structured_periodic.py``,
+  ``ops/structured_periodic2d.py``), all fl columns in one block CG in
+  float64; ``homogenize_voxels`` builds such a cell from a voxel or pixel
+  occupancy array;
 * ``precond="twolevel"`` / ``"twolevel-mult"``: the P1-coarse two-level
   preconditioner (``solvers/twolevel.py``) with the translation projector;
 * the orthotropic base cell (``homogenize_orthotropic``): symmetry-plane
   pinning instead of periodicity, one block CG with a per-column mask
-  (jacobi, twolevel) or one ``VarStructuredMG`` per probe (multigrid), and
-  the reflection-sign reconstruction of the full tensor;
+  (jacobi, twolevel) or one ``VarStructuredMG`` per probe (multigrid, 3D
+  Kuhn grids only, as in the reference), and the reflection-sign
+  reconstruction of the full tensor;
 * the homogenized tensor in stress form and in boundary (displacement)
   form, macro-to-micro strain tensors and probes.
 
-Tetrahedral cells only: 2D cells and pixel occupancies wait for triangle
-meshes (ROADMAP Queue 1, item 3) and raise NotImplementedError naming it.
+Triangle cells (fl = 3) take every path but the orthotropic multigrid; the
+routed block CG then moves 6 values a node.
 """
 
 from __future__ import annotations
@@ -44,10 +46,6 @@ from ..physics.elasticity import ElasticitySimulator
 from ..solvers import cg as cg_mod
 from ..solvers import precond as pc
 from ..solvers.refine import refine as mp_refine
-
-_NO_2D = ("2D cells and pixel occupancies need triangle meshes, queued in "
-          "ROADMAP.md (Queue 1, item 3)")
-
 
 @dataclasses.dataclass
 class HomogenizationResult:
@@ -95,13 +93,18 @@ def solve_cell_problems(sim: ElasticitySimulator, tol: float = 1e-11,
     (k-step polynomial in the block-Jacobi-preconditioned operator) |
     'twolevel' / 'twolevel-mult' (P1-coarse two-level,
     ``solvers/twolevel.py``) | 'multigrid' (the periodic torus V-cycle for
-    Kuhn-GRID cells, ``ops/structured_periodic.py``; raises ValueError
-    off-grid).  ``operator``: 'auto' runs the routed multi-RHS operator on
+    Kuhn-GRID cells and right-diagonal pixel grids,
+    ``ops/structured_periodic.py`` / ``structured_periodic2d.py``; raises
+    ValueError off-grid).  ``operator``: 'auto' runs the routed multi-RHS operator on
     CUDA past ``MESHFEM_ROUTED_MIN_E`` elements for the jacobi / block
     preconditioners, wrapped in float64 iterative refinement below float32
     reach; 'routed' / 'ebe' force a path.
     Returns (w [fl, N, dim], iters list)."""
     if precond == "multigrid":
+        if sim.dim == 2:
+            from ..ops.structured_periodic2d import solve_cell_problems_grid2d
+
+            return solve_cell_problems_grid2d(sim, tol=tol, maxiter=maxiter)
         from ..ops.structured_periodic import solve_cell_problems_grid
 
         return solve_cell_problems_grid(sim, tol=tol, maxiter=maxiter)
@@ -276,24 +279,32 @@ def probe(sim: ElasticitySimulator, w, macro_strain_flat):
 def homogenize_voxels(occupancy, E_solid: float = 1.0, nu: float = 0.3,
                       void_ratio: float = 1e-6, tol: float = 1e-9,
                       cell=None, device=None) -> HomogenizationResult:
-    """Homogenize a VOXEL microstructure directly: occupancy [nx, ny, nz]
-    (bool or 0/1) -> grid cell with a two-phase material field (void as
+    """Homogenize a VOXEL or PIXEL microstructure directly: occupancy
+    [nx, ny, nz] or [nx, ny] (bool or 0/1) -> grid cell (6 Kuhn tets a
+    voxel, or two triangles a pixel from ``grid_tri(...,
+    diagonal="right")``) with a two-phase material field (void as
     ``void_ratio * E_solid``, the topology-optimization ersatz) -> periodic
-    torus multigrid cell problems (``ops/structured_periodic.py``).  A 2D
-    (pixel) occupancy raises NotImplementedError."""
+    torus multigrid cell problems (``ops/structured_periodic[2d].py``)."""
     from ..mesh import generators
     from ..physics.materials import MaterialField
 
     occ = np.asarray(occupancy)
-    if occ.ndim != 3:
-        raise NotImplementedError(_NO_2D)
+    dim = occ.ndim
+    if dim not in (2, 3):
+        raise ValueError("occupancy must be a 2D or 3D array")
     if cell is None:
-        cell = (1.0,) * 3
-    V, T = generators.grid_tet(*occ.shape, hi=tuple(cell))
+        cell = (1.0,) * dim
+    if dim == 3:
+        V, T = generators.grid_tet(*occ.shape, hi=tuple(cell))
+        per_cell = 6
+    else:
+        V, T = generators.grid_tri(*occ.shape, hi=tuple(cell),
+                                   diagonal="right")
+        per_cell = 2
     mesh = FEMMesh(V, T, degree=2)
     E_cell = np.where(occ.reshape(-1) > 0, E_solid, void_ratio * E_solid)
-    E_field = np.repeat(E_cell, 6)
-    mats = MaterialField.isotropic_field(3, E_field,
+    E_field = np.repeat(E_cell, per_cell)
+    mats = MaterialField.isotropic_field(dim, E_field,
                                          np.full(len(E_field), nu))
     return homogenize(mesh, mats, tol=tol, precond="multigrid",
                       device=device)
@@ -336,10 +347,11 @@ def homogenize(mesh: FEMMesh, material, orthotropic_cell: bool = False,
 def _ortho_fixed_masks(mesh: FEMMesh, eps: float = 1e-7):
     """Per-probe Dirichlet component masks on the symmetry planes.
 
-    Returns (stretch_mask [N, 3] bool, shear_masks list of [N, 3]).
+    Returns (stretch_mask [N, dim] bool, shear_masks list of [N, dim]).
     Stretch probes w^ii fix component c on the faces with normal e_c;
-    shear probe s (plane ij) fixes component s on every face, plus the
-    third component on the perpendicular faces."""
+    shear probe s (plane ij) fixes, in 3D, component s on every face, plus
+    the third component on the perpendicular faces, and in 2D the
+    tangential component of each face."""
     dim = mesh.dim
     fm = per.face_membership(mesh.node_positions, mesh.bbox(), eps)
     on_face = fm.on_min | fm.on_max                      # [N, dim]
@@ -351,9 +363,12 @@ def _ortho_fixed_masks(mesh: FEMMesh, eps: float = 1e-7):
         m = np.zeros((mesh.num_nodes, dim), dtype=bool)
         for c in range(dim):
             face_nodes = on_face[:, c]
-            m[face_nodes, s] = True
-            if c != s:
-                m[face_nodes, 3 - (c + s)] = True
+            if dim == 3:
+                m[face_nodes, s] = True
+                if c != s:
+                    m[face_nodes, 3 - (c + s)] = True
+            else:
+                m[face_nodes, 1 - c] = True
         shear_masks.append(m)
     return stretch, shear_masks
 
@@ -362,17 +377,21 @@ def homogenize_orthotropic(mesh: FEMMesh, material, tol: float = 1e-11,
                            base_cell_volume: float | None = None,
                            precond: str = "jacobi",
                            device=None) -> HomogenizationResult:
-    """Homogenize on an orthotropic base cell (1/8 of the period cell):
+    """Homogenize on an orthotropic base cell (1/4 or 1/8 of the period
+    cell):
     per-face normal pinning replaces periodicity, and the full-cell tensor
     follows from the reflection-sign reconstruction.  ``precond``:
     'jacobi' | 'twolevel' (one block CG over the fl probes with a
     per-column mask; the two-level coarse matrix is masked by the union of
     all pins) | 'multigrid' (Kuhn-grid cells: one ``VarStructuredMG`` per
-    probe, sharing the fine P1 cell matrices)."""
-    if mesh.dim != 3:
-        raise NotImplementedError(_NO_2D)
+    probe, sharing the fine P1 cell matrices; a 3D Kuhn grid only, as in
+    the reference, so a 2D cell raises ValueError)."""
     if precond not in ("jacobi", "twolevel", "multigrid"):
         raise ValueError(f"unknown precond {precond!r}")
+    if precond == "multigrid" and mesh.dim != 3:
+        raise ValueError("the orthotropic multigrid needs a 3D Kuhn grid "
+                         "(VarStructuredMG); use precond='jacobi' or "
+                         "'twolevel' on a 2D cell")
     dim = mesh.dim
     fl = flat_len(dim)
     sim = ElasticitySimulator(mesh, material, device=device)

@@ -1,4 +1,4 @@
-"""FEMMesh: degree-1/2 Lagrange nodes over a tetrahedral mesh.
+"""FEMMesh: degree-1/2 Lagrange nodes over a triangle or tetrahedral mesh.
 
 Counterpart of ``meshfem_tpu/mesh/femmesh.py`` in the reference node order
 (vertices first, then edge nodes in sorted-edge order, ``femmesh.py:83-100``).
@@ -11,8 +11,11 @@ the (min, max) vertex pairs).  The region queries (``nodes_in_box``,
 and the lumped nodal measure are torch on the requested device, the latter
 summed by ``ScatterPlan`` (kernel B on the card).  ``vertex_nodes`` and
 ``node_endpoint_vertices`` give the two-level preconditioner its P1
-transfers.  Triangle meshes and the other node orders are not ported yet
-(ROADMAP).
+transfers.  Triangle meshes take their boundary edges from ``TriMesh`` in
+its order (outward wound), and may be embedded in 3D (``embedding_dim``),
+where the geometry gives tangential gradients and unsigned areas.  The
+reference's other node orders (``node_order="morton"|"rcb"|"firsttouch"``)
+are not ported: this ``FEMMesh`` keeps the reference order.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from .. import config
 from ..fem import shape_functions, simplex
 from ..sparse.scatter import ScatterPlan
 from . import geometry as geom
-from .simplicial import TetMesh
+from .simplicial import TetMesh, TriMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,32 +43,43 @@ class ElementGeometry:
 
 
 class FEMMesh:
-    """P1/P2 FEM mesh over a tetrahedral complex embedded in R^3.
+    """P1/P2 FEM mesh over a K-simplicial complex (K = 2 or 3) embedded in
+    R^dim.
 
     Host-side numpy connectivity, as in the reference:
       * ``elem_nodes [E, n]`` element -> global node (vertices, then edge
         nodes in GMSH local order);
-      * ``node_positions [N, 3]``;
-      * ``bdry_elems [B, 3]`` outward-wound boundary triangles,
-        ``bdry_elem_nodes [B, nb]`` and ``bdry_nodes [NB]``.
+      * ``node_positions [N, dim]``;
+      * ``bdry_elems [B, K]`` outward-wound boundary edges (K = 2) or
+        triangles (K = 3), ``bdry_elem_nodes [B, nb]``, ``bdry_nodes
+        [NB]`` and ``bdry_elem_vol_elem [B]`` (the element behind each
+        boundary element).
+
+    ``embedding_dim`` pads the positions with zero coordinates (a flat
+    triangle mesh in 3D) or drops trailing ones, as the reference does.
     """
 
-    def __init__(self, V, F, degree: int = 1):
+    def __init__(self, V, F, degree: int = 1,
+                 embedding_dim: int | None = None):
         F = np.ascontiguousarray(F, dtype=np.int64)
         V = np.atleast_2d(np.ascontiguousarray(V, dtype=np.float64))
         K = F.shape[1] - 1
-        if K != 3 or V.shape[1] != 3:
-            raise NotImplementedError(
-                "this port carries tetrahedral meshes in 3D only; triangle "
-                "meshes are queued in ROADMAP.md (Queue 1, item 3)")
+        if K not in (2, 3):
+            raise ValueError("FEMMesh supports triangles (K=2) and tets "
+                             "(K=3)")
         if degree not in (1, 2):
             raise ValueError("degree must be 1 or 2 (like the reference)")
+        if embedding_dim is not None:
+            if V.shape[1] < embedding_dim:
+                V = np.pad(V, [(0, 0), (0, embedding_dim - V.shape[1])])
+            else:
+                V = np.ascontiguousarray(V[:, :embedding_dim])
         self.K = K
         self.degree = degree
         self.dim = V.shape[1]
         self.V = V
         self.F = F
-        self.cell = TetMesh.build(V, F)
+        self.cell = TriMesh.build(V, F) if K == 2 else TetMesh.build(V, F)
 
         nv = len(V)
         if degree == 1:
@@ -88,8 +102,14 @@ class FEMMesh:
         self.elem_nodes = elem_nodes.astype(np.int64)
         self.node_positions = node_pos
         self.num_nodes = len(node_pos)
+        self.nodes_per_elem = simplex.num_nodes(K, degree)
 
-        bdry = self.cell.boundary_faces()
+        if K == 2:
+            bdry = self.cell.boundary_edges()
+            self.bdry_elem_vol_elem = self.cell.bdry_halfedge // 3
+        else:
+            bdry = self.cell.boundary_faces()
+            self.bdry_elem_vol_elem = self.cell.bdry_halfface // 4
         self.bdry_elems = bdry.astype(np.int64)
         self.bdry_elem_nodes = self._boundary_nodes_of(bdry)
         self.bdry_nodes = np.unique(self.bdry_elem_nodes)
@@ -98,8 +118,8 @@ class FEMMesh:
         self.vertex_nodes = np.arange(nv, dtype=np.int64)
 
     def _boundary_nodes_of(self, belems: np.ndarray) -> np.ndarray:
-        """Boundary triangle -> volume node indices (vertices, then edge
-        nodes for P2), GMSH local order on the boundary element."""
+        """Boundary (K-1)-simplex -> volume node indices (vertices, then
+        edge nodes for P2), GMSH local order on the boundary element."""
         if self.degree == 1:
             return belems.copy()
         nv = len(self.V)
@@ -136,14 +156,20 @@ class FEMMesh:
 
     def geometry(self, device=None) -> ElementGeometry:
         """Float64 embedding of all elements on ``device`` (the CUDA device
-        by default)."""
+        by default).  A triangle surface in 3D takes the in-plane normals
+        of its boundary edges (``geometry.embedded_boundary_normals``)."""
         dev = config.resolve_device(device)
         X = torch.as_tensor(self.node_positions, dtype=config.REAL,
                             device=dev)
         corners = X[torch.as_tensor(self.F, device=dev)]   # vertices first
         grad_lambda, volume = geom.simplex_geometry(corners, self.K)
         bcorners = X[torch.as_tensor(self.bdry_elems, device=dev)]
-        normal, bvol = geom.boundary_normals(bcorners)
+        if self.dim == self.K:
+            normal, bvol = geom.boundary_normals(bcorners)
+        else:
+            adj = torch.as_tensor(self.bdry_elem_vol_elem, device=dev)
+            normal, bvol = geom.embedded_boundary_normals(
+                bcorners, corners[adj].mean(dim=-2))
         return ElementGeometry(grad_lambda, volume, normal, bvol)
 
     def node_endpoint_vertices(self) -> np.ndarray:
@@ -185,7 +211,7 @@ class FEMMesh:
 
     def boundary_elems_in_box(self, lo, hi,
                               tol_frac: float = 1e-10) -> np.ndarray:
-        """Boundary triangles whose corners all lie in the box."""
+        """Boundary elements whose corners all lie in the box."""
         tol = tol_frac * float(np.max(self.bbox().dimensions))
         ok = np.ones(len(self.bdry_elems), dtype=bool)
         for corner in range(self.bdry_elems.shape[1]):

@@ -38,22 +38,97 @@ from .structured_mg import (_chebyshev, _coarsen_cell_matrices,
 from .structured_var import _cube_reference, check_grid_element_order
 
 
-def _wrap_pad(ch):
-    """Append the first plane after the last along the 3 spatial axes."""
-    ch = torch.cat([ch, ch[:1]], dim=0)
-    ch = torch.cat([ch, ch[:, :1]], dim=1)
-    return torch.cat([ch, ch[:, :, :1]], dim=2)
+def _wrap_pad(ch, nax: int = 3):
+    """Append the first slab after the last along the ``nax`` leading
+    (torus) axes."""
+    for ax in range(nax):
+        ch = torch.cat([ch, ch.narrow(ax, 0, 1)], dim=ax)
+    return ch
 
 
-def _wrap_fold(padded):
-    """Adjoint of :func:`_wrap_pad`: fold the overflow planes back."""
-    padded = padded.clone()
-    padded[:, :, 0] += padded[:, :, -1]
-    padded = padded[:, :, :-1]
-    padded[:, 0] += padded[:, -1]
-    padded = padded[:, :-1]
-    padded[0] += padded[-1]
-    return padded[:-1]
+def _wrap_fold(padded, nax: int = 3):
+    """Adjoint of :func:`_wrap_pad`: fold the overflow slabs back, the
+    last torus axis first."""
+    p = padded.clone()
+    for ax in reversed(range(nax)):
+        p.narrow(ax, 0, 1).add_(p.narrow(ax, p.shape[ax] - 1, 1))
+        p = p.narrow(ax, 0, p.shape[ax] - 1)
+    return p
+
+
+def _corner_assemble(per_corner, corners):
+    """Host (numpy) torus assembly: per-cell corner values ``[*n, len(
+    corners), d]`` -> the field ``[*n, d]``, corner ``b`` of cell ``c``
+    added at ``c + b`` wrapped (the last torus axis folded first)."""
+    nax = len(corners[0])
+    n = per_corner.shape[:nax]
+    out = np.zeros(tuple(c + 1 for c in n) + per_corner.shape[-1:])
+    for i, b in enumerate(corners):
+        out[tuple(slice(o, o + c) for o, c in zip(b, n))] += \
+            per_corner[..., i, :]
+    for ax in reversed(range(nax)):
+        lead = (slice(None),) * ax
+        out[lead + (0,)] += out[lead + (-1,)]
+        out = out[lead + (slice(0, -1),)]
+    return out
+
+
+def _coarse_dofs(Kc, corners):
+    """Per-cell dof lists of a torus P1 level with per-cell matrices ``Kc
+    [*n, B, B]``: ([ncells, B] dof ids, dof count), dofs ``node * d + c``
+    with nodes numbered C-order on the torus."""
+    nax = len(corners[0])
+    n = Kc.shape[:nax]
+    cells = np.stack(np.meshgrid(*[np.arange(c) for c in n], indexing="ij"),
+                     axis=-1).reshape(-1, nax)
+    wrapped = (cells[:, None, :] + np.asarray(corners)[None]) % np.asarray(n)
+    gid = np.ravel_multi_index(tuple(wrapped[..., a] for a in range(nax)), n)
+    return ((gid[:, :, None] * nax + np.arange(nax))
+            .reshape(-1, len(corners) * nax), int(np.prod(n)) * nax)
+
+
+def _coarse_matrix_torus_sparse(Kc, corners):
+    """Scipy COO of the torus P1 operator from per-cell matrices."""
+    import scipy.sparse as sp
+
+    dof, N = _coarse_dofs(Kc, corners)
+    B = dof.shape[1]
+    rows = np.repeat(dof, B, axis=1).reshape(-1)
+    cols = np.tile(dof, (1, B)).reshape(-1)
+    vals = np.asarray(Kc, np.float64).reshape(-1)
+    return sp.coo_matrix((vals, (rows, cols)), shape=(N, N))
+
+
+def _coarse_matrix_torus(Kc, corners):
+    """Dense torus P1 operator (host, float64), summed cell by cell."""
+    dof, N = _coarse_dofs(Kc, corners)
+    B = dof.shape[1]
+    A = np.zeros((N, N))
+    Kf = np.asarray(Kc, np.float64).reshape(-1, B, B)
+    for c in range(len(dof)):
+        A[np.ix_(dof[c], dof[c])] += Kf[c]
+    return A
+
+
+def _torus_p1_diag(n, Kc, corners=_CHANNEL_BITS):
+    """Assembled diagonal of the torus P1 operator (host, float64)."""
+    kd = np.diagonal(np.asarray(Kc), axis1=-2, axis2=-1).reshape(
+        tuple(n) + (len(corners), len(n)))
+    return _corner_assemble(kd, corners)
+
+
+def _torus_gershgorin(n, Kc64, diag, corners=_CHANNEL_BITS) -> float:
+    """Row-scaled Gershgorin bound for a torus P1 level (host, float64)."""
+    rs = _corner_assemble(np.abs(Kc64).sum(axis=-1).reshape(
+        tuple(n) + (len(corners), len(n))), corners)
+    diag = diag.to(torch.float64).cpu().numpy()
+    return float((rs / np.maximum(diag, 1e-30)).max()) * 1.02
+
+
+def _with_columns(t, r):
+    """``t`` with a trailing axis when ``r`` is a block of columns (one
+    axis more than ``t``)."""
+    return t[..., None] if r.dim() > t.dim() else t
 
 
 def _project_translations(v):
@@ -256,23 +331,10 @@ class TorusP1Level:
         return out if block else out[..., 0]
 
 
-def _torus_p1_diag(n3, Kc):
-    """Assembled diagonal of the torus P1 operator (host, float64)."""
-    nx, ny, nz = n3
-    d = np.zeros((nx + 1, ny + 1, nz + 1, 3))
-    kd = np.diagonal(np.asarray(Kc), axis1=-2, axis2=-1).reshape(
-        nx, ny, nz, 8, 3)
-    for i, (bx, by, bz) in enumerate(_CHANNEL_BITS):
-        d[bx:bx + nx, by:by + ny, bz:bz + nz] += kd[..., i, :]
-    d[:, :, 0] += d[:, :, -1]
-    d[:, 0] += d[:, -1]
-    d[0] += d[-1]
-    return d[:nx, :ny, :nz]
-
-
 def _roll(v, b, sign):
-    return torch.roll(v, shifts=(-sign * b[0], -sign * b[1], -sign * b[2]),
-                      dims=(0, 1, 2))
+    """Roll the torus axes of ``v`` by ``-sign * b``."""
+    return torch.roll(v, shifts=tuple(-sign * x for x in b),
+                      dims=tuple(range(len(b))))
 
 
 def torus_prolong_p2(v):
@@ -327,11 +389,6 @@ def torus_restrict_h(rf):
 # Periodic variable-material multigrid
 # ---------------------------------------------------------------------------
 
-def _with_columns(t, r, fine: bool):
-    """``t`` with a trailing axis when ``r`` is a block of columns."""
-    return t[..., None] if r.dim() == (6 if fine else 5) else t
-
-
 @dataclasses.dataclass
 class PeriodicVarMG:
     """V-cycle preconditioner for periodic cell problems on Kuhn grids
@@ -382,14 +439,15 @@ class PeriodicVarMG:
         Ncd = dofs(levels[-1].n3)
         coarse_inv = coarse_lu = None
         if Ncd <= dense_cap:
-            Ac = cls._coarse_matrix_torus(Kc_last)
+            Ac = _coarse_matrix_torus(Kc_last, _CHANNEL_BITS)
             coarse_inv = torch.as_tensor(np.linalg.pinv(Ac, hermitian=True),
                                          dtype=dt, device=dev)
         else:
             import scipy.sparse as sp
             import scipy.sparse.linalg as spla
 
-            Ac = sp.csr_matrix(cls._coarse_matrix_torus_sparse(Kc_last))
+            Ac = sp.csr_matrix(_coarse_matrix_torus_sparse(Kc_last,
+                                                           _CHANNEL_BITS))
             m = np.ones(Ncd)
             m[:3] = 0.0                    # pin vertex 0 (translations)
             M = sp.diags(m)
@@ -402,42 +460,9 @@ class PeriodicVarMG:
         obj = cls(op, fine_diag, tuple(levels), coarse_inv,
                   (1.0,) * (1 + len(levels)), nu, coarse_lu)
         obj.lam = tuple([obj._lam_fine()]
-                        + [_torus_gershgorin(lvl) for lvl in levels])
+                        + [_torus_gershgorin(lvl.n3, lvl.Kc64, lvl.diag)
+                           for lvl in levels])
         return obj
-
-    @staticmethod
-    def _coarse_dofs(Kc):
-        nx, ny, nz = Kc.shape[:3]
-        corners = np.asarray(_CHANNEL_BITS)
-        cells = np.stack(np.meshgrid(np.arange(nx), np.arange(ny),
-                                     np.arange(nz), indexing="ij"),
-                         axis=-1).reshape(-1, 3)
-        gid = (((cells[:, None, 0] + corners[None, :, 0]) % nx) * ny
-               + ((cells[:, None, 1] + corners[None, :, 1]) % ny)) * nz \
-            + ((cells[:, None, 2] + corners[None, :, 2]) % nz)
-        return (gid[:, :, None] * 3 + np.arange(3)).reshape(-1, 24), \
-            nx * ny * nz * 3
-
-    @classmethod
-    def _coarse_matrix_torus_sparse(cls, Kc):
-        """Scipy COO of the torus P1 operator from per-cell matrices."""
-        import scipy.sparse as sp
-
-        dof, N = cls._coarse_dofs(Kc)
-        rows = np.repeat(dof, 24, axis=1).reshape(-1)
-        cols = np.tile(dof, (1, 24)).reshape(-1)
-        vals = np.asarray(Kc, np.float64).reshape(-1)
-        return sp.coo_matrix((vals, (rows, cols)), shape=(N, N))
-
-    @classmethod
-    def _coarse_matrix_torus(cls, Kc):
-        """Dense torus P1 operator (host, float64), summed cell by cell."""
-        dof, N = cls._coarse_dofs(Kc)
-        A = np.zeros((N, N))
-        Kf = np.asarray(Kc, np.float64).reshape(-1, 24, 24)
-        for c in range(len(dof)):
-            A[np.ix_(dof[c], dof[c])] += Kf[c]
-        return A
 
     def _lam_fine(self):
         """Row-scaled Gershgorin bound on lam_max(D^-1 A) for the P2 level
@@ -458,7 +483,7 @@ class PeriodicVarMG:
         if i == len(self.levels) - 1:
             return self._coarse_apply(r)
         one = torch.ones((), dtype=r.dtype, device=r.device)
-        S = _chebyshev(lvl.apply, _with_columns(lvl.diag, r, False).to(
+        S = _chebyshev(lvl.apply, _with_columns(lvl.diag, r).to(
             r.dtype), one, self.lam[1 + i], self.nu)
         x = S(r)
         res = r - lvl.apply(x)
@@ -471,28 +496,13 @@ class PeriodicVarMG:
         symmetric V-cycle, all columns at once)."""
         A = self.fine.apply_channels
         one = torch.ones((), dtype=r_ch.dtype, device=r_ch.device)
-        S = _chebyshev(A, _with_columns(self.fine_diag, r_ch, True).to(
+        S = _chebyshev(A, _with_columns(self.fine_diag, r_ch).to(
             r_ch.dtype), one, self.lam[0], self.nu)
         x = S(r_ch)
         res = r_ch - A(x)
         xc = self._cycle(0, torus_restrict_p2(res))
         x = x + torus_prolong_p2(xc)
         return x + S(r_ch - A(x))
-
-
-def _torus_gershgorin(lvl: TorusP1Level) -> float:
-    """Row-scaled Gershgorin bound for a torus P1 level (host, float64)."""
-    nx, ny, nz = lvl.n3
-    rs = np.zeros((nx + 1, ny + 1, nz + 1, 3))
-    ka = np.abs(lvl.Kc64).sum(axis=-1).reshape(nx, ny, nz, 8, 3)
-    for i, (bx, by, bz) in enumerate(_CHANNEL_BITS):
-        rs[bx:bx + nx, by:by + ny, bz:bz + nz] += ka[..., i, :]
-    rs[:, :, 0] += rs[:, :, -1]
-    rs[:, 0] += rs[:, -1]
-    rs[0] += rs[-1]
-    rs = rs[:nx, :ny, :nz]
-    diag = lvl.diag.to(torch.float64).cpu().numpy()
-    return float((rs / np.maximum(diag, 1e-30)).max()) * 1.02
 
 
 def _periodic_mg_cg(mg, bc, tol, maxiter):

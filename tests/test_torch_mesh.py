@@ -1,7 +1,8 @@
 """meshfem_tpu_torch mesh layer == meshfem_tpu: generators, P2 node
 numbering (exactly equal, whether the reference numbers edges through its
-native host core or its numpy fallback), simplex geometry (1e-12) and the
-RCB order (exactly equal)."""
+native host core or its numpy fallback), simplex geometry (1e-12), the RCB
+order (exactly equal) and a triangle mesh (the 2D mesh layer's own tests
+are in ``test_torch_tri.py``)."""
 
 import numpy as np
 import pytest
@@ -91,6 +92,17 @@ def test_rcb_order_grid_centroids():
 
 
 def test_femmesh_rejects_triangles():
+    """A triangle mesh now builds (the port refused one before it carried
+    K = 2) and matches the reference's FEMMesh: numbering equal, geometry
+    to 1e-14."""
     V, F = rgen.grid_tri(2, 2)
-    with pytest.raises(NotImplementedError):
-        FEMMesh(V, F, degree=1)
+    for degree in (1, 2):
+        ref, port = RFEMMesh(V, F, degree=degree), FEMMesh(V, F,
+                                                           degree=degree)
+        for k in ("elem_nodes", "node_positions", "bdry_elems",
+                  "bdry_elem_nodes", "bdry_nodes"):
+            np.testing.assert_array_equal(getattr(port, k), getattr(ref, k))
+        g, rg = port.geometry("cpu"), ref.geometry()
+        for k in ("grad_lambda", "volume", "bdry_normal", "bdry_volume"):
+            assert np.abs(getattr(g, k).numpy()
+                          - np.asarray(getattr(rg, k))).max() <= 1e-14

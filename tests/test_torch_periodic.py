@@ -192,14 +192,20 @@ def test_superlu_coarsest_level_matches_pinv():
 
 
 def test_grid_cell_problems_multigrid(grid_cell):
-    """homogenize(precond='multigrid') on the reference's _grid_cell(4)."""
+    """homogenize(precond='multigrid') on the reference's _grid_cell(4).
+    The reference's side is what its ``homogenize`` computes there (the
+    periodic simulator, ``solve_cell_problems_grid`` with maxiter 100000,
+    centred fluctuations, the stress form) on the fixture's simulator and
+    multigrid, built once for the module."""
     g = grid_cell
     res = hom.homogenize(g["mesh"], g["mats"], tol=1e-9, precond="multigrid",
                          device="cpu")
-    rres = rhom.homogenize(g["rmesh"], g["rmats"], tol=1e-9,
-                           precond="multigrid")
-    assert _rel(res.Ch.numpy(), rres.Ch) < 1e-8
-    assert abs(res.cg_iters[0] - rres.cg_iters[0]) <= 1
+    rw, riters = rsp.solve_cell_problems_grid(g["rsim"], mg=g["rmg"],
+                                              tol=1e-9, maxiter=100000)
+    rCh = rhom.homogenized_tensor_stress_form(
+        g["rsim"], rw - jnp.mean(rw, axis=1, keepdims=True))
+    assert _rel(res.Ch.numpy(), rCh) < 1e-8
+    assert abs(res.cg_iters[0] - riters[0]) <= 1
     assert tuple(res.w.shape) == (6, g["mesh"].num_nodes, 3)
     # against the port's own block-Jacobi block CG on the EBE operator
     blk = hom.homogenize(g["mesh"], g["mats"], tol=1e-11, precond="block",

@@ -18,7 +18,9 @@ of which raises on failure:
    and 18 values a node through the operator's two plans, f64 through the
    EBE plan) and to 1e-5 / 1e-12 of max|y| of its plain version, C (1e-5
    of max|y|),
-   D (1e-5 of max|y|, and 5e-6 against C on the same inputs), E (1e-5 of
+   D (1e-5 of max|y|, and 5e-6 against C on the same inputs), C and D
+   also in element-major node rows (1e-5 of max|y| against plain, and bit
+   for bit against themselves in planes), E (1e-5 of
    max|Ke| against its plain version and against the simulator's float64
    Ke, whose error the plain one-product form's is printed beside, and
    within one float32 ulp of each entry of that float64 Ke, since the
@@ -36,7 +38,8 @@ of which raises on failure:
    the port's EBE operator must be <= 1e-10;
 5. the factored backend: its apply against the dense apply (<= 5e-6 of
    max|y|), then the same solve with ``MESHFEM_FACTORED=1`` (the
-   reference's switch), counted the same way, so kernel C runs on a path;
+   reference's switch), counted the same way: every apply in node rows (A
+   and B in rows, kernel C once in rows, no kernel in planes);
    a small clamped bar solved on the card (routed) against the port's
    float64 EBE solve on the CPU (u and von Mises to 1e-8);
 6. the assembly path composed by hand as ``bench.py:266,320`` does (the
@@ -49,8 +52,10 @@ of which raises on failure:
    P2 with a spherical void of radius 0.3 (about 248k tets, 1.0 M dofs
    after periodic identification), run three times with the launch counts
    zeroed before each: dense (A and B in rows, ``bmm``; every block apply
-   in rows, none in planes), ``MESHFEM_FACTORED=1`` (A and B in planes,
-   C) and ``MESHFEM_FACTORED=1 MESHFEM_FACTORED_TQ=1`` (A, B, D).  Gates:
+   in rows, none in planes), ``MESHFEM_FACTORED=1`` (C) and
+   ``MESHFEM_FACTORED=1 MESHFEM_FACTORED_TQ=1`` (D), each block apply in
+   node rows too: A and B in rows, ONE launch of C or D over the 6
+   columns, no kernel in planes.  Gates:
    the block's float64 relative residual through the EBE operator,
    translations projected, <= 1e-10 in the whole-block norm; ``Ch``
    finite, symmetric, positive definite, softer than ``D``, under the
@@ -64,9 +69,15 @@ of which raises on failure:
    the dense single apply (bench mesh) in node rows as the package runs
    them (A, ``bmm``, B), beside the component-planes layout the dense
    applies ran in before, composed by hand from the planes kernels, a
-   component-major copy of ``KeP`` and the layout copies it made; each
-   stage timed with CUDA events (warm L2, as inside CG), and the whole
-   apply; the two layouts' results agree to 1e-6 of max|y|;
+   component-major copy of ``KeP`` and the layout copies it made; then
+   the factored block apply (cell, 6 columns) and single apply (bench
+   mesh, kernel C) in node rows as the package runs them (A, ONE launch
+   of C, B) beside the planes composition they ran in before (A and B in
+   planes, C per column on copies of the columns, the stack); each stage
+   timed with CUDA events (warm L2, as inside CG), and the whole apply;
+   the two layouts' results agree to 1e-6 of max|y| (dense) and bit for
+   bit (factored: the same contributions in the same order, and the
+   package's apply equal to its stages);
 10. the structured multigrid, the path ``solve()`` takes by default on
    Kuhn grids (reference ``physics/elasticity.py:475-502``): with TF32
    checked off, the default call ``sim.solve(tol=1e-10)`` on the clamped
@@ -106,7 +117,8 @@ of which raises on failure:
    ValueError; (b) a free body (``no_rigid_motion``, forces [-1, 0, 0] and
    [1, 0, 0] on the two x faces) solved by ``solve(tol=1e-10)`` through
    the routed dense operator (A, B, E) and, in a fresh simulator under
-   ``MESHFEM_FACTORED=1``, the factored one (A and B in planes, C): the
+   ``MESHFEM_FACTORED=1``, the factored one (A and B in rows, C once an
+   apply in rows, no kernel in planes): the
    projected float64 relative residual <= 1e-10, every element's average
    stress (1, 0, 0, 0, 0, 0) to 1e-6, u equal to (x, -0.3 y, -0.3 z) / 200
    to 1e-6 relative with the rigid modes removed from both, and the rigid
@@ -175,7 +187,7 @@ of which raises on failure:
    (t/E, -nu t/E, 0) to 1e-7; the card's u against the CPU's at
    grid_tri(32, 8) (1e-8); (b) the P2 cantilever through
    ``solve(operator="routed")`` dense (E at (2, 2)), ``MESHFEM_FACTORED=1``
-   (C, A and B in planes) and ``MESHFEM_FACTORED_TQ=1`` (D), each to
+   (C) and ``MESHFEM_FACTORED_TQ=1`` (D), every apply in node rows, each to
    1e-10, each factored apply against the dense one (5e-6 of max|y|) and u
    against the dense u (1e-8); the sizes are cut (``CANT_P1_N``,
    ``CANT_P2_N``: float32 CG inside float64 refinement stalls above 1e-10
@@ -201,7 +213,9 @@ of which raises on failure:
    and 6, B rows float32 and float64 at 2 and 6 values and B planes at 2
    and 6 (bit-identical across two runs, B rows bit for bit against B in
    planes, 1e-5 / 1e-12 of max|y| against plain), C and D at (2, 1) and
-   (2, 2) (1e-5, D against C 5e-6), E at (2, 1) and (2, 2) (1e-5 of
+   (2, 2) (1e-5, D against C 5e-6; in rows too, bit for bit against
+   planes, and in rows at the 13c cell's 3 columns), E at (2, 1) and
+   (2, 2) (1e-5 of
    max|Ke|, one float32 ulp of the float64 Ke on the mesh and on seeded
    random inputs with an isotropic and an anisotropic [3, 3] material),
    each then timed as phase 14 times the others;
@@ -209,8 +223,13 @@ of which raises on failure:
    call computing the same function (median of per-launch CUDA-event
    times, L2 flushed before each launch, the call queued before its first
    event fires), A and B in planes also at the 18
-   planes of the factored block apply, A and B in rows at 3 and 18 values
-   a node (B in f32 and f64), F beside kernel A on the same count of
+   planes of the factored block apply (the layout it ran in before node
+   rows), A and B in rows at 3 and 18 values a node (B in f32 and f64), C
+   and D in planes and in node rows at 1 column (bench mesh) and 6
+   columns (cell), each rows line held against plain (1e-5) and against
+   the kernel in planes column by column (bit for bit), with the byte
+   bound 4 (K1 d + 1 + 2 n d m) bytes an element, F beside kernel A on
+   the same count of
    routed values, printed as one ``{"kernels": [...]}`` line.  A bound
    counts what the FUNCTION needs from its inputs (each byte once; the
    fewest operations a known algorithm does), so D shares kernel C's and
@@ -391,20 +410,30 @@ def ulps_from(Ke32, K64):
     return worst
 
 
-def check_rows_path(label, counts, applies):
-    """A dense path: each routed apply launched kernel A in rows once and
-    kernel B in rows, and no apply launched a kernel in planes (B in rows
-    also carries the f64 residuals and the diagonal, so it counts more)."""
+def check_rows_path(label, counts, applies, contraction=None):
+    """A routed path: each apply launched kernel A in rows once and kernel
+    B in rows, and no apply launched a kernel in planes (B in rows also
+    carries the f64 residuals and the diagonal, so it counts more); on the
+    factored backend each apply, a block apply too, also launched its
+    ``contraction`` (kernel C or D) once, in rows."""
     log(f"{label}: {applies} routed applies; gather_rows "
         f"{counts['gather_rows']}, segment_sum_rows "
         f"{counts['segment_sum_rows']}, gather_planes "
         f"{counts['gather_planes']}, segment_sum_csr "
-        f"{counts['segment_sum_csr']}")
+        f"{counts['segment_sum_csr']}" + (
+            "" if contraction is None else
+            f", {contraction} {counts[contraction]} (in rows "
+            f"{counts[contraction + '/rows']})"))
     if not (applies > 0 and counts["gather_rows"] == applies
             and counts["segment_sum_rows"] >= applies
             and counts["gather_planes"] == 0
             and counts["segment_sum_csr"] == 0):
         raise RuntimeError(f"{label}: not every apply ran in node rows")
+    if contraction is not None and not (
+            counts[contraction] == applies
+            and counts[contraction + "/rows"] == applies):
+        raise RuntimeError(f"{label}: {contraction} did not run once an "
+                           f"apply, in rows")
 
 
 def clamped_problem(size, device):
@@ -464,8 +493,9 @@ def counted(label, fn, required=()):
     """One counted run of ``fn``, the one form every phase measures a path
     in: launch counts zeroed just before, read just after (synchronised);
     each wrapper in ``required`` must have launched.  Returns (fn's result,
-    host seconds, counts): each wrapper's launches by its name, and kernel
-    B's float64 launches, a part of them, under ``<name>/f64``."""
+    host seconds, counts): each wrapper's launches by its name, kernel B's
+    and A's float64 launches, a part of them, under ``<name>/f64``, and C's
+    and D's launches in node rows, a part of them, under ``<name>/rows``."""
     from meshfem_tpu_torch import kernels
 
     kernels.reset_launch_counts()
@@ -475,8 +505,10 @@ def counted(label, fn, required=()):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
-    counts.update({w.__name__ + "/f64": w.launches_f64
-                   for w in kernels.WRAPPERS if hasattr(w, "launches_f64")})
+    for part in ("f64", "rows"):
+        counts.update({f"{w.__name__}/{part}": getattr(w, "launches_" + part)
+                       for w in kernels.WRAPPERS
+                       if hasattr(w, "launches_" + part)})
     for name in required:
         if counts[name] == 0:
             raise RuntimeError(f"{label}: {name} was not launched")
@@ -1029,14 +1061,17 @@ def bc_simulator(mesh, dev, text, label):
 
 def own_mode(counts, name):
     """The launches, in ``counts`` (as ``counted`` reads them), of the
-    report line ``name``'s own mode: a kernel B line takes its dtype's
-    (``.../f64`` lines the float64 launches, the others the float32 ones;
-    the widths of one dtype together), any other line its wrapper's."""
+    report line ``name``'s own mode: a kernel A or B line takes its
+    dtype's (``.../f64`` lines the float64 launches, the others the float32
+    ones; the widths of one dtype together), a kernel C or D line its
+    layout's (``.../rows`` lines the launches in node rows, the others
+    those in planes), any other line its wrapper's."""
     wrapper = name.split("/")[0]
-    if wrapper + "/f64" not in counts:
-        return counts[wrapper]
-    f64 = counts[wrapper + "/f64"]
-    return f64 if "/f64" in name else counts[wrapper] - f64
+    for part in ("f64", "rows"):
+        if f"{wrapper}/{part}" in counts:
+            sub = counts[f"{wrapper}/{part}"]
+            return sub if f"/{part}" in name else counts[wrapper] - sub
+    return counts[wrapper]
 
 
 def check_rows_on_plan(plan, dtype, label, gen, P=3):
@@ -1147,7 +1182,7 @@ def drive_bc(mesh, dev):
             ("dense", {}, ("gather_rows", "segment_sum_rows",
                            "element_stiffness")),
             ("factored", {"MESHFEM_FACTORED": "1"},
-             ("gather_planes", "segment_sum_csr", "qp_contract"))):
+             ("gather_rows", "segment_sum_rows", "qp_contract"))):
         label = f"free body ({name})"
         fsim, t_bc = bc_simulator(mesh, dev, FREE_BODY_BC, label)
         if not fsim.no_rigid_motion:
@@ -1165,11 +1200,15 @@ def drive_bc(mesh, dev):
 
         os.environ.update(env)
         try:
-            ((uf, rf), t_build), wall, paths["free_body_" + name] = counted(
-                label, build_and_solve, required)
+            with ApplyCounter() as applies:
+                ((uf, rf), t_build), wall, paths["free_body_" + name] = \
+                    counted(label, build_and_solve, required)
         finally:
             for k in env:
                 os.environ.pop(k, None)
+        if name == "factored":
+            check_rows_path(label, paths["free_body_" + name], applies.count,
+                            "qp_contract")
         if fsim._routed is None or (fsim._routed.KeP is None) != bool(env):
             raise RuntimeError(f"{label}: the solve did not take the routed "
                                f"{name} operator")
@@ -1957,17 +1996,18 @@ def drive_cantilever_2d(dev):
 def drive_p2_backends(dev):
     """13b: the P2 cantilever through the three contraction backends of
     ``solve(operator="routed")``: dense (E at (2, 2)), ``MESHFEM_FACTORED``
-    (C, A and B in planes) and ``MESHFEM_FACTORED_TQ`` (D)."""
+    (C) and ``MESHFEM_FACTORED_TQ`` (D), each apply in node rows (A, the
+    contraction, B; no kernel in planes)."""
     out, paths, ops = {}, {}, {}
     sim = cantilever_2d(CANT_P2_N, 2, dev)
     N = sim.num_dofs
     variants = (
         ("p2_dense", {}, ROWS_2D),
         ("p2_factored", {"MESHFEM_FACTORED": "1"},
-         ("gather_planes", "segment_sum_csr", "qp_contract")),
+         ("gather_rows", "segment_sum_rows", "qp_contract")),
         ("p2_factored_tq", {"MESHFEM_FACTORED": "1",
                             "MESHFEM_FACTORED_TQ": "1"},
-         ("gather_planes", "segment_sum_csr", "factored_contract")))
+         ("gather_rows", "segment_sum_rows", "factored_contract")))
     us = {}
     for name, env, required in variants:
         for k in ("MESHFEM_FACTORED", "MESHFEM_FACTORED_TQ"):
@@ -1981,8 +2021,8 @@ def drive_p2_backends(dev):
         finally:
             for k in env:
                 os.environ.pop(k, None)
-        if name == "p2_dense":
-            check_rows_path(label, counts, applies)
+        check_rows_path(label, counts, applies, required[2]
+                        if name != "p2_dense" else None)
         relres = check_solution(sim, u, label)
         ops[name], us[name], paths[name] = sim._routed, u, counts
         out[name] = dict(rounds=res.rounds, inner_iters=res.iters,
@@ -2326,9 +2366,29 @@ def kernels_2d(dev, entry, paths, hsim):
         rel_c = float((c_out - c_ref).abs().max() / c_ref.abs().max())
         rel_d = float((d_out - d_ref).abs().max() / d_ref.abs().max())
         rel_dc = float((d_out - c_out).abs().max() / c_out.abs().max())
-        del c_ref, d_ref, d_out
+        del c_ref, d_ref
+        # in rows, as 13b's factored applies run them: against plain and,
+        # bit for bit, against the kernel in planes
+        ue_rows = ue.permute(2, 1, 0).reshape(E * nn, d).contiguous()
+        err_rows = {}
+        for name, out_planes in (("qp_contract", c_out),
+                                 ("factored_contract", d_out)):
+            out_rows = getattr(kernels, name)(rkf.g, rkf.vol, ue_rows, lam,
+                                              mu, rows=True)
+            ref = getattr(kernels, name + "_plain")(rkf.g, rkf.vol, ue_rows,
+                                                    lam, mu, rows=True)
+            err_rows[name] = float((out_rows - ref).abs().max())
+            if not (err_rows[name] <= 1e-5 * float(ref.abs().max())
+                    and torch.equal(out_rows.view(E, nn, d).permute(2, 1, 0),
+                                    out_planes)):
+                raise RuntimeError(f"13e {name} ({tag}) in rows disagrees "
+                                   f"with plain or with planes")
+            del out_rows, ref
+        del d_out
         log(f"13e C qp_contract ({tag}) {rel_c:.3e} of max|y| against "
-            f"plain; D factored_contract {rel_d:.3e}, D vs C {rel_dc:.3e}")
+            f"plain; D factored_contract {rel_d:.3e}, D vs C {rel_dc:.3e}; "
+            f"both in rows equal to plain (max abs err {err_rows}) and bit "
+            f"for bit to planes")
         if not (rel_c <= 1e-5 and rel_d <= 1e-5 and rel_dc <= 5e-6):
             raise RuntimeError(f"13e C or D ({tag}) disagrees")
         Q = qp_tables(d, deg)[0].shape[0]
@@ -2337,37 +2397,48 @@ def kernels_2d(dev, entry, paths, hsim):
         ue_dense = ue.permute(2, 1, 0).reshape(E, nd, 1)
         KeP = rk.KeP
         c_bytes = (K1 * d + 1 + 2 * d * nn) * E * 4
-        entry(f"qp_contract/{tag}", src_dir + "qp_contract.cu",
+        entry(f"qp_contract/rows/2d/{deg}", src_dir + "qp_contract.cu",
               "meshfem_tpu/sparse/contract.py:232",
-              launches("p2_factored", "qp_contract") if deg == 2 else 0,
-              float((c_out - kernels.qp_contract_plain(
-                  rkf.g, rkf.vol, ue, lam, mu)).abs().max()),
-              lambda: kernels.qp_contract(rkf.g, rkf.vol, ue, lam, mu),
-              lambda: kernels.qp_contract_plain(rkf.g, rkf.vol, ue, lam, mu),
+              launches("p2_factored", "qp_contract/rows") if deg == 2 else 0,
+              err_rows["qp_contract"],
+              lambda: kernels.qp_contract(rkf.g, rkf.vol, ue_rows, lam, mu,
+                                          rows=True),
+              lambda: kernels.qp_contract_plain(rkf.g, rkf.vol, ue_rows, lam,
+                                                mu, rows=True),
               lambda: torch.bmm(KeP, ue_dense), c_bytes, qp_flops * E,
               max_rel_err=rel_c,
+              timed=dict(planes_ms=lambda: kernels.qp_contract(
+                  rkf.g, rkf.vol, ue, lam, mu)),
+              mode=f"element-major rows [E*{nn}, 2], as 13b's applies run "
+                   f"it (planes_ms: the kernel in planes [2, {nn}, E])",
               launches_path="13b P2 factored" if deg == 2
               else "none (13a runs the dense backend)",
               library_call="torch.bmm with the dense f32 Ke",
-              shape=f"{shape}; g [6, {E}], vol [{E}], ue [2, {nn}, {E}] f32")
+              shape=f"{shape}; g [6, {E}], vol [{E}], rows [{E * nn}, 2] f32")
         NG, NPAIR = K1 * (K1 + 1) // 2, nn * (nn + 1) // 2
         fma_d = (K1 * nn * d + (K1 * nn) ** 2 + d * nn * K1 + NG * d
                  + NPAIR * NG + d * nn * nn + d * nn)
-        entry(f"factored_contract/{tag}", src_dir + "factored_contract.cu",
+        entry(f"factored_contract/rows/2d/{deg}",
+              src_dir + "factored_contract.cu",
               "meshfem_tpu/sparse/contract.py:91",
-              launches("p2_factored_tq", "factored_contract")
-              if deg == 2 else 0, rel_d * float(c_out.abs().max()),
-              lambda: kernels.factored_contract(rkf.g, rkf.vol, ue, lam, mu),
-              lambda: kernels.factored_contract_plain(rkf.g, rkf.vol, ue,
-                                                      lam, mu),
+              launches("p2_factored_tq", "factored_contract/rows")
+              if deg == 2 else 0, err_rows["factored_contract"],
+              lambda: kernels.factored_contract(rkf.g, rkf.vol, ue_rows, lam,
+                                                mu, rows=True),
+              lambda: kernels.factored_contract_plain(rkf.g, rkf.vol, ue_rows,
+                                                      lam, mu, rows=True),
               lambda: torch.bmm(KeP, ue_dense), c_bytes, qp_flops * E,
               algorithm_flops=2 * fma_d * E, max_rel_err=rel_d,
               vs_kernel_c=rel_dc,
+              timed=dict(planes_ms=lambda: kernels.factored_contract(
+                  rkf.g, rkf.vol, ue, lam, mu)),
+              mode=f"element-major rows [E*{nn}, 2], as 13b's applies run "
+                   f"it (planes_ms: the kernel in planes [2, {nn}, E])",
               launches_path="13b P2 factored TQ" if deg == 2
               else "none (13a runs the dense backend)",
               library_call="torch.bmm with the dense f32 Ke",
-              shape=f"{shape}; g [6, {E}], vol [{E}], ue [2, {nn}, {E}] f32")
-        del c_out, ue, ue_dense
+              shape=f"{shape}; g [6, {E}], vol [{E}], rows [{E * nn}, 2] f32")
+        del c_out, ue, ue_rows, ue_dense
 
         if deg == 1:
             # A and B in node rows at 2 values a node: 13a's dense applies
@@ -2437,7 +2508,8 @@ def kernels_2d(dev, entry, paths, hsim):
                   library_call="Tensor.index_add_ (float atomics)",
                   shape=f"{shape}; src [{R}, 2] f64 -> [{N}, 2]")
         else:
-            # A and B in planes at 2 planes: 13b's factored applies
+            # A and B in planes at 2 planes, the layout of 13b's factored
+            # applies before they ran in node rows: held, on no path
             ids, S = rkf.ids, rkf.ids.shape[0]
             src2 = torch.randn((2, N), generator=gen, device=dev)
             if not torch.equal(kernels.gather_planes(src2, ids),
@@ -2450,7 +2522,8 @@ def kernels_2d(dev, entry, paths, hsim):
                   lambda: kernels.gather_planes_plain(src2, ids),
                   lambda: torch.index_select(src2, 1, ids_long),
                   S * 4 + 2 * N * 4 + 2 * S * 4, 0,
-                  launches_path="13b P2 factored and factored TQ",
+                  launches_path="13b P2 factored and factored TQ (none: "
+                                "their applies run in node rows)",
                   launches_2d_factored_tq=launches("p2_factored_tq",
                                                    "gather_planes"),
                   library_call="torch.index_select",
@@ -2467,7 +2540,8 @@ def kernels_2d(dev, entry, paths, hsim):
                   lambda: kernels.segment_sum_csr_plain(fp, perm, offs),
                   lambda: acc.index_add_(1, ids_long, fp),
                   2 * S * 4 + S * 4 + (N + 1) * 4 + 2 * N * 4, 2 * S,
-                  launches_path="13b P2 factored and factored TQ",
+                  launches_path="13b P2 factored and factored TQ (none: "
+                                "their applies run in node rows)",
                   launches_2d_factored_tq=launches(
                       "p2_factored_tq", "segment_sum_csr/2d/2"),
                   library_call="Tensor.index_add_ (float atomics)",
@@ -2534,7 +2608,8 @@ def kernels_2d(dev, entry, paths, hsim):
           launches_2d_pixels=launches("pixels", "segment_sum_rows/f64"),
           library_call="Tensor.index_add_ (float atomics)",
           shape=f"{shape}; src [{R}, 6] f64 -> [{Nh}, 6]")
-    # A and B in planes at 6 planes: the factored block apply's layout
+    # A and B in planes at 6 planes, the factored block apply's layout
+    # before node rows (on no path), and C and D in rows at its 3 columns
     for k in ("MESHFEM_FACTORED", "MESHFEM_FACTORED_TQ"):
         os.environ.pop(k, None)
     os.environ["MESHFEM_FACTORED"] = "1"
@@ -2544,6 +2619,28 @@ def kernels_2d(dev, entry, paths, hsim):
     finally:
         os.environ.pop("MESHFEM_FACTORED", None)
         hsim._routed = None
+    lam_h, mu_h = hrf.lam, hrf.mu
+    nn_h, Eh = hrf.nodes_per_elem, hrf.num_elements
+    rows6 = torch.randn((Eh * nn_h, 6), generator=gen, device=dev)
+    for name in ("qp_contract", "factored_contract"):
+        fn = getattr(kernels, name)
+        f6 = fn(hrf.g, hrf.vol, rows6, lam_h, mu_h, rows=True)
+        ref = getattr(kernels, name + "_plain")(hrf.g, hrf.vol, rows6, lam_h,
+                                                mu_h, rows=True)
+        rel = float((f6 - ref).abs().max() / ref.abs().max())
+        u4, f4 = rows6.view(Eh, nn_h, 2, 3), f6.view(Eh, nn_h, 2, 3)
+        same = all(torch.equal(
+            fn(hrf.g, hrf.vol, u4[..., j].permute(2, 1, 0).contiguous(),
+               lam_h, mu_h), f4[..., j].permute(2, 1, 0)) for j in range(3))
+        out[name + "_rows_3"] = rel
+        log(f"13e {name} in rows at the 13c cell's 3 columns ([{Eh * nn_h}, "
+            f"6]): {rel:.3e} of max|y| against plain; "
+            f"{'bit for bit' if same else 'NOT EQUAL'} against planes column "
+            f"by column")
+        if not (rel <= 1e-5 and same):
+            raise RuntimeError(f"13e {name} in rows (3 columns) disagrees")
+        del f6, ref, u4, f4
+    del rows6
     ids, Sf = hrf.ids, hrf.ids.shape[0]
     src6 = torch.randn((6, Nh), generator=gen, device=dev)
     if not torch.equal(kernels.gather_planes(src6, ids),
@@ -2809,6 +2906,26 @@ def main() -> int:
     if not rel_dc <= 5e-6:
         raise RuntimeError(f"factored_contract disagrees with C: {rel_dc}")
     del d_ref, c_ref
+    # C and D in element-major node rows, as the factored applies run them
+    ue_rows = ue.permute(2, 1, 0).reshape(E * 10, 3).contiguous()
+    err_rows_cd = {}
+    for name, out_planes in (("qp_contract", c_out),
+                             ("factored_contract", d_out)):
+        fn = getattr(kernels, name)
+        out_rows = fn(rkf.g, rkf.vol, ue_rows, lam, mu, rows=True)
+        ref = getattr(kernels, name + "_plain")(rkf.g, rkf.vol, ue_rows, lam,
+                                                mu, rows=True)
+        err_rows_cd[name] = float((out_rows - ref).abs().max())
+        rel = err_rows_cd[name] / float(ref.abs().max())
+        same = torch.equal(out_rows.view(E, 10, 3).permute(2, 1, 0),
+                           out_planes)
+        log(f"{name} in rows [{E * 10}, 3]: {rel:.3e} of max|y| against "
+            f"plain; {'equal bit for bit to' if same else 'NOT EQUAL to'} "
+            f"the kernel in planes")
+        if not (rel <= 1e-5 and same):
+            raise RuntimeError(f"{name} in rows disagrees with plain or with "
+                               f"planes")
+    del out_rows, ref, d_out
 
     gl32 = sim.geom.grad_lambda.float().contiguous()
     vol32 = sim.geom.volume.float().contiguous()
@@ -2896,10 +3013,12 @@ def main() -> int:
     if not rel_fd <= 5e-6:
         raise RuntimeError(f"factored apply disagrees with dense: {rel_fd}")
     os.environ["MESHFEM_FACTORED"] = "1"
-    uf, resf, wallf, counts_fact, _ = drive_solve(
+    uf, resf, wallf, counts_fact, applies_fact = drive_solve(
         sim, "factored routed solve",
-        ("gather_planes", "segment_sum_csr", "qp_contract"))
+        ("gather_rows", "segment_sum_rows", "qp_contract"))
     os.environ.pop("MESHFEM_FACTORED", None)
+    check_rows_path("factored routed solve", counts_fact, applies_fact,
+                    "qp_contract")
     if sim.routed_kernel().KeP is not None:
         raise RuntimeError("isotropic material did not take the factored "
                            "backend")
@@ -2968,17 +3087,17 @@ def main() -> int:
         ("dense", {},
          ("gather_rows", "segment_sum_rows", "element_stiffness")),
         ("factored", {"MESHFEM_FACTORED": "1"},
-         ("gather_planes", "segment_sum_csr", "qp_contract")),
+         ("gather_rows", "segment_sum_rows", "qp_contract")),
         ("factored_tq", {"MESHFEM_FACTORED": "1", "MESHFEM_FACTORED_TQ": "1"},
-         ("gather_planes", "segment_sum_csr", "factored_contract")))
+         ("gather_rows", "segment_sum_rows", "factored_contract")))
     Chs = {}
     block_inputs = [torch.randn((Nh, 3, 6), generator=gen, device=dev)
                     for _ in range(7)]
     for name, env, required in variants:
         label = f"homogenization ({name})"
         hres, info = drive_homogenize(cell, mat, label, env, required)
-        if name == "dense":
-            check_rows_path(label, info["launches"], info["applies"])
+        check_rows_path(label, info["launches"], info["applies"],
+                        None if name == "dense" else required[2])
         gate = 1e-8 if info["stagnated"] else 1e-10
         info["relres"], info["column_relres"] = check_homogenized(
             hsim, hres, label, D, phi, gate)
@@ -3038,6 +3157,41 @@ def main() -> int:
     hrk_d = hsim.routed_kernel(block_rhs=6)          # dense, as phase 7 ran
     stage_table = {}
 
+    def compare_layouts(label, rows, planes, package, inputs, exact):
+        """Time the node-rows stages (the package's layout), the former
+        planes composition and the package's whole apply; the two layouts
+        agree to 1e-6 of max|y|, and where ``exact`` bit for bit, the
+        package's apply too."""
+        out = {}
+        for name, stages in (("rows", rows), ("planes", planes)):
+            per, whole, y = stage_ms(stages, inputs)
+            out[name] = dict(stages=per, stage_sum_ms=sum(per.values()),
+                             sequence_ms=whole)
+            out[name + "_y"] = y
+        out["rows"]["apply_ms"] = median_apply_ms(package, inputs)
+        out["rows"]["stage_share"] = (out["rows"]["stage_sum_ms"]
+                                      / out["rows"]["apply_ms"])
+        y_rows, y_planes = out.pop("rows_y"), out.pop("planes_y")
+        out["rows_vs_planes"] = float((y_rows - y_planes).abs().max()
+                                      / y_planes.abs().max())
+        out["bitwise"] = bool(torch.equal(y_rows, y_planes))
+        out["package_equals_stages"] = bool(torch.equal(package(inputs[-1]),
+                                                        y_rows))
+        for name in ("rows", "planes"):
+            r = out[name]
+            log(f"{label}, {name}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["stages"].items())
+                + f" ms; stages {r['stage_sum_ms']:.4f} ms, sequence "
+                f"{r['sequence_ms']:.4f} ms")
+        log(f"{label}: the package's apply (rows) {out['rows']['apply_ms']:.4f}"
+            f" ms, its stages {out['rows']['stage_share']:.3f} of it; rows vs "
+            f"planes {out['rows_vs_planes']:.3e} of max|y|"
+            + (", bit for bit" if out["bitwise"] else ""))
+        if not (out["rows_vs_planes"] <= 1e-6 and (not exact or (
+                out["bitwise"] and out["package_equals_stages"]))):
+            raise RuntimeError(f"{label}: the two layouts disagree")
+        return out
+
     def layouts(label, op, inputs, m, planes_io):
         """The dense apply in node rows (the package's, and its three
         stages) beside the planes layout composed by hand."""
@@ -3083,36 +3237,70 @@ def main() -> int:
                       ("view as [N, d, m]", lambda y: y.reshape(
                           d, m, N_).permute(2, 0, 1))]
             package = op.apply_block
-        out = {}
-        for name, stages in (("rows", rows), ("planes", planes)):
-            per, whole, y = stage_ms(stages, inputs)
-            out[name] = dict(stages=per, stage_sum_ms=sum(per.values()),
-                             sequence_ms=whole)
-            out[name + "_y"] = y
-        out["rows"]["apply_ms"] = median_apply_ms(package, inputs)
-        out["rows"]["stage_share"] = (out["rows"]["stage_sum_ms"]
-                                      / out["rows"]["apply_ms"])
-        y_rows, y_planes = out.pop("rows_y"), out.pop("planes_y")
-        out["rows_vs_planes"] = float((y_rows - y_planes).abs().max()
-                                      / y_planes.abs().max())
+        out = compare_layouts(label, rows, planes, package, inputs, False)
         del KeC
-        for name in ("rows", "planes"):
-            r = out[name]
-            log(f"{label}, {name}: " + ", ".join(
-                f"{k} {v:.4f}" for k, v in r["stages"].items())
-                + f" ms; stages {r['stage_sum_ms']:.4f} ms, sequence "
-                f"{r['sequence_ms']:.4f} ms")
-        log(f"{label}: the package's apply (rows) {out['rows']['apply_ms']:.4f}"
-            f" ms, its three stages {out['rows']['stage_share']:.3f} of it; "
-            f"rows vs planes {out['rows_vs_planes']:.3e} of max|y|")
-        if not out["rows_vs_planes"] <= 1e-6:
-            raise RuntimeError(f"{label}: the two layouts disagree")
         return out
+
+    def factored_layouts(label, op, inputs, m, planes_io):
+        """The factored apply (kernel C) in node rows as the package runs
+        it (A rows, ONE launch of C over all m columns, B rows) beside the
+        planes composition it replaced (A planes, C per column on
+        contiguous copies of the columns, B planes): the same
+        contributions in the same order, so the same bits."""
+        d, n, E_, N_ = 3, 10, op.num_elements, op.num_dofs
+        C = lambda u, **kw: kernels.qp_contract(op.g, op.vol, u, op.lam,
+                                                op.mu, **kw)
+        if planes_io:                                # [d, N] planes in/out
+            rows = [("A rows", lambda x: kernels.gather_rows(
+                        x, op.ids_em, planes_in=True)),
+                    ("C rows", lambda ue: C(ue, rows=True)),
+                    ("B rows", lambda fe: op.plan_em.sum_rows(
+                        fe, planes_out=True))]
+            planes = [("A planes", lambda x: kernels.gather_planes(x,
+                                                                  op.ids)),
+                      ("C planes", lambda ue: C(ue.view(d, n, E_))),
+                      ("B planes", lambda fe: op.plan.sum_planes(
+                          fe.reshape(d, n * E_)))]
+            package = op.apply_planes
+        else:                                        # U [N, d, m] in/out
+            rows = [("A rows", lambda U: kernels.gather_rows(
+                        U.view(N_, d * m), op.ids_em)),
+                    ("C rows", lambda ue: C(ue, rows=True)),
+                    ("B rows", lambda fe: op.plan_em.sum_rows(fe)
+                     .view(N_, d, m))]
+            planes = [("copy U to planes", lambda U: U.permute(1, 2, 0)
+                       .reshape(d * m, N_).contiguous()),
+                      ("A planes", lambda x: kernels.gather_planes(x,
+                                                                  op.ids)),
+                      ("copy the columns", lambda ue: [
+                          ue.view(d, m, n, E_)[:, j].contiguous()
+                          for j in range(m)]),
+                      (f"C planes x{m}", lambda cols: [C(u) for u in cols]),
+                      ("stack", lambda fes: torch.stack(fes, dim=1)),
+                      ("B planes", lambda fe: op.plan.sum_planes(
+                          fe.view(d * m, n * E_))),
+                      ("view as [N, d, m]", lambda y: y.reshape(
+                          d, m, N_).permute(2, 0, 1))]
+            package = op.apply_block
+        return compare_layouts(label, rows, planes, package, inputs, True)
 
     stage_table["block_apply"] = layouts(
         "dense block apply (cell, 6 columns)", hrk_d, block_inputs, 6, False)
     stage_table["single_apply"] = layouts(
         "dense single apply (bench mesh)", rk, inputs, 1, True)
+    hsim._routed = None
+    os.environ["MESHFEM_FACTORED"] = "1"
+    try:
+        hrk_f = hsim.routed_kernel(block_rhs=6)      # factored, kernel C
+    finally:
+        os.environ.pop("MESHFEM_FACTORED", None)
+        hsim._routed = None
+    stage_table["factored_block_apply"] = factored_layouts(
+        "factored block apply (cell, 6 columns)", hrk_f, block_inputs, 6,
+        False)
+    stage_table["factored_single_apply"] = factored_layouts(
+        "factored single apply (bench mesh)", rkf, inputs, 1, True)
+    del hrk_f
     summary["stage_table"] = stage_table
 
     # -- 10. the structured multigrid: the default call on Kuhn grids ------
@@ -3141,13 +3329,13 @@ def main() -> int:
 
     def entry(name, source, replaces, launches, err, fn, plain, library,
               nbytes, flops, algorithm_flops=None, flop_rate=F32_FLOP_PER_S,
-              algorithm_flop_rate=F32_FLOP_PER_S, **extra):
+              algorithm_flop_rate=F32_FLOP_PER_S, timed=None, **extra):
         """``flops``: the fewest operations a known algorithm needs for the
         function on these inputs (the bound's), at ``flop_rate``;
         ``algorithm_flops``: what the kernel's own algorithm does, where
         that is more, at ``algorithm_flop_rate`` (the precision it runs
         in); ``library``: None where no one PyTorch call computes the
-        function."""
+        function; ``timed``: more calls, by key, timed as ``fn`` is."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / flop_rate * 1e3
         if algorithm_flops is not None:
@@ -3159,6 +3347,7 @@ def main() -> int:
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  library_ms=None if library is None else timer(library))
         d.update(extra)
+        d.update({k: timer(f) for k, f in (timed or {}).items()})
         report.append(d)
         lib_ms = "none" if library is None else f"{d['library_ms']:.4f} ms"
         log(f"{name}: {d['ms']:.4f} ms (bound {d['bound_ms']:.4f} ms by "
@@ -3225,11 +3414,15 @@ def main() -> int:
     flops = E * qp_flops
     ue_dense = ue.permute(2, 1, 0).reshape(E, 30, 1)    # node-major a*3+c
     entry("qp_contract", "meshfem_tpu_torch/csrc/qp_contract.cu",
-          "meshfem_tpu/sparse/contract.py:232", counts_fact["qp_contract"],
+          "meshfem_tpu/sparse/contract.py:232",
+          own_mode(counts_fact, "qp_contract"),
           err_c, lambda: kernels.qp_contract(rkf.g, rkf.vol, ue, lam, mu),
           lambda: kernels.qp_contract_plain(rkf.g, rkf.vol, ue, lam, mu),
           lambda: torch.bmm(rk.KeP, ue_dense),
           (12 + 1 + 30 + 30) * E * 4, flops, max_rel_err=rel_c,
+          mode="planes [3, 10, E]",
+          launches_path="factored clamped solve, launches in planes (none: "
+                        "its applies run in node rows, qp_contract/rows)",
           library_call="torch.bmm with the dense f32 Ke",
           shape=f"g [12, {E}], vol [{E}], ue [3, 10, {E}] f32")
 
@@ -3254,7 +3447,8 @@ def main() -> int:
              + NPAIR * NG + 3 * nn * nn + 3 * nn)
     entry("factored_contract", "meshfem_tpu_torch/csrc/factored_contract.cu",
           "meshfem_tpu/sparse/contract.py:91",
-          homog["factored_tq"]["launches"]["factored_contract"], err_dh,
+          own_mode(homog["factored_tq"]["launches"], "factored_contract"),
+          err_dh,
           lambda: kernels.factored_contract(hg, hvol, ue_h, lam, mu),
           lambda: kernels.factored_contract_plain(hg, hvol, ue_h, lam, mu),
           lambda: torch.bmm(hKeP, ue_h_dense),
@@ -3264,8 +3458,67 @@ def main() -> int:
           qp_contract_same_inputs_ms=timer(
               lambda: kernels.qp_contract(hg, hvol, ue_h, lam, mu)),
           ptxas=ptxas.get("factored_contract.cu", []),
+          mode="planes [3, 10, E]",
+          launches_path="factored TQ homogenize, launches in planes (none: "
+                        "its block applies run in node rows)",
           library_call="torch.bmm with the dense f32 Ke",
           shape=f"g [12, {Eh}], vol [{Eh}], ue [3, 10, {Eh}] f32")
+
+    # C and D in element-major node rows, as the factored applies run them:
+    # one column on the bench mesh (the solves), six on the cell (the block
+    # apply), each held against its plain version and, column by column,
+    # against itself in planes (bit for bit)
+    ue_rows6 = torch.randn((Eh * 10, 18), generator=gen, device=dev)
+    for name, label, gv, urows, Ecount, m, launches, path, K in (
+            ("qp_contract", "qp_contract/rows", (rkf.g, rkf.vol), ue_rows,
+             E, 1, own_mode(counts_fact, "qp_contract/rows"),
+             "factored clamped solve", rk.KeP),
+            ("factored_contract", "factored_contract/rows", (rkf.g, rkf.vol),
+             ue_rows, E, 1, 0, "none (no 3D single-vector path runs the TQ "
+             "backend)", rk.KeP),
+            ("qp_contract", "qp_contract/rows/6", (hg, hvol), ue_rows6, Eh,
+             6, own_mode(homog["factored"]["launches"], "qp_contract/rows"),
+             "factored homogenize (one launch a block apply)", hKeP),
+            ("factored_contract", "factored_contract/rows/6", (hg, hvol),
+             ue_rows6, Eh, 6, own_mode(homog["factored_tq"]["launches"],
+                                       "factored_contract/rows"),
+             "factored TQ homogenize (one launch a block apply)", hKeP)):
+        fn = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        out_rows = fn(*gv, urows, lam, mu, rows=True)
+        ref = plain(*gv, urows, lam, mu, rows=True)
+        err = float((out_rows - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        u4, f4 = urows.view(Ecount, 10, 3, m), out_rows.view(Ecount, 10, 3, m)
+        same = all(torch.equal(
+            fn(*gv, u4[..., j].permute(2, 1, 0).contiguous(), lam, mu),
+            f4[..., j].permute(2, 1, 0)) for j in range(m))
+        del ref, u4, f4, out_rows
+        log(f"{label}: {rel:.3e} of max|y| against plain; "
+            f"{'equal bit for bit to' if same else 'NOT EQUAL to'} the "
+            f"kernel in planes column by column")
+        if not (rel <= 1e-5 and same):
+            raise RuntimeError(f"{label} disagrees with plain or with planes")
+        extra = {}
+        if name == "factored_contract":
+            extra = dict(algorithm_flops=2 * fma_d * Ecount * m,
+                         ptxas=ptxas.get("factored_contract.cu", []))
+        entry(label, f"meshfem_tpu_torch/csrc/{name}.cu",
+              "meshfem_tpu/sparse/contract.py:"
+              + ("232" if name == "qp_contract" else "91"), launches, err,
+              lambda: fn(*gv, urows, lam, mu, rows=True),
+              lambda: plain(*gv, urows, lam, mu, rows=True),
+              lambda: torch.bmm(K, urows.view(Ecount, 30, m)),
+              (12 + 1 + 2 * 30 * m) * Ecount * 4, qp_flops * Ecount * m,
+              max_rel_err=rel, equals_planes_bitwise=same, columns=m,
+              mode=f"element-major rows [E*10, {3 * m}], staged in shared "
+                   f"memory, as the factored applies run it",
+              launches_path=path,
+              library_call="torch.bmm with the dense f32 Ke "
+                           f"([E, 30, 30] @ [E, 30, {m}])",
+              shape=f"g [12, {Ecount}], vol [{Ecount}], rows "
+                    f"[{Ecount * 10}, {3 * m}] f32", **extra)
+    del ue_rows6
     ue_h_block = torch.randn((Eh, 30, 6), generator=gen, device=dev)
     U64 = block_inputs[0].double()
     summary["homogenization"].update(
@@ -3383,8 +3636,8 @@ def main() -> int:
             f"{r['planes18_bound_ms']:.4f} ms), plain "
             f"{r['planes18_plain_ms']:.4f} ms, library "
             f"{r['planes18_library_ms']:.4f} ms")
-    report[2]["launches_homogenization"] = \
-        homog["factored"]["launches"]["qp_contract"]
+    report[2]["launches_homogenization"] = own_mode(
+        homog["factored"]["launches"], "qp_contract")
 
     del g18, d18, acc18, acc18_64
     # A and B in node rows: the dense applies' layout

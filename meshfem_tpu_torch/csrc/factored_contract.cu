@@ -20,8 +20,15 @@
 // kernel; here lam and mu are arguments and the kernel builds its own two
 // tables from T, once per block, in shared memory.
 //
-// Layout (kernel C's): g [K1 * d, E] (row k * d + b), vol [E],
-// ue [d, n, E] -> fe [d, n, E]; element index fastest.
+// Layout (kernel C's, csrc/qp_contract.cu): g [K1 * d, E] (row k * d + b)
+// and vol [E], element index fastest; u and f through four shared strides
+// (element, node, component, column) and m columns, one thread per
+// (element, column): planes [d, n, E] (m = 1) read and written in place,
+// element-major node rows [E, n, d m] (slot e n + a, value c m + j) staged
+// through shared memory by each warp, floor(32 / m) elements at a time
+// (csrc/stage_rows.cuh; the reason, and why a thread does not loop over the
+// columns, are kernel C's).  Both layouts run the same per-element
+// arithmetic (factored_element), so they give the same bits.
 //
 // Bound on the H100: memory, as for kernel C, which computes the same
 // function of the same inputs: 73 floats per element move (~22 us for the
@@ -55,13 +62,15 @@
 //   __syncthreads per group of 32 and unequal shares (8/8/7/7 of 30
 //   outputs): now one thread owns one element from load to store, with
 //   d1, A = S d1, f and the G2 in registers, so there is no barrier per
-//   element at all (one per block, after the tables are built).  A block
-//   walks many groups of 256 elements, so the table build is paid once.
+//   element (one per block, after the tables are built; in rows a warp's
+//   three __syncwarp a group, around its staging).  A block walks many
+//   groups of elements, so the table build is paid once.
 // To keep the live values of one element near 100 registers, the S product
 // runs first (d1, A and g live), f = g . A follows, and u is read again
-// from memory (an L1 or L2 hit) for the W phase (u, f and G2 live).
-// Global loads and stores are coalesced (256 consecutive elements per
-// block).  The shared-memory pipe is the likely bound: each broadcast
+// (an L1 or L2 hit in planes, the staged row in rows) for the W phase (u,
+// f and G2 live).
+// Global loads and stores are coalesced (consecutive elements on
+// consecutive lanes in planes, whole staged stretches in rows).  The shared-memory pipe is the likely bound: each broadcast
 // 16-byte load of S or W still returns 16 bytes to every lane, ~385 of them
 // per 32 elements.  Two elements a thread, which halves those loads, ran
 // slower on an H100: its registers left one block an SM.
@@ -69,6 +78,8 @@
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "stage_rows.cuh"
 
 namespace {
 
@@ -84,6 +95,7 @@ struct Shape {
   static constexpr int NG = K1 * (K1 + 1) / 2;       // G2[k, m], k <= m
   static constexpr int NGP = (NG + 3) / 4 * 4;
   static constexpr int NPAIR = NN * (NN + 1) / 2;    // W[i, j], i <= j
+  static constexpr int kTableBytes = (NBLK * 16 + NPAIR * NGP) * 4;
 };
 
 // index of block (rb, sb), rb <= sb, in the order rb-major
@@ -92,22 +104,157 @@ __host__ __device__ constexpr int block_index(int rb, int sb) {
   return rb * RB - rb * (rb - 1) / 2 + (sb - rb);
 }
 
-template <int DIM, int NN>
+struct Strides {
+  int64_t e, a, c, j;  // element, node, component, column
+};
+
+// One element and one column: u[c][j] = ld(c, j) (read twice), the forces
+// st(c, i, vol f[c][i]).
+template <int DIM, int NN, class Load, class Store>
+__device__ __forceinline__ void factored_element(
+    const float* sS, const float* sW, const float (&gk)[DIM + 1][DIM],
+    float v, Load ld, Store st) {
+  using Sh = Shape<DIM, NN>;
+  constexpr int K1 = Sh::K1, R = Sh::R, RB = Sh::RB;
+  constexpr int NG = Sh::NG, NGP = Sh::NGP;
+
+  // d1[(l, j)] = sum_c g[l, c] u[c, j]
+  float d1[RB * 4];
+  {
+    float u[DIM][NN];
+#pragma unroll
+    for (int c = 0; c < DIM; ++c)
+#pragma unroll
+      for (int j = 0; j < NN; ++j) u[c][j] = ld(c, j);
+#pragma unroll
+    for (int r = 0; r < RB * 4; ++r) {
+      float acc = 0.0f;
+      if (r < R) {
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) acc += gk[r / NN][c] * u[c][r % NN];
+      }
+      d1[r] = acc;
+    }
+  }
+
+  // A = S d1 over the stored blocks; an off-diagonal block serves both
+  // A[r] (row r of S) and A[s] (row s, by symmetry)
+  float A[RB * 4];
+#pragma unroll
+  for (int r = 0; r < RB * 4; ++r) A[r] = 0.0f;
+#pragma unroll
+  for (int rb = 0; rb < RB; ++rb) {
+#pragma unroll
+    for (int sb = rb; sb < RB; ++sb) {
+      const float4* blk = reinterpret_cast<const float4*>(sS)
+                          + block_index<RB>(rb, sb) * 4;
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) {
+        const float4 t4 = blk[r4];
+        const float t[4] = {t4.x, t4.y, t4.z, t4.w};
+        const int r = rb * 4 + r4;
+#pragma unroll
+        for (int s4 = 0; s4 < 4; ++s4) {
+          const int s = sb * 4 + s4;
+          if (r < R && s < R) {
+            A[r] += t[s4] * d1[s];
+            if (sb != rb) A[s] += t[s4] * d1[r];
+          }
+        }
+      }
+    }
+  }
+
+  // f[c, i] = sum_k g[k, c] A[(k, i)]
+  float f[DIM][NN];
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int i = 0; i < NN; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < K1; ++k) acc += gk[k][c] * A[k * NN + i];
+      f[c][i] = acc;
+    }
+
+  // G2[k, m] = g_k . g_m for k <= m
+  float G2[NGP];
+  {
+    int q = 0;
+#pragma unroll
+    for (int k = 0; k < K1; ++k)
+#pragma unroll
+      for (int m = k; m < K1; ++m, ++q) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) acc += gk[k][c] * gk[m][c];
+        G2[q] = acc;
+      }
+#pragma unroll
+    for (int r = NG; r < NGP; ++r) G2[r] = 0.0f;
+  }
+
+  // f[c, i] += sum_j W[i, j] u[c, j], one distinct W[i, j] at a time
+  {
+    float u[DIM][NN];
+#pragma unroll
+    for (int c = 0; c < DIM; ++c)
+#pragma unroll
+      for (int j = 0; j < NN; ++j) u[c][j] = ld(c, j);
+    int p = 0;
+#pragma unroll
+    for (int i = 0; i < NN; ++i)
+#pragma unroll
+      for (int j = i; j < NN; ++j, ++p) {
+        const float4* row = reinterpret_cast<const float4*>(sW + p * NGP);
+        float w = 0.0f;
+#pragma unroll
+        for (int q4 = 0; q4 < NGP / 4; ++q4) {
+          const float4 t4 = row[q4];
+          const float t[4] = {t4.x, t4.y, t4.z, t4.w};
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            if (q4 * 4 + s < NG) w += t[s] * G2[q4 * 4 + s];
+        }
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+          f[c][i] += w * u[c][j];
+          if (j != i) f[c][j] += w * u[c][i];
+        }
+      }
+  }
+
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int i = 0; i < NN; ++i) st(c, i, v * f[c][i]);
+}
+
+// M >= 0: element-major node rows, each warp staging a group of its own
+// elements in shared memory at a time, one lane per (element, column) of
+// the group, with M <= 32 columns (0: m at run time; kernel C says why a
+// compile-time M); M = -1: one thread per (element, column) item reads and
+// writes where the strides put the values.  Either way a block walks many
+// groups, so the table build is paid once a block.
+template <int DIM, int NN, int M>
 __global__ void __launch_bounds__(kThreads, 2)
 factored_contract_kernel(const float* __restrict__ g,
                          const float* __restrict__ vol,
                          const float* __restrict__ ue,
                          const float* __restrict__ T_g,
                          float* __restrict__ fe, float lam, float mu,
-                         int64_t E) {
+                         int64_t E, int m_rt, Strides st) {
+  constexpr bool ROWS = M >= 0;
+  const int m = M > 0 ? M : m_rt;
   using Sh = Shape<DIM, NN>;
   constexpr int K1 = Sh::K1, R = Sh::R, RB = Sh::RB;
   constexpr int NG = Sh::NG, NGP = Sh::NGP;
   __shared__ __align__(16) float sS[Sh::NBLK * 16];
   __shared__ __align__(16) float sW[Sh::NPAIR * NGP];
+  extern __shared__ __align__(16) float s_rows[];
 
   // S in 4 x 4 blocks (rb <= sb), each row-major, zero past R
-  for (int idx = threadIdx.x; idx < Sh::NBLK * 16; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < Sh::NBLK * 16; idx += blockDim.x) {
     int b = idx / 16, rb = 0;
     while (b >= RB - rb) { b -= RB - rb; ++rb; }
     const int r = rb * 4 + (idx % 16) / 4, s = (rb + b) * 4 + idx % 4;
@@ -120,191 +267,156 @@ factored_contract_kernel(const float* __restrict__ g,
     sS[idx] = v;
   }
   // W's coefficients: row (i <= j), column (k <= m), zero past NG
-  for (int idx = threadIdx.x; idx < Sh::NPAIR * NGP; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < Sh::NPAIR * NGP; idx += blockDim.x) {
     int p = idx / NGP, q = idx % NGP;
     float v = 0.0f;
     if (q < NG) {
       int i = 0, k = 0;
       while (p >= NN - i) { p -= NN - i; ++i; }
       while (q >= K1 - k) { q -= K1 - k; ++k; }
-      const int j = i + p, m = k + q;
-      v = __ldg(T_g + ((k * K1 + m) * NN + i) * NN + j);
-      if (k != m) v += __ldg(T_g + ((m * K1 + k) * NN + i) * NN + j);
+      const int j = i + p, m2 = k + q;
+      v = __ldg(T_g + ((k * K1 + m2) * NN + i) * NN + j);
+      if (k != m2) v += __ldg(T_g + ((m2 * K1 + k) * NN + i) * NN + j);
       v *= mu;
     }
     sW[idx] = v;
   }
   __syncthreads();
 
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       e < E; e += static_cast<int64_t>(gridDim.x) * kThreads) {
-    float gk[K1][DIM];
+  if constexpr (ROWS) {
+    // each warp walks its own groups of elements_per_warp(m) elements
+    const int P = DIM * NN * m, Pp = stage_rows::padded(P, m);
+    const int per_warp = stage_rows::elements_per_warp(m);
+    const int lane = threadIdx.x % 32, warps = blockDim.x / 32;
+    float* rows = s_rows + (threadIdx.x / 32) * per_warp * Pp;
+    const int q = lane / m, j = lane - q * m;
+    for (int64_t e0 = (static_cast<int64_t>(blockIdx.x) * warps
+                       + threadIdx.x / 32) * per_warp;
+         e0 < E; e0 += static_cast<int64_t>(gridDim.x) * warps * per_warp) {
+      const int ne = static_cast<int>(E - e0 < per_warp ? E - e0 : per_warp);
+      stage_rows::copy_in(rows, ue + e0 * P, ne * P, P, Pp, lane);
+      __syncwarp();
+      if (q < ne) {
+        const int64_t e = e0 + q;
+        float gk[K1][DIM];
 #pragma unroll
-    for (int k = 0; k < K1; ++k)
+        for (int k = 0; k < K1; ++k)
 #pragma unroll
-      for (int c = 0; c < DIM; ++c) gk[k][c] = __ldg(g + (k * DIM + c) * E + e);
-
-    // d1[(l, j)] = sum_c g[l, c] u[c, j]
-    float d1[RB * 4];
-    {
-      float u[DIM][NN];
-#pragma unroll
-      for (int c = 0; c < DIM; ++c)
-#pragma unroll
-        for (int j = 0; j < NN; ++j) u[c][j] = __ldg(ue + (c * NN + j) * E + e);
-#pragma unroll
-      for (int r = 0; r < RB * 4; ++r) {
-        float acc = 0.0f;
-        if (r < R) {
-#pragma unroll
-          for (int c = 0; c < DIM; ++c) acc += gk[r / NN][c] * u[c][r % NN];
-        }
-        d1[r] = acc;
+          for (int c = 0; c < DIM; ++c)
+            gk[k][c] = __ldg(g + (k * DIM + c) * E + e);
+        const float v = __ldg(vol + e);
+        float* col = rows + q * Pp + j;
+        factored_element<DIM, NN>(
+            sS, sW, gk, v,
+            [&](int c, int a) { return col[(a * DIM + c) * m]; },
+            [&](int c, int a, float x) { col[(a * DIM + c) * m] = x; });
       }
+      __syncwarp();
+      stage_rows::copy_out(fe + e0 * P, rows, ne * P, P, Pp, lane);
+      __syncwarp();
     }
-
-    // A = S d1 over the stored blocks; an off-diagonal block serves both
-    // A[r] (row r of S) and A[s] (row s, by symmetry)
-    float A[RB * 4];
-#pragma unroll
-    for (int r = 0; r < RB * 4; ++r) A[r] = 0.0f;
-#pragma unroll
-    for (int rb = 0; rb < RB; ++rb) {
-#pragma unroll
-      for (int sb = rb; sb < RB; ++sb) {
-        const float4* blk = reinterpret_cast<const float4*>(sS)
-                            + block_index<RB>(rb, sb) * 4;
-#pragma unroll
-        for (int r4 = 0; r4 < 4; ++r4) {
-          const float4 t4 = blk[r4];
-          const float t[4] = {t4.x, t4.y, t4.z, t4.w};
-          const int r = rb * 4 + r4;
-#pragma unroll
-          for (int s4 = 0; s4 < 4; ++s4) {
-            const int s = sb * 4 + s4;
-            if (r < R && s < R) {
-              A[r] += t[s4] * d1[s];
-              if (sb != rb) A[s] += t[s4] * d1[r];
-            }
-          }
-        }
-      }
-    }
-
-    // f[c, i] = sum_k g[k, c] A[(k, i)]
-    float f[DIM][NN];
-#pragma unroll
-    for (int c = 0; c < DIM; ++c)
-#pragma unroll
-      for (int i = 0; i < NN; ++i) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < K1; ++k) acc += gk[k][c] * A[k * NN + i];
-        f[c][i] = acc;
-      }
-
-    // G2[k, m] = g_k . g_m for k <= m
-    float G2[NGP];
-    {
-      int q = 0;
+  } else {
+    for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                     + threadIdx.x;
+         t < E * m; t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+      const int64_t j = m == 1 ? 0 : t / E, e = t - j * E;
+      float gk[K1][DIM];
 #pragma unroll
       for (int k = 0; k < K1; ++k)
 #pragma unroll
-        for (int m = k; m < K1; ++m, ++q) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int c = 0; c < DIM; ++c) acc += gk[k][c] * gk[m][c];
-          G2[q] = acc;
-        }
-#pragma unroll
-      for (int r = NG; r < NGP; ++r) G2[r] = 0.0f;
+        for (int c = 0; c < DIM; ++c)
+          gk[k][c] = __ldg(g + (k * DIM + c) * E + e);
+      const float v = __ldg(vol + e);
+      const float* u_e = ue + e * st.e + j * st.j;
+      float* f_e = fe + e * st.e + j * st.j;
+      factored_element<DIM, NN>(
+          sS, sW, gk, v,
+          [&](int c, int a) { return __ldg(u_e + a * st.a + c * st.c); },
+          [&](int c, int a, float x) { f_e[a * st.a + c * st.c] = x; });
     }
-
-    // f[c, i] += sum_j W[i, j] u[c, j], one distinct W[i, j] at a time
-    {
-      float u[DIM][NN];
-#pragma unroll
-      for (int c = 0; c < DIM; ++c)
-#pragma unroll
-        for (int j = 0; j < NN; ++j) u[c][j] = __ldg(ue + (c * NN + j) * E + e);
-      int p = 0;
-#pragma unroll
-      for (int i = 0; i < NN; ++i)
-#pragma unroll
-        for (int j = i; j < NN; ++j, ++p) {
-          const float4* row = reinterpret_cast<const float4*>(sW + p * NGP);
-          float w = 0.0f;
-#pragma unroll
-          for (int q4 = 0; q4 < NGP / 4; ++q4) {
-            const float4 t4 = row[q4];
-            const float t[4] = {t4.x, t4.y, t4.z, t4.w};
-#pragma unroll
-            for (int s = 0; s < 4; ++s)
-              if (q4 * 4 + s < NG) w += t[s] * G2[q4 * 4 + s];
-          }
-#pragma unroll
-          for (int c = 0; c < DIM; ++c) {
-            f[c][i] += w * u[c][j];
-            if (j != i) f[c][j] += w * u[c][i];
-          }
-        }
-    }
-
-    const float v = __ldg(vol + e);
-#pragma unroll
-    for (int c = 0; c < DIM; ++c)
-#pragma unroll
-      for (int i = 0; i < NN; ++i) fe[(c * NN + i) * E + e] = v * f[c][i];
   }
 }
 
 template <int DIM, int NN>
 int launch(const void* g, const void* vol, const void* ue, const void* T,
-           void* fe, float lam, float mu, int64_t E, cudaStream_t stream) {
-  auto kernel = factored_contract_kernel<DIM, NN>;
-  // blocks resident at once on each device, worked out at the first launch
-  // there; 0 = not yet
-  static std::atomic<int> resident_on[kMaxDevices];
+           void* fe, float lam, float mu, int64_t E, int m, Strides s,
+           cudaStream_t stream) {
+  const int P = DIM * NN * m;
+  // element-major rows with at most 32 columns stage; any other strides,
+  // rows with more columns too, take the direct path
+  const bool rows = s.e == P && s.a == DIM * m && s.c == m && s.j == 1
+                    && m <= 32;
+  auto kernel = !rows ? factored_contract_kernel<DIM, NN, -1>
+                : m == 1 ? factored_contract_kernel<DIM, NN, 1>
+                : m == 3 ? factored_contract_kernel<DIM, NN, 3>
+                : m == 6 ? factored_contract_kernel<DIM, NN, 6>
+                         : factored_contract_kernel<DIM, NN, 0>;
+  // a block holds kThreads / 32 warps; a group is a warp's elements in
+  // rows, a block's (element, column) items otherwise
+  int smem = 0;
+  int64_t per_group = kThreads;
+  if (rows) {
+    per_group = stage_rows::elements_per_warp(m);
+    smem = (kThreads / 32) * per_group * stage_rows::padded(P, m)
+           * static_cast<int>(sizeof(float));
+    if (smem + Shape<DIM, NN>::kTableBytes > 48 * 1024)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int threads = kThreads;
+  // blocks resident at once on each device, for each layout and column
+  // count, worked out at the first launch there (0 = not yet)
+  static std::atomic<int64_t> resident_on[kMaxDevices][2];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  int resident = resident_on[dev].load(std::memory_order_relaxed);
+  const int64_t key = rows ? m : 0;
+  const int64_t cached = resident_on[dev][rows].load(std::memory_order_relaxed);
+  int resident = (cached >> 32) == key ? static_cast<int>(cached & 0xffffffff)
+                                       : 0;
   if (resident == 0) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kThreads, 0);
+                                                          threads, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     resident = sms * (per_sm > 0 ? per_sm : 1);
-    resident_on[dev].store(resident, std::memory_order_relaxed);
+    resident_on[dev][rows].store((key << 32) | resident,
+                                 std::memory_order_relaxed);
   }
-  const int64_t groups = (E + kThreads - 1) / kThreads;
+  const int64_t groups = rows
+      ? (E + per_group * (kThreads / 32) - 1) / (per_group * (kThreads / 32))
+      : (E * m + per_group - 1) / per_group;
   const unsigned blocks =
       static_cast<unsigned>(groups < resident ? groups : resident);
-  kernel<<<blocks, kThreads, 0, stream>>>(
+  kernel<<<blocks, threads, smem, stream>>>(
       static_cast<const float*>(g), static_cast<const float*>(vol),
       static_cast<const float*>(ue), static_cast<const float*>(T),
-      static_cast<float*>(fe), lam, mu, E);
+      static_cast<float*>(fe), lam, mu, E, m, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // cfg: (dim, deg) = 0 (3, 2), 1 (3, 1), 2 (2, 2), 3 (2, 1).  T is the
-// gradgrad table [K1, K1, n, n] float32, row-major, in device memory.
+// gradgrad table [K1, K1, n, n] float32, row-major, in device memory.  ue
+// and fe share the strides (s_e, s_a, s_c, s_j) and m columns;
+// element-major rows (s_e = n d m, s_a = d m, s_c = m, s_j = 1) take the
+// staged kernel.
 extern "C" int factored_contract_f32(int cfg, const void* g, const void* vol,
                                      const void* ue, const void* T, void* fe,
-                                     float lam, float mu, int64_t E,
-                                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (E <= 0) return static_cast<int>(cudaGetLastError());
+                                     float lam, float mu, int64_t E, int m,
+                                     int64_t s_e, int64_t s_a, int64_t s_c,
+                                     int64_t s_j, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Strides s{s_e, s_a, s_c, s_j};
+  if (E <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
   switch (cfg) {
-    case 0: return launch<3, 10>(g, vol, ue, T, fe, lam, mu, E, s);
-    case 1: return launch<3, 4>(g, vol, ue, T, fe, lam, mu, E, s);
-    case 2: return launch<2, 6>(g, vol, ue, T, fe, lam, mu, E, s);
-    case 3: return launch<2, 3>(g, vol, ue, T, fe, lam, mu, E, s);
+    case 0: return launch<3, 10>(g, vol, ue, T, fe, lam, mu, E, m, s, st);
+    case 1: return launch<3, 4>(g, vol, ue, T, fe, lam, mu, E, m, s, st);
+    case 2: return launch<2, 6>(g, vol, ue, T, fe, lam, mu, E, m, s, st);
+    case 3: return launch<2, 3>(g, vol, ue, T, fe, lam, mu, E, m, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

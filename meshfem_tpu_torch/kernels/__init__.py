@@ -3,10 +3,12 @@
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises), counting launches in
 ``<wrapper>.launches``.  Kernels A and B have one wrapper per layout
-(planes for the factored contractions, node rows for the dense ones), so
-the counts show which layout a path ran; kernel B's wrappers and kernel A
-in rows also count their float64 launches apart, in
-``<wrapper>.launches_f64``.
+(node rows, which every routed apply runs in, and component planes, on no
+path: the composition the rows applies are held against), so the counts
+show which layout a path ran; kernel B's wrappers and kernel A in rows
+also count their float64 launches apart, in ``<wrapper>.launches_f64``,
+and kernels C and D their launches in node rows, in
+``<wrapper>.launches_rows``.
 """
 
 from .gather import (gather_planes, gather_planes_plain,  # noqa: F401
@@ -27,5 +29,6 @@ WRAPPERS = (gather_planes, gather_rows, segment_sum_csr, segment_sum_rows,
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
-        if hasattr(w, "launches_f64"):
-            w.launches_f64 = 0
+        for part in ("launches_f64", "launches_rows"):
+            if hasattr(w, part):
+                setattr(w, part, 0)

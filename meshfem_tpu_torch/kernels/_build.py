@@ -24,6 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("gather_planes.cu", "segment_sum_csr.cu", "qp_contract.cu",
            "factored_contract.cu", "element_stiffness.cu",
            "route_window.cu")
+HEADERS = ("stage_rows.cuh",)      # included by sources; hashed with them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,7 +46,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Path of the shared library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libmeshfem_kernels_{h.hexdigest()[:16]}.so"
@@ -104,8 +105,10 @@ def load() -> ctypes.CDLL:
         for fn in (lib.segment_sum_f32, lib.segment_sum_f64):
             fn.argtypes = [P, P, P, P, I, L, L, L, L, L, P]
         lib.qp_set_tables.argtypes = [I, P, I, P, I]
-        lib.qp_contract_f32.argtypes = [I, P, P, P, P, F, F, L, P]
-        lib.factored_contract_f32.argtypes = [I, P, P, P, P, P, F, F, L, P]
+        lib.qp_contract_f32.argtypes = [I, P, P, P, P, F, F, L, I, L, L, L,
+                                        L, P]
+        lib.factored_contract_f32.argtypes = [I, P, P, P, P, P, F, F, L, I,
+                                              L, L, L, L, P]
         lib.element_stiffness_f32.argtypes = [I, P, P, P, P, P, L, P]
         lib.route_window_f32.argtypes = [P, P, P, P, P, I, L, L, I, P]
         for fn in (lib.gather_planes_f32, lib.gather_rows_f32,

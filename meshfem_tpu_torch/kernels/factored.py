@@ -18,13 +18,18 @@ in two reassociated products: ``lam m1 + mu m2 = S d1`` with the symmetric
 ``S[(k,i),(l,j)] = lam T[k,l,i,j] + mu T[l,k,i,j]``, and ``mu sum_km G2[km]
 q_c = W u_c`` with the symmetric ``W = mu sum_km G2[km] T[k,m]``: ~2.7k
 multiply-adds per element at dim 3 / deg 2 instead of the table form's
-~8.9k, on the FP32 cores, one thread per element with no barrier, S and W's
-coefficients in shared memory; design notes are in
+~8.9k, on the FP32 cores, one thread per element and column (no block
+barrier past the table build; in rows a warp's three ``__syncwarp`` a
+group, around its staging), S and W's coefficients in shared memory; design notes are in
 ``csrc/factored_contract.cu``.  The plain version below keeps the TPU
 kernel's order of operations.
 
-Layout: ``g [K1*d, E]`` (row ``k*d + b``), ``vol [E]``, ``ue [d, n, E]`` ->
-``fe [d, n, E]``.
+Layout: kernel C's (``kernels/qp.py``): ``g [K1*d, E]`` (row ``k*d + b``)
+and ``vol [E]``; ``ue`` and ``fe`` as planes ``[d, n, E]`` or as
+element-major node rows ``[E*n, d*m]`` (``rows=True``), read and written
+through four strides and m columns, one thread per (element, column),
+rows staged through shared memory by each warp, with the same bits from
+either layout.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch
 
 from ..ops.element_matrices import gradgrad_table
 from . import _build
-from .qp import CONFIGS, _degree
+from .qp import CONFIGS, _degree, check_contract_args, layout, per_column
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,9 +51,12 @@ def _table_on(d: int, deg: int, dtype: torch.dtype, device: torch.device):
                            device=device)
 
 
-def factored_contract_plain(g, vol, ue, lam, mu):
-    """Plain PyTorch version: the same table form, batched over elements."""
-    d, n, E = ue.shape
+def factored_contract_plain(g, vol, ue, lam, mu, rows: bool = False):
+    """Plain PyTorch version: the same table form, batched over elements;
+    rows go through it column by column."""
+    if rows:
+        return per_column(factored_contract_plain, g, vol, ue, lam, mu)
+    d, n, E, _, _ = layout(g, ue, False, "factored_contract")
     T = _table_on(d, _degree(d, n), g.dtype, g.device)
     gl = g.reshape(d + 1, d, E)
     d1 = torch.einsum("kce,cje->kje", gl, ue)
@@ -61,30 +69,21 @@ def factored_contract_plain(g, vol, ue, lam, mu):
     return vol * (mu * f1 + f23)
 
 
-def factored_contract(g, vol, ue, lam: float, mu: float) -> torch.Tensor:
-    """g [K1*d, E], vol [E], ue [d, n, E] float32 -> fe [d, n, E].
+def factored_contract(g, vol, ue, lam: float, mu: float,
+                      rows: bool = False) -> torch.Tensor:
+    """g [K1*d, E], vol [E] float32; ue planes [d, n, E], or element-major
+    rows [E*n, d*m] when ``rows`` -> fe of ue's shape.
 
-    The dimension and degree (P1 or P2) follow from ue's shape, and the
-    table from them (``_table_on``).  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel (or
-    raises)."""
+    The dimension and degree (P1 or P2) follow from the shapes, and the
+    table from them (``_table_on``).  A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel (or raises).  Launches in rows are
+    also counted in ``launches_rows``."""
     if g.device.type == "cpu":
-        return factored_contract_plain(g, vol, ue, lam, mu)
-    d, n, E = ue.shape
+        return factored_contract_plain(g, vol, ue, lam, mu, rows)
+    d, n, E, m, strides = check_contract_args("factored_contract", g, vol,
+                                              ue, rows)
     deg = _degree(d, n)
-    if (d, deg) not in CONFIGS:
-        raise ValueError(f"factored_contract: no kernel for dim {d}, "
-                         f"degree {deg}")
     cfg = CONFIGS[(d, deg)][0]
-    _build.check_cuda_args("factored_contract", g, dtypes=(torch.float32,))
-    for t, shape in ((vol, (E,)), (ue, (d, n, E))):
-        if t.device != g.device or t.dtype != torch.float32 \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"factored_contract: expected contiguous "
-                             f"float32 {shape} on {g.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if tuple(g.shape) != ((d + 1) * d, E):
-        raise ValueError(f"factored_contract: g must be {((d + 1) * d, E)}")
     T = _table_on(d, deg, torch.float32, g.device)
     if tuple(T.shape) != (d + 1, d + 1, n, n) or not T.is_contiguous():
         raise RuntimeError(f"factored_contract: table {tuple(T.shape)} does "
@@ -92,11 +91,13 @@ def factored_contract(g, vol, ue, lam: float, mu: float) -> torch.Tensor:
     fe = torch.empty_like(ue)
     rc = _build.load().factored_contract_f32(
         cfg, g.data_ptr(), vol.data_ptr(), ue.data_ptr(), T.data_ptr(),
-        fe.data_ptr(), float(lam), float(mu), E,
+        fe.data_ptr(), float(lam), float(mu), E, m, *strides,
         torch.cuda.current_stream(g.device).cuda_stream)
     _build.check(rc, "factored_contract")
     factored_contract.launches += 1
+    factored_contract.launches_rows += rows
     return fe
 
 
 factored_contract.launches = 0
+factored_contract.launches_rows = 0

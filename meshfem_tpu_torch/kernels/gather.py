@@ -2,11 +2,13 @@
 two output layouts:
 
 * ``gather_planes``: ``out[p, s] = src[p, ids[s]]``, planes ``[P, S]``,
-  for kernels C and D, which read ``[d, n, E]``;
+  on no path: the factored rows applies are held bit for bit against the
+  planes composition built on it;
 * ``gather_rows``: ``out[s, p] = src(ids[s], p)``, rows ``[S, P]``, from
   node rows ``[N, P]`` or from planes ``[P, N]`` read through strides.
   With element-major slots (``s = e * n + a``) the output is the dense
-  contraction's ``bmm`` operand ``[E, n*d, m]`` under the node-major Ke.
+  contraction's ``bmm`` operand ``[E, n*d, m]`` under the node-major Ke,
+  and what kernels C and D read in rows.
   Float64 node rows move as float32 pairs (a gather copies bits, so the
   float32 kernel serves them unchanged): the two-level preconditioner's
   prolongation in a float64 solve.

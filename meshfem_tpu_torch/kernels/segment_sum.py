@@ -2,17 +2,20 @@
 ``out(v, p) = sum_{k in [offsets[v], offsets[v+1])} src(perm[k], p)``, in
 two input layouts:
 
-* ``segment_sum_csr``: contribution planes ``[P, S]`` -> ``[P, N]``, for
-  kernels C and D, which write ``[d, n, E]``;
+* ``segment_sum_csr``: contribution planes ``[P, S]`` -> ``[P, N]``, on
+  no path: the factored rows applies are held bit for bit against the
+  planes composition built on it;
 * ``segment_sum_rows``: contribution rows ``[R, P]`` -> node rows
   ``[N, P]``, or planes ``[P, N]`` written through strides.
 
 Both launch one kernel (``csrc/segment_sum_csr.cu``), in float32 or
-float64: a block stages the contribution rows of its destinations in
-shared memory with every thread's loads in flight, then each (destination,
-plane) thread sums its run in increasing ``k``.  No atomics, the same bits
-every run, and the same bits from rows and planes given the same
-contributions in the same order.
+float64: one thread per (destination, plane) value walks its
+destination's run in increasing ``k``, in rounds of 8 contributions whose
+index and value loads are all in flight together, and adds in that order
+in one register (staging a block's contribution rows in shared memory was
+tried and dropped: level at 3 values a node, slower at 18).  No atomics,
+the same bits every run, and the same bits from rows and planes given the
+same contributions in the same order.
 
 Replaces ``meshfem_tpu/sparse/route.py::_reduce_kernel_p`` (:162),
 ``::_reduce_kernel`` (:207) and RoutedEBE's SumPlan scatter ladder; its

@@ -13,21 +13,26 @@ Counterpart of ``meshfem_tpu/sparse/routed_ebe.py::RoutedEBE``.  An apply
    when ``MESHFEM_FACTORED_TQ=1``, read as the reference reads it (:720);
 3. kernel B, slots -> nodes in a fixed order.
 
-The two backends keep their data in the layout their contraction reads:
+Both backends run in NODE ROWS: slots are element-major (``ids_em``,
+``s = e * n + a``), and kernel A's rows output ``[E*n, d*m]`` (value
+``c * m + j``) is what the contraction reads and writes, and what kernel B
+sums:
 
-* dense: NODE ROWS.  ``KeP`` keeps ``Ke``'s node-major dof order
-  (``a * d + c``); slots are element-major (``ids_em``, ``s = e * n + a``),
-  so kernel A's rows output ``[E*n, d*m]`` IS the ``bmm`` operand
-  ``[E, n*d, m]`` and the ``bmm`` result is kernel B's rows input.
-  ``apply_block`` reads ``U [N, d, m]`` and writes ``[N, d, m]`` as they
-  lie; ``apply_planes`` reads and writes the CG's ``[d, N]`` planes through
-  kernel A's and B's strides.  No layout copy on either;
-* factored: component PLANES ``[d, n*E]``, slots element-fastest
-  (``ids``, ``s = a * E + e``), which kernels C and D read coalesced.
+* dense: ``KeP`` keeps ``Ke``'s node-major dof order (``a * d + c``), so
+  the rows ARE the ``bmm`` operand ``[E, n*d, m]`` and the ``bmm`` result
+  is kernel B's rows input;
+* factored: kernel C (or D) reads the rows and writes forces of the same
+  shape, all m columns of a block in one launch, staging each block's
+  elements through shared memory (``kernels/qp.py``).
 
-``plan_em`` is ``plan`` with each slot ``a * E + e`` renumbered
-``e * n + a``, so both layouts sum every node's contributions in the same
-order.  The reference's chain buckets, windows, superblocks, 128-lane
+``apply_block`` reads ``U [N, d, m]`` and writes ``[N, d, m]`` as they
+lie; ``apply_planes`` reads and writes the CG's ``[d, N]`` planes through
+kernel A's and B's strides.  No layout copy on any apply.  The
+slot-major ``ids`` and ``plan`` (``s = a * E + e``) feed kernels A and B in
+component planes, the composition the tests and ``chip_smoke.py`` hold the
+factored applies against bit for bit; ``plan_em`` is ``plan`` with each
+slot ``a * E + e`` renumbered ``e * n + a``, so both sum every node's
+contributions in the same order.  The reference's chain buckets, windows, superblocks, 128-lane
 padding and scatter ladder work around the TPU's lane-rigid gather and are
 not carried over.
 
@@ -51,8 +56,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..kernels import (factored_contract, gather_planes, gather_rows,
-                       qp_contract)
+from ..kernels import factored_contract, gather_rows, qp_contract
 from ..mesh.reorder import rcb_order
 from ..ops.element_matrices import gradgrad_table
 from .scatter import ScatterPlan, _INT32_MAX
@@ -178,42 +182,39 @@ class RoutedEBE:
         return y if self.rank is None else y[self.rank]
 
     def _contract(self, ue):
-        """Factored backend: ue [d, n*E] gathered element values -> forces
-        [d, n*E] (kernel C, or D under ``MESHFEM_FACTORED_TQ=1``)."""
-        d, n, E = self.vector_dim, self.nodes_per_elem, self.num_elements
+        """Factored backend: ue [E*n, d*m] element-major rows -> forces of
+        the same shape (kernel C, or D under ``MESHFEM_FACTORED_TQ=1``), one
+        launch for all m columns."""
         kernel = (factored_contract
                   if os.environ.get("MESHFEM_FACTORED_TQ") == "1"
                   else qp_contract)
-        return kernel(self.g, self.vol, ue.reshape(d, n, E).contiguous(),
-                      self.lam, self.mu).reshape(d, n * E)
+        return kernel(self.g, self.vol, ue, self.lam, self.mu, rows=True)
 
-    def _dense(self, src, planes_in: bool, planes_out: bool):
-        """Dense backend on P = d*m values a node: kernel A (rows) -> one
-        ``bmm`` with the node-major ``KeP`` -> kernel B (rows).  src [N, P]
-        node rows or [P, N] planes; returns the same choice of layout."""
-        E, nd = self.num_elements, self.nodes_per_elem * self.vector_dim
+    def _apply_rows(self, src, planes_in: bool, planes_out: bool):
+        """Either backend on P = d*m values a node: kernel A (rows) -> the
+        contraction (one ``bmm`` with the node-major ``KeP``, or kernel C
+        or D) -> kernel B (rows).  src [N, P] node rows or [P, N] planes;
+        returns the same choice of layout."""
         ue = gather_rows(src, self.ids_em, planes_in=planes_in)  # [E*n, P]
-        m = ue.shape[1] // self.vector_dim
-        fe = torch.bmm(self.KeP, ue.view(E, nd, m))
-        return self.plan_em.sum_rows(fe.view(ue.shape), planes_out)
+        if self.KeP is None:
+            fe = self._contract(ue)
+        else:
+            E, nd = self.num_elements, self.nodes_per_elem * self.vector_dim
+            m = ue.shape[1] // self.vector_dim
+            fe = torch.bmm(self.KeP, ue.view(E, nd, m)).view(ue.shape)
+        return self.plan_em.sum_rows(fe, planes_out)
 
     def apply_planes(self, src: torch.Tensor) -> torch.Tensor:
         """Plane-native apply: ``src [d, N] -> A src [d, N]`` (float32)."""
-        src = src.to(config.SOLVE).contiguous()
-        if self.KeP is not None:
-            return self._dense(src, planes_in=True, planes_out=True)
-        return self.plan.sum_planes(self._contract(gather_planes(src,
-                                                                 self.ids)))
+        return self._apply_rows(src.to(config.SOLVE).contiguous(),
+                                planes_in=True, planes_out=True)
 
     def __call__(self, u: torch.Tensor) -> torch.Tensor:
         """u [N] (d = 1) or [N, d] -> A u in the same layout (float32)."""
-        d = self.vector_dim
-        src = u.to(config.SOLVE).reshape(self.num_dofs, d)
-        if self.KeP is not None:
-            y = self._dense(src.contiguous(), planes_in=False,
-                            planes_out=False)
-            return y.reshape(u.shape)
-        return self.apply_planes(src.t()).t().reshape(u.shape)
+        src = u.to(config.SOLVE).reshape(self.num_dofs, self.vector_dim)
+        y = self._apply_rows(src.contiguous(), planes_in=False,
+                             planes_out=False)
+        return y.reshape(u.shape)
 
     def diagonal_planes(self) -> torch.Tensor:
         """Assembled operator diagonal (Jacobi) in plane layout [d, N]."""
@@ -234,7 +235,8 @@ class RoutedEBE:
         dirn = (self.lam + self.mu) * torch.einsum(
             "kla,kce,lce->cae", Taa, gl, gl)
         de = self.vol * (iso[None] + dirn)                      # [d, n, E]
-        return self.plan.sum_planes(de.contiguous().reshape(d, n * E))
+        return self.plan_em.sum_rows(de.permute(2, 1, 0).reshape(E * n, d),
+                                     planes_out=True)
 
     def diagonal(self) -> torch.Tensor:
         """Operator diagonal in the user layout [N] / [N, d]."""
@@ -244,25 +246,14 @@ class RoutedEBE:
     def apply_block(self, U: torch.Tensor) -> torch.Tensor:
         """Multi-RHS apply: ``U [N, d, m] -> A U`` (also ``[N, m]`` when
         d == 1), float32.  One gather and one segment sum serve all
-        ``d * m`` values of a node.  Dense backend: kernel A reads ``U``'s
-        node rows as they lie, ONE ``torch.bmm`` of ``KeP`` with
-        ``[E, n*d, m]`` reads the stiffness once for all columns (an XLA
-        einsum in the reference, :840), kernel B writes ``[N, d, m]``.
-        Factored backend: planes ``p = c*m + j``, the contraction kernel
-        per column, as the reference runs it (:844)."""
-        d, n, E = self.vector_dim, self.nodes_per_elem, self.num_elements
-        N = self.num_dofs
-        m = U.shape[-1]
-        U = U.to(config.SOLVE)
-        if self.KeP is not None:
-            y = self._dense(U.reshape(N, d * m).contiguous(),
-                            planes_in=False, planes_out=False)
-            return y.reshape(U.shape)
-        src = U.reshape(N, d, m).permute(1, 2, 0) \
-            .reshape(d * m, N).contiguous()              # plane p = c*m + j
-        ue = gather_planes(src, self.ids).reshape(d, m, n, E)
-        fe = torch.stack(
-            [self._contract(ue[:, j].reshape(d, n * E)).reshape(d, n, E)
-             for j in range(m)], dim=1)
-        y = self.plan.sum_planes(fe.reshape(d * m, n * E))
-        return y.reshape(d, m, N).permute(2, 0, 1).reshape(U.shape)
+        ``d * m`` values of a node: kernel A reads ``U``'s node rows as they
+        lie and kernel B writes ``[N, d, m]``.  Between them the dense
+        backend runs ONE ``torch.bmm`` of ``KeP`` with ``[E, n*d, m]``,
+        reading the stiffness once for all columns (an XLA einsum in the
+        reference, :840), and the factored one ONE launch of kernel C or D
+        over all m columns (the reference runs its contraction per column,
+        :844)."""
+        N, d, m = self.num_dofs, self.vector_dim, U.shape[-1]
+        y = self._apply_rows(U.to(config.SOLVE).reshape(N, d * m)
+                             .contiguous(), planes_in=False, planes_out=False)
+        return y.reshape(U.shape)

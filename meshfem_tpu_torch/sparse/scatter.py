@@ -6,9 +6,10 @@ scatters are slow; on the GPU one plan (``perm``: rows sorted stably by
 segment, ``offsets [N+1]``) feeds kernel B (``kernels/segment_sum.py``),
 whose per-segment sums run in a fixed order: bit-for-bit deterministic,
 no atomics, in float32 or float64.  Contributions come as rows ``[R, w]``
-(``__call__``, ``sum_rows``: the f64 EBE operator, node blocks, the dense
-routed applies) or as planes ``[P, R]`` (``sum_planes``: the factored
-routed contractions); rows are summed as they lie, with no transpose.
+(``__call__``, ``sum_rows``: the f64 EBE operator, node blocks, both
+routed backends) or as planes ``[P, R]`` (``sum_planes``: on no path, the
+planes composition the factored applies are held against); rows are
+summed as they lie, with no transpose.
 """
 
 from __future__ import annotations

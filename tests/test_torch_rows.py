@@ -210,11 +210,12 @@ def test_dense_applies_match_reference(p2_cell):
 @pytest.mark.parametrize("factored", [False, True])
 def test_block_apply_takes_its_backends_layout(p2_cell, monkeypatch,
                                                factored):
-    """The dense block apply runs kernel A and B in rows, once each, and
-    never in planes; the factored one keeps planes."""
+    """Both backends' block applies run kernels A and B in rows, once each,
+    and never in planes.  The kernels' plain versions, which the wrappers
+    look up at call time, record every call from any module."""
     from meshfem_tpu_torch.fem import elasticity_tensor as et
-    from meshfem_tpu_torch.sparse import routed_ebe as re_mod
-    from meshfem_tpu_torch.sparse import scatter as sc_mod
+    from meshfem_tpu_torch.kernels import gather as gather_mod
+    from meshfem_tpu_torch.kernels import segment_sum as seg_mod
     from meshfem_tpu_torch.sparse.routed_ebe import RoutedEBE
 
     calls = []
@@ -223,14 +224,14 @@ def test_block_apply_takes_its_backends_layout(p2_cell, monkeypatch,
         inner = getattr(mod, name)
 
         def wrapper(*args, **kw):
-            calls.append(name)
+            calls.append(name[:-len("_plain")])
             return inner(*args, **kw)
         monkeypatch.setattr(mod, name, wrapper)
 
-    for name in ("gather_rows", "gather_planes"):
-        recording(re_mod, name)
-    for name in ("segment_sum_rows", "segment_sum_csr"):
-        recording(sc_mod, name)
+    for name in ("gather_rows_plain", "gather_planes_plain"):
+        recording(gather_mod, name)
+    for name in ("segment_sum_rows_plain", "segment_sum_csr_plain"):
+        recording(seg_mod, name)
     sim, _, _ = p2_cell
     mesh = sim.mesh
     factor = None
@@ -240,8 +241,7 @@ def test_block_apply_takes_its_backends_layout(p2_cell, monkeypatch,
     rk = RoutedEBE.build(None if factored else sim.Ke, mesh.elem_nodes,
                          mesh.num_nodes, 3, factor=factor, device="cpu")
     rk.apply_block(torch.randn(mesh.num_nodes, 3, 6))
-    assert calls == (["gather_planes", "segment_sum_csr"] if factored
-                     else ["gather_rows", "segment_sum_rows"])
+    assert calls == ["gather_rows", "segment_sum_rows"]
 
 
 def test_ebe_block_apply_f64_matches_reference(p2_cell):

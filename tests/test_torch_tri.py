@@ -316,9 +316,9 @@ def _port_cantilever(c):
 def test_cantilever_matches_reference(cantilever, backend, monkeypatch):
     """The clamped P1/P2 cantilever: loads and masks equal (loads 1e-14);
     u from the float64 EBE CG and from the routed float32 CG inside float64
-    refinement (dense: A rows and B rows at 2 values a node; factored C and
-    D: A and B in 2 planes) against the reference's EBE solve, 1e-10
-    relative; the routed f64 residual <= tol."""
+    refinement (A rows and B rows at 2 values a node, between them the
+    dense ``bmm`` or the factored C or D in rows) against the reference's
+    EBE solve, 1e-10 relative; the routed f64 residual <= tol."""
     monkeypatch.delenv("MESHFEM_FACTORED", raising=False)
     monkeypatch.delenv("MESHFEM_FACTORED_TQ", raising=False)
     if backend in ("factored", "tq"):
@@ -545,7 +545,7 @@ def test_routed_2d_plans(deg, monkeypatch):
     """The 2D routed operator through the kernels' plain versions: the
     dense apply at 2 values a node (A rows, ``bmm``, B rows) and the block
     apply of 3 columns at 6 values a node against the float64 EBE operator
-    (5e-6 relative, float32), and the factored C and D applies in planes
+    (5e-6 relative, float32), and the factored C and D applies in rows
     against the dense one (5e-6)."""
     V, F = rgen.grid_tri(5, 4)
     mesh = FEMMesh(V, F, degree=deg)

@@ -238,8 +238,15 @@ of which raises on failure:
    as ``algorithm_ops_ms`` (D: the reassociated table form; E: the
    material-first contraction with H's symmetry, at the float64 rate it
    runs at), and the compiler's
-   register, shared-memory and spill report (``-Xptxas -v``) of D and E
-   as ``ptxas``;
+   register, shared-memory and spill report (``-Xptxas -v``) of C, D and
+   E as ``ptxas``; each line's ``bound_share`` is its bound over its
+   time; C's lines also carry ``clean_l2_ms``, the same timer with the L2
+   flushed by a read (the flush's ``zero_()`` leaves dirty lines that the
+   timed launch writes back); C in node rows runs its persistent
+   pipelined path (a warp's next tile in flight by one bulk asynchronous
+   copy while it computes the current one from shared memory and the
+   previous one drains out), C in planes its direct path, both with the
+   tables compiled in;
    A and B also at the shell correction's shapes, and the structured conv
    alone with the same timer;
    each kernel line also carries ``launches_bc_paths``, its launches on
@@ -293,7 +300,9 @@ class Timer:
     for ~1 ms after the flush, so the host has queued the call before the
     first event fires: the events time the device, not the host's Python
     and launch path (tens of microseconds on a busy host, as much as a
-    small kernel)."""
+    small kernel).  The flush writes, so the L2 it leaves is dirty and the
+    timed launch pays for writing it back as it evicts it; ``clean=True``
+    flushes by reading instead, which times the kernel alone."""
 
     SPIN_CYCLES = 2_000_000
 
@@ -301,12 +310,15 @@ class Timer:
         self.flush_buf = torch.empty(128 << 20, dtype=torch.int8,
                                      device=device)
 
-    def __call__(self, fn, reps=15, warmup=2):
+    def __call__(self, fn, reps=15, warmup=2, clean=False):
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(reps):
-            self.flush_buf.zero_()
+            if clean:
+                self.flush_buf.view(torch.int32).sum()
+            else:
+                self.flush_buf.zero_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(self.SPIN_CYCLES)
@@ -2266,11 +2278,12 @@ def drive_2d(dev):
     return out, paths, hsim
 
 
-def kernels_2d(dev, entry, paths, hsim):
+def kernels_2d(dev, entry, paths, hsim, ptxas=None):
     """13e: kernels A-E held against their plain versions at their 2D
     shapes (the uncut P1 and P2 cantilever meshes, whose operators the
     cut paths share in form, and the 13c cell's operator at 6 values a
-    node), then timed with ``entry``."""
+    node), then timed with ``entry``; ``ptxas``: source -> its compiler
+    report lines, kept in C's lines."""
     from meshfem_tpu_torch import kernels
     from meshfem_tpu_torch.fem import elasticity_tensor as et
     from meshfem_tpu_torch.ops import element_matrices as em
@@ -2407,8 +2420,11 @@ def kernels_2d(dev, entry, paths, hsim):
                                                 mu, rows=True),
               lambda: torch.bmm(KeP, ue_dense), c_bytes, qp_flops * E,
               max_rel_err=rel_c,
+              ptxas=(ptxas or {}).get("qp_contract.cu", []),
               timed=dict(planes_ms=lambda: kernels.qp_contract(
                   rkf.g, rkf.vol, ue, lam, mu)),
+              timed_clean=dict(clean_l2_ms=lambda: kernels.qp_contract(
+                  rkf.g, rkf.vol, ue_rows, lam, mu, rows=True)),
               mode=f"element-major rows [E*{nn}, 2], as 13b's applies run "
                    f"it (planes_ms: the kernel in planes [2, {nn}, E])",
               launches_path="13b P2 factored" if deg == 2
@@ -2763,7 +2779,8 @@ def main() -> int:
                 ptxas.setdefault(source, []).append(line.strip())
     for source, lines in ptxas.items():
         for line in lines:
-            if source in ("factored_contract.cu", "element_stiffness.cu") \
+            if source in ("qp_contract.cu", "factored_contract.cu",
+                          "element_stiffness.cu") \
                     or "entry function" not in line:
                 log(f"  ptxas {source}:", line)
 
@@ -3329,13 +3346,15 @@ def main() -> int:
 
     def entry(name, source, replaces, launches, err, fn, plain, library,
               nbytes, flops, algorithm_flops=None, flop_rate=F32_FLOP_PER_S,
-              algorithm_flop_rate=F32_FLOP_PER_S, timed=None, **extra):
+              algorithm_flop_rate=F32_FLOP_PER_S, timed=None,
+              timed_clean=None, **extra):
         """``flops``: the fewest operations a known algorithm needs for the
         function on these inputs (the bound's), at ``flop_rate``;
         ``algorithm_flops``: what the kernel's own algorithm does, where
         that is more, at ``algorithm_flop_rate`` (the precision it runs
         in); ``library``: None where no one PyTorch call computes the
-        function; ``timed``: more calls, by key, timed as ``fn`` is."""
+        function; ``timed``: more calls, by key, timed as ``fn`` is;
+        ``timed_clean``: the same with the L2 flushed by a read."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / flop_rate * 1e3
         if algorithm_flops is not None:
@@ -3346,13 +3365,17 @@ def main() -> int:
                  plain_ms=timer(plain, reps=5), bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  library_ms=None if library is None else timer(library))
+        d["bound_share"] = d["bound_ms"] / d["ms"]
         d.update(extra)
         d.update({k: timer(f) for k, f in (timed or {}).items()})
+        d.update({k: timer(f, clean=True)
+                  for k, f in (timed_clean or {}).items()})
         report.append(d)
         lib_ms = "none" if library is None else f"{d['library_ms']:.4f} ms"
         log(f"{name}: {d['ms']:.4f} ms (bound {d['bound_ms']:.4f} ms by "
-            f"{d['bound_by']}), plain {d['plain_ms']:.4f} ms, library "
-            f"{lib_ms}, max abs err {err:.3e}, launches {launches}")
+            f"{d['bound_by']}, {d['bound_share']:.0%} of it), plain "
+            f"{d['plain_ms']:.4f} ms, library {lib_ms}, max abs err "
+            f"{err:.3e}, launches {launches}")
 
     ids_long = ids.long()
     entry("gather_planes", "meshfem_tpu_torch/csrc/gather_planes.cu",
@@ -3420,7 +3443,10 @@ def main() -> int:
           lambda: kernels.qp_contract_plain(rkf.g, rkf.vol, ue, lam, mu),
           lambda: torch.bmm(rk.KeP, ue_dense),
           (12 + 1 + 30 + 30) * E * 4, flops, max_rel_err=rel_c,
-          mode="planes [3, 10, E]",
+          ptxas=ptxas.get("qp_contract.cu", []),
+          timed_clean=dict(clean_l2_ms=lambda: kernels.qp_contract(
+              rkf.g, rkf.vol, ue, lam, mu)),
+          mode="planes [3, 10, E], the direct path",
           launches_path="factored clamped solve, launches in planes (none: "
                         "its applies run in node rows, qp_contract/rows)",
           library_call="torch.bmm with the dense f32 Ke",
@@ -3499,10 +3525,12 @@ def main() -> int:
             f"kernel in planes column by column")
         if not (rel <= 1e-5 and same):
             raise RuntimeError(f"{label} disagrees with plain or with planes")
-        extra = {}
+        extra = dict(ptxas=ptxas.get(name + ".cu", []))
         if name == "factored_contract":
-            extra = dict(algorithm_flops=2 * fma_d * Ecount * m,
-                         ptxas=ptxas.get("factored_contract.cu", []))
+            extra.update(algorithm_flops=2 * fma_d * Ecount * m)
+        else:
+            extra.update(timed_clean=dict(clean_l2_ms=lambda: fn(
+                *gv, urows, lam, mu, rows=True)))
         entry(label, f"meshfem_tpu_torch/csrc/{name}.cu",
               "meshfem_tpu/sparse/contract.py:"
               + ("232" if name == "qp_contract" else "91"), launches, err,
@@ -3511,8 +3539,11 @@ def main() -> int:
               lambda: torch.bmm(K, urows.view(Ecount, 30, m)),
               (12 + 1 + 2 * 30 * m) * Ecount * 4, qp_flops * Ecount * m,
               max_rel_err=rel, equals_planes_bitwise=same, columns=m,
-              mode=f"element-major rows [E*10, {3 * m}], staged in shared "
-                   f"memory, as the factored applies run it",
+              mode=f"element-major rows [E*10, {3 * m}], "
+                   + ("pipelined through shared memory by bulk "
+                      "asynchronous copies" if name == "qp_contract"
+                      else "staged in shared memory")
+                   + ", as the factored applies run it",
               launches_path=path,
               library_call="torch.bmm with the dense f32 Ke "
                            f"([E, 30, 30] @ [E, 30, {m}])",
@@ -3864,7 +3895,8 @@ def main() -> int:
 
     # 13e: the kernels at their 2D shapes
     t0 = time.time()
-    two_d["kernel_checks"] = kernels_2d(dev, entry, paths_2d, hsim_2d)
+    two_d["kernel_checks"] = kernels_2d(dev, entry, paths_2d, hsim_2d,
+                                        ptxas)
     two_d["kernels_s"] = time.time() - t0
     del hsim_2d
     summary.update(

@@ -1,4 +1,5 @@
-// Shared-memory staging of element-major node rows, for kernels C and D.
+// Shared-memory staging of element-major node rows, for kernel D (kernel
+// C pipelines its rows through csrc/bulk_async.cuh instead).
 //
 // In rows, element e's values are one stretch of P = n d m floats (value
 // (a, c, j) at (a d + c) m + j), and a warp's elements e0 .. e0 + ne - 1

@@ -24,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("gather_planes.cu", "segment_sum_csr.cu", "qp_contract.cu",
            "factored_contract.cu", "element_stiffness.cu",
            "route_window.cu")
-HEADERS = ("stage_rows.cuh",)      # included by sources; hashed with them
+HEADERS = ("stage_rows.cuh", "bulk_async.cuh",   # included by sources;
+           "qp_tables.cuh")                    # hashed with them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -104,7 +105,6 @@ def load() -> ctypes.CDLL:
         lib.gather_rows_f32.argtypes = [P, P, P, I, L, L, L, I, P]
         for fn in (lib.segment_sum_f32, lib.segment_sum_f64):
             fn.argtypes = [P, P, P, P, I, L, L, L, L, L, P]
-        lib.qp_set_tables.argtypes = [I, P, I, P, I]
         lib.qp_contract_f32.argtypes = [I, P, P, P, P, F, F, L, I, L, L, L,
                                         L, P]
         lib.factored_contract_f32.argtypes = [I, P, P, P, P, P, F, F, L, I,
@@ -113,7 +113,7 @@ def load() -> ctypes.CDLL:
         lib.route_window_f32.argtypes = [P, P, P, P, P, I, L, L, I, P]
         for fn in (lib.gather_planes_f32, lib.gather_rows_f32,
                    lib.segment_sum_f32, lib.segment_sum_f64,
-                   lib.qp_set_tables, lib.qp_contract_f32,
+                   lib.qp_contract_f32,
                    lib.factored_contract_f32, lib.element_stiffness_f32,
                    lib.route_window_f32):
             fn.restype = I

@@ -5,23 +5,27 @@ quadrature points of ``sparse.contract.qp_tables``.
 Replaces ``meshfem_tpu/sparse/contract.py::_qp_kernel`` (:232), the
 factored routed backend on the TPU.  Bound on the H100: memory, 4 (K1 d +
 1 + 2 n d m) bytes an element (73 floats at d = 3, P2, m = 1: ~82 MB at
-the bench size, ~24 us at 3.35 TB/s).  One thread per element and column
-keeps u and f in registers; lam and mu are arguments; the quadrature
-tables sit in ``__constant__`` memory.  Design notes are in
-``csrc/qp_contract.cu``.
+the bench size, ~24 us at 3.35 TB/s), with ~2.6 kFLOP an element and
+column beside it (~11 us at the float32 peak), so the design overlaps the
+two.  One thread per element and column keeps u and f in registers; lam
+and mu are arguments; the quadrature tables are compiled into the kernel
+(``csrc/qp_tables.cuh``, written by ``table_header`` from ``qp_tables``),
+so that their zero entries cost no instruction.  Design notes and
+measured times are in ``csrc/qp_contract.cu``.
 
 Layout: ``g [K1*d, E]`` (row ``k*d + b`` = d lambda_k / d x_b) and ``vol
 [E]``; the element values ``ue`` and the forces ``fe`` in one of two
 layouts, which the kernel reads and writes through four strides (element,
 node, component, column) and a column count m:
 
-* planes ``[d, n, E]`` (m = 1), element index fastest;
+* planes ``[d, n, E]`` (m = 1), element index fastest: one thread per
+  element reads and writes in place;
 * element-major node rows ``[E*n, d*m]`` (``rows=True``: slot ``e*n + a``,
   value ``c*m + j``), kernels A and B's rows layout, in which the routed
-  operator runs, all m columns in one launch.  Each warp stages its
-  elements' rows, one contiguous stretch, in shared memory, so that its
-  loads and stores cover whole sectors, and one lane computes one
-  (element, column) from there (``csrc/stage_rows.cuh``).
+  operator runs, all m columns in one launch.  A persistent grid of warps
+  walks tiles of elements (one contiguous stretch each); each warp copies
+  its next tile in with one bulk asynchronous copy while it computes the
+  current one from shared memory and the previous one drains out.
 
 Both layouts run the same per-element arithmetic: the same inputs give the
 same bits.
@@ -38,9 +42,10 @@ from ..sparse.contract import qp_tables
 from . import _build
 
 # (dim, deg) -> (configuration index of the kernel's template instance,
-# its number of quadrature points); csrc/qp_contract.cu fixes both
+# its number of quadrature points); csrc/qp_contract.cu and the header
+# table_header writes (csrc/qp_tables.cuh) fix both
 CONFIGS = {(3, 2): (0, 4), (3, 1): (1, 1), (2, 2): (2, 3), (2, 1): (3, 1)}
-_tables_loaded: set = set()
+TABLE_HEADER = _build.CSRC / "qp_tables.cuh"
 
 
 def _degree(d: int, n: int) -> int:
@@ -124,29 +129,16 @@ def qp_contract(g, vol, ue, lam: float, mu: float,
     rows [E*n, d*m] when ``rows`` -> fe of ue's shape.
 
     The dimension and degree (P1 or P2) follow from the shapes, and the
-    quadrature tables from them (``sparse.contract.qp_tables``).  A CPU
+    quadrature tables from them (``sparse.contract.qp_tables``, compiled
+    into the kernel from ``csrc/qp_tables.cuh``).  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel (or
     raises).  Launches in rows are also counted in ``launches_rows``."""
     if g.device.type == "cpu":
         return qp_contract_plain(g, vol, ue, lam, mu, rows)
     d, n, E, m, strides = check_contract_args("qp_contract", g, vol, ue,
                                               rows)
-    deg = _degree(d, n)
-    cfg, Q = CONFIGS[(d, deg)]
+    cfg, _ = CONFIGS[(d, _degree(d, n))]
     lib = _build.load()
-    key = (g.device.index, cfg)
-    if key not in _tables_loaded:
-        dN, W = qp_tables(d, deg)
-        if dN.shape != (Q, n, d + 1):
-            raise RuntimeError(f"qp_contract: kernel config {cfg} has {Q} "
-                               f"points, the rule {dN.shape[0]}")
-        dN32 = np.ascontiguousarray(dN, dtype=np.float32)
-        W32 = np.ascontiguousarray(W, dtype=np.float32)
-        with torch.cuda.device(g.device):
-            _build.check(lib.qp_set_tables(cfg, dN32.ctypes.data, dN32.size,
-                                           W32.ctypes.data, W32.size),
-                         "qp_set_tables")
-        _tables_loaded.add(key)
     fe = torch.empty_like(ue)
     rc = lib.qp_contract_f32(
         cfg, g.data_ptr(), vol.data_ptr(), ue.data_ptr(), fe.data_ptr(),
@@ -156,6 +148,57 @@ def qp_contract(g, vol, ue, lam: float, mu: float,
     qp_contract.launches += 1
     qp_contract.launches_rows += rows
     return fe
+
+
+def _hex32(x: float) -> str:
+    """A float32 value as an exact C++ hex-float literal."""
+    h = float(np.float32(x)).hex()              # e.g. '-0x1.2bbae20000000p-1'
+    sign, h = ("-", h[1:]) if h.startswith("-") else ("", h)
+    mant, exp = h[2:].split("p")
+    head, _, frac = mant.partition(".")
+    frac = frac.rstrip("0") or "0"
+    return f"{sign}0x{head}.{frac}p{exp}f"
+
+
+def table_header() -> str:
+    """Text of ``csrc/qp_tables.cuh``: ``qp_tables(d, deg)`` of the four
+    configurations in float32, as exact hex-float literals that the kernel
+    reads at compile time (``tests/test_torch_qp_hopper.py`` holds the
+    committed file equal to this)."""
+    out = ["// The quadrature tables of kernel C, dN [Q, n, K1] and W [Q] in",
+           "// float32, one struct a configuration.  Written by",
+           "// meshfem_tpu_torch.kernels.qp.table_header() from",
+           "// sparse.contract.qp_tables; regenerate rather than edit:",
+           "//   python -c 'from meshfem_tpu_torch.kernels import qp; "
+           "qp.TABLE_HEADER.write_text(qp.table_header())'",
+           "// The values are compile-time constants, so the compiler folds",
+           "// them into the instructions and the kernel drops the zero",
+           "// entries' terms.",
+           "", "#pragma once", "", "namespace qp_tables {", "",
+           "template <int CFG>", "struct Table;"]
+    for (d, deg), (cfg, Q) in CONFIGS.items():
+        dN, W = qp_tables(d, deg)
+        if dN.shape[0] != Q:
+            raise RuntimeError(f"qp_tables({d}, {deg}) has {dN.shape[0]} "
+                               f"points, configuration {cfg} {Q}")
+        n = dN.shape[1]
+        rows = [", ".join(_hex32(x) for x in dN[q, i])
+                for q in range(Q) for i in range(n)]
+        out += ["", f"// (dim, deg) = ({d}, {deg}): Q = {Q}, n = {n}, "
+                    f"K1 = {d + 1}; dN row (q, i) at (q n + i) K1",
+                "template <>", f"struct Table<{cfg}> {{",
+                f"  static constexpr int kDim = {d}, kNodes = {n}, "
+                f"kQ = {Q};",
+                "  __host__ __device__ static constexpr float dN(int t) {",
+                f"    constexpr float v[{dN.size}] = {{"]
+        out += [f"        {r}," for r in rows]
+        out += ["    };", "    return v[t];", "  }",
+                "  __host__ __device__ static constexpr float W(int q) {",
+                f"    constexpr float v[{Q}] = {{"
+                + ", ".join(_hex32(x) for x in W) + "};",
+                "    return v[q];", "  }", "};"]
+    out += ["", "}  // namespace qp_tables", ""]
+    return "\n".join(out)
 
 
 def check_contract_args(what, g, vol, ue, rows):

@@ -23,7 +23,12 @@ it.  Tolerances:
 The ``cuda``-marked cases hold C and D in rows against their plain
 versions (1e-5 of max|y|) and against themselves in planes (bit for bit),
 and the factored applies against the planes composition (bit for bit), on
-the card; they skip without one and need neither JAX nor the reference
+the card; kernel C's pipelined rows path also at the edges of its
+persistent loop (E = 1, a partial last tile whose stretch is no whole
+number of 16-byte units, more tiles than the card holds warps at once; m
+= 1, 2, 3, 6, 7 and 33, the last on the direct path), two launches on the
+same inputs equal bit for bit, and rows not 16-byte aligned (the direct
+path) equal to aligned ones; they skip without one and need neither JAX nor the reference
 package: ``python -m pytest --noconftest -m cuda
 tests/test_torch_factored_rows.py``.
 """
@@ -316,6 +321,48 @@ def test_cuda_rows_match_plain_and_planes(cuda, dim, deg, name, E, m):
     for fr_j, up in zip(_columns(fr, E, n, dim, m),
                         _columns(rows, E, n, dim, m)):
         assert torch.equal(fr_j, wrapper(g, vol, up, 1.7, 0.9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 6, 7, 33])
+@pytest.mark.parametrize("E", [1, 333, 100_003])
+@pytest.mark.parametrize("dim,deg", CONFIGS)
+def test_cuda_qp_rows_pipeline_edges(cuda, dim, deg, E, m):
+    """Kernel C in rows at the edges of its persistent loop: E = 1 (one
+    partial tile), 333 (at d = 2, P1, m = 1 the last tile's 13 elements
+    are 312 bytes, no whole number of 16-byte units) and 100,003 (more
+    tiles than the card's resident warps, so each walks several); m = 33
+    takes the direct path.  Two launches give the same bits; against the
+    plain version (1e-5 of max|y|) and the kernel in planes column by
+    column (bit for bit)."""
+    g, vol, rows, n = (t.to(cuda) if isinstance(t, torch.Tensor) else t
+                       for t in _contract_inputs(dim, deg, E, m,
+                                                 seed=E + 7 * m))
+    f1 = kernels.qp_contract(g, vol, rows, 1.7, 0.9, rows=True)
+    f2 = kernels.qp_contract(g, vol, rows, 1.7, 0.9, rows=True)
+    torch.cuda.synchronize()
+    assert torch.equal(f1, f2)
+    assert _rel(f1, kernels.qp_contract_plain(g, vol, rows, 1.7, 0.9,
+                                              rows=True)) < 1e-5
+    for fr_j, up in zip(_columns(f1, E, n, dim, m),
+                        _columns(rows, E, n, dim, m)):
+        assert torch.equal(fr_j, kernels.qp_contract(g, vol, up, 1.7, 0.9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 6])
+def test_cuda_qp_rows_unaligned_equal_aligned(cuda, m):
+    """Rows that start off a 16-byte boundary cannot be copied in bulk and
+    take the direct path: the same bits as the pipelined path."""
+    g, vol, rows, n = (t.to(cuda) if isinstance(t, torch.Tensor) else t
+                       for t in _contract_inputs(3, 2, 4099, m, seed=m))
+    buf = torch.empty(rows.numel() + 1, device=cuda)
+    shifted = buf[1:].view(rows.shape)
+    shifted.copy_(rows)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(
+        kernels.qp_contract(g, vol, shifted, 1.7, 0.9, rows=True),
+        kernels.qp_contract(g, vol, rows, 1.7, 0.9, rows=True))
 
 
 @pytest.mark.cuda

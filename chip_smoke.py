@@ -258,7 +258,54 @@ of which raises on failure:
    float64 rows at the two-level prolongation's shapes), and
    ``launches_2d_paths`` on phase 13's (the ``.../2d/...`` lines are
    phase 13e's);
-15. last, ``{"ok": true, "device": {...}}``.
+15. scalar Poisson, the discrete operators, geodesics in heat, mesh and
+   field I/O and the two CLIs, every scalar path counted (counts zeroed
+   just before, read just after): every float64 EBE apply, diagonal and
+   ``sparse.assembly.scatter_load`` must have launched kernel B in float64
+   once (``segment_sum_rows``, one value a node) and nothing else may have
+   launched (no float32 B, no planes, no plain version): (a) the
+   convergence suite of ``experiments/laplace_convergence.py``,
+   sin(pi x) sin(pi y) on ``grid_tri(n, n)``, P1 for n = 64 ... 1024
+   (1,050,625 nodes) and P2 for n = 32 ... 512, ``PoissonProblem.solve``
+   to tol 1e-13: every L2 error rate (through the port's consistent
+   ``mass``) within 0.35 of 2 (P1) and 3 (P2), every solve at its tol
+   before ``maxiter = 20000``; n, the error, the rate, the CG iterations,
+   the CG and the true relative residuals, seconds and ms an iteration
+   printed, and the solve closest to its limit; (b) the exact quadratic of
+   ``test_p2_reproduces_quadratic`` on ``grid_tet(36)`` P2 (389,017
+   nodes), its consistent source through ``load_from_source``: max error
+   <= 1e-7 max|u|; (c) ``geodesic_distances`` from the corner of
+   ``grid_tri(n, n)`` P1 at the reference CG's default maxiter (1000): at
+   n = ``GEO_GATE_N`` (20) max |d - |x|| < 0.08, d monotone along the
+   diagonal, both solves within maxiter and the card against the CPU
+   (1e-10, the same counts); at ``GEO_CONV_N`` (176) both solves within
+   maxiter; at 512, 16, 24, 32 and 192 the counts, residuals and errors
+   printed (the reference's heat step loses its far field below the
+   solve's tolerance past ~20 cells, so its accuracy gate cannot hold at
+   the larger sizes); (d) ``PoissonProblem
+   .solve``, ``neumann_load``, ``geodesic_distances``,
+   ``boundary_laplacian`` and ``bilaplacian_apply`` on ``grid_tri(16,
+   16)`` and ``grid_tet(4, 4, 4)``, P1 and P2, the card against the CPU
+   (1e-10 of max, non-finite entries in the same places); (e) the bench
+   mesh with phase 4's u (node vector) and von Mises (element scalar)
+   written as binary and as ASCII MSH and read back by ``meshio`` and
+   ``msh_fields``, equal bit for bit (float64 binary nodes, %.17g text),
+   the host seconds of each write and read printed; (f) ``cli.poisson`` on
+   a ``grid_tri(256, 256)`` .off written by the port's ``meshio`` with the
+   .bc of ``tests/test_cli.py::test_poisson_cli``, and ``cli.simulate`` on
+   13b's P2 cantilever written as .msh, both on the card: the outputs read
+   back, the Poisson u equal to the package API's solve (1e-12 of max),
+   in [0, 1], the Simulate u within 1e-8 of max|u| of the API's solve;
+   (g) kernel B in float64 rows at 1 value on 15a's largest P1 plan
+   (6,291,456 rows into 1,050,625 nodes): bit-identical across two runs,
+   bit for bit against B in planes and the CPU's plain sum, 1e-12 of
+   max|y| against the card's plain version, and its line
+   ``segment_sum_rows/f64/1`` in the kernel report (time, byte bound,
+   plain and ``index_add_`` times with phase 14's timer); one Laplacian
+   apply on that operator timed by its stages (the gather, the batched
+   ``bmm``, B; events, warm L2); every kernel line carries
+   ``launches_poisson_paths``, its launches on each of these paths;
+16. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -2691,6 +2738,567 @@ def kernels_2d(dev, entry, paths, hsim, ptxas=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: scalar Poisson, the discrete operators, geodesics in heat, mesh
+# and field I/O and the Poisson and Simulate CLIs
+# ---------------------------------------------------------------------------
+
+# The convergence suite of experiments/laplace_convergence.py on
+# grid_tri(n, n): P1 up to 1024 and P2 up to 512 (1,050,625 nodes each).
+POISSON_P1_SIZES = (64, 128, 256, 512, 1024)
+POISSON_P2_SIZES = (32, 64, 128, 256, 512)
+POISSON_TOL, POISSON_MAXITER = 1e-13, 20000
+# Geodesics in heat run at the reference CG's default maxiter (1000).  Its
+# heat step (t = h^2) decays by a constant factor a cell, so past ~20 cells
+# the far field lies below the solve's 1e-11 tolerance and the distances
+# lose accuracy: the reference's own geodesic_distances on the CPU misses
+# its 0.08 gate from grid_tri(24) on, and the port gives the same numbers.
+# So the accuracy gates run at GEO_GATE_N; at GEO_CONV_N, the largest
+# probed n whose divergence solve still reaches tol within 1000 iterations
+# on the CPU (at 192 it stops at 1000), both solves must converge; at
+# GEO_BIG_N and the sizes of GEO_SWEEP only the numbers are printed.
+GEO_GATE_N, GEO_CONV_N, GEO_BIG_N = 20, 176, 512
+GEO_SWEEP = (16, 24, 32, 192)
+CLI_POISSON_N = 256
+# the Poisson CLI's regions in tests/test_cli.py::test_poisson_cli
+POISSON_CLI_BC = json.dumps({"regions": [
+    {"type": "dirichlet", "value": ["sin(pi * x)", 0, 0],
+     "box%": {"minCorner": [-0.001, 0.999], "maxCorner": [1.001, 1.001]}},
+    {"type": "dirichlet", "value": [0, 0, 0],
+     "box%": {"minCorner": [-0.001, -0.001], "maxCorner": [1.001, 0.001]}}]})
+
+
+class ScalarApplyCounter:
+    """Counts, while active, what must launch kernel B once in float64 on
+    the scalar paths: every f64 EBE apply and diagonal (``EBEKernel``) and
+    every ``sparse.assembly.scatter_load``; and the calls of B's plain
+    versions, which must be none on the card."""
+
+    def __init__(self):
+        self.count = {"apply": 0, "diagonal": 0, "scatter_load": 0,
+                      "plain": 0}
+
+    def _wrap(self, owner, name, key):
+        fn = getattr(owner, name)
+
+        def counted(*args, **kw):
+            self.count[key] += 1
+            return fn(*args, **kw)
+        self._saved.append((owner, name, fn))
+        setattr(owner, name, counted)
+
+    def __enter__(self):
+        from meshfem_tpu_torch.kernels import segment_sum
+        from meshfem_tpu_torch.sparse import assembly
+        from meshfem_tpu_torch.sparse.ebe import EBEKernel
+
+        self._saved = []
+        self._wrap(EBEKernel, "__call__", "apply")
+        self._wrap(EBEKernel, "diagonal", "diagonal")
+        self._wrap(assembly, "scatter_load", "scatter_load")
+        for name in ("segment_sum_rows_plain", "segment_sum_csr_plain"):
+            self._wrap(segment_sum, name, "plain")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    def total(self):
+        return self.count["apply"] + self.count["diagonal"] \
+            + self.count["scatter_load"]
+
+
+def counted_scalar(label, fn):
+    """One counted run of a scalar path: every f64 apply, diagonal and
+    ``scatter_load`` must have launched kernel B in float64 once, and
+    nothing else may have launched (no float32 B, no planes, no plain
+    version)."""
+    with ScalarApplyCounter() as sc:
+        out, wall, counts = counted(label, fn, ("segment_sum_rows",))
+    n = sc.total()
+    others = {k: v for k, v in counts.items()
+              if v and not k.startswith("segment_sum_rows")}
+    log(f"{label}: {sc.count}, segment_sum_rows {counts['segment_sum_rows']}"
+        f" (f64 {counts['segment_sum_rows/f64']})")
+    if not (n > 0 and counts["segment_sum_rows"] == n
+            and counts["segment_sum_rows/f64"] == n
+            and sc.count["plain"] == 0 and not others):
+        raise RuntimeError(f"{label}: not every scalar apply and load sum "
+                           f"launched kernel B in float64 once "
+                           f"({sc.count}, {counts})")
+    return out, wall, counts
+
+
+def sin_sin(X):
+    return np.sin(np.pi * X[:, 0]) * np.sin(np.pi * X[:, 1])
+
+
+def poisson_free_relres(prob, u, b, fixed):
+    """The true float64 relative residual |P (b - L u)| / |P b| on the free
+    nodes."""
+    free = (~fixed).to(b.dtype)
+    return float(torch.linalg.norm((b - prob.L(u)) * free)
+                 / torch.linalg.norm(b * free))
+
+
+def drive_convergence(dev):
+    """15a: sin(pi x) sin(pi y) on grid_tri(n, n), P1 and P2, tol 1e-13;
+    the L2 error through the consistent mass, its rate, the CG counts.
+    Returns (rows, the launch counts of all the solves, the largest P1
+    problem)."""
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.physics import PoissonProblem
+
+    rows, keep, total = [], None, {}
+    for deg, sizes, order in ((1, POISSON_P1_SIZES, 2.0),
+                              (2, POISSON_P2_SIZES, 3.0)):
+        prev = None
+        for n in sizes:
+            t0 = time.time()
+            V, F = generators.grid_tri(n, n)
+            mesh = FEMMesh(V, F, degree=deg)
+            t_mesh = time.time() - t0
+            X = mesh.node_positions
+            exact = sin_sin(X)
+            f = 2 * np.pi ** 2 * exact          # the reference's source
+            t0 = time.time()
+            prob = PoissonProblem(mesh, device=dev)
+            torch.cuda.synchronize()
+            t_prob = time.time() - t0
+            (u, res), wall, counts = counted_scalar(
+                f"15a P{deg} n={n}", lambda: prob.solve(
+                    mesh.bdry_nodes, 0.0, source=f, tol=POISSON_TOL,
+                    maxiter=POISSON_MAXITER))
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            d = u - torch.as_tensor(exact, device=dev)
+            err = float(torch.sqrt(torch.vdot(d, prob.M(d))))
+            rate = float(np.log2(prev / err)) if prev else None
+            prev = err
+            fixed = torch.zeros(mesh.num_nodes, dtype=torch.bool, device=dev)
+            fixed[torch.as_tensor(mesh.bdry_nodes, device=dev)] = True
+            b = prob.load_from_source(f)
+            bfree = float(torch.linalg.norm(b * (~fixed)))
+            row = dict(deg=deg, n=n, nodes=mesh.num_nodes,
+                       elements=mesh.num_elements, l2_error=err, rate=rate,
+                       iters=res.iters, cg_relres=res.resnorm / bfree,
+                       true_relres=poisson_free_relres(prob, u, b, fixed),
+                       solve_s=wall, ms_per_iter=wall / max(res.iters, 1)
+                       * 1e3, mesh_s=t_mesh, problem_s=t_prob)
+            rows.append(row)
+            log(f"15a P{deg} n={n}: {mesh.num_nodes} nodes, L2 error "
+                f"{err:.6e}, rate {rate if rate is None else round(rate, 4)},"
+                f" {res.iters} CG iterations, CG relres "
+                f"{row['cg_relres']:.3e}, true relres "
+                f"{row['true_relres']:.3e}, solve {wall:.3f} s "
+                f"({row['ms_per_iter']:.4f} ms an iteration), mesh "
+                f"{t_mesh:.2f} s, problem {t_prob:.2f} s")
+            if not (res.iters < POISSON_MAXITER
+                    and row["cg_relres"] <= POISSON_TOL):
+                raise RuntimeError(f"15a P{deg} n={n}: the solve stopped at "
+                                   f"{res.iters} iterations, relres "
+                                   f"{row['cg_relres']:.3e}")
+            if rate is not None and not abs(rate - order) <= 0.35:
+                raise RuntimeError(f"15a P{deg} n={n}: rate {rate:.3f}, "
+                                   f"expected {order} +- 0.35")
+            if deg == 1 and n == sizes[-1]:
+                keep = prob
+            del prob, u, d, b
+    worst = max(rows, key=lambda r: r["iters"])
+    log(f"15a: the solve closest to maxiter = {POISSON_MAXITER}: "
+        f"P{worst['deg']} n={worst['n']}, {worst['iters']} iterations")
+    return rows, total, keep
+
+
+def drive_quadratic_3d(dev):
+    """15b: the exact quadratic of test_p2_reproduces_quadratic on
+    grid_tet(36) P2, the consistent source through load_from_source."""
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.physics import PoissonProblem
+
+    V, T = generators.grid_tet(BENCH_N, BENCH_N, BENCH_N)
+    mesh = FEMMesh(V, T, degree=2)
+    X = mesh.node_positions
+    coef = np.array([1.0, -2.0, 1.5])
+    exact = (X ** 2) @ coef
+    f = np.full(mesh.num_nodes, -2.0 * coef.sum())
+    prob = PoissonProblem(mesh, device=dev)
+    bn = mesh.bdry_nodes
+    (u, res), wall, counts = counted_scalar(
+        "15b", lambda: prob.solve(bn, exact[bn], source=f, tol=POISSON_TOL,
+                                  maxiter=POISSON_MAXITER))
+    err = float((u - torch.as_tensor(exact, device=dev)).abs().max())
+    umax = float(u.abs().max())
+    out = dict(nodes=mesh.num_nodes, iters=res.iters, solve_s=wall,
+               ms_per_iter=wall / max(res.iters, 1) * 1e3, max_err=err,
+               gate=1e-7 * umax)
+    log(f"15b grid_tet({BENCH_N}) P2 quadratic: {mesh.num_nodes} nodes, "
+        f"{res.iters} CG iterations in {wall:.3f} s, max error {err:.3e} "
+        f"(gate {1e-7 * umax:.3e})")
+    if not err <= 1e-7 * umax:
+        raise RuntimeError(f"15b: max error {err:.3e} > 1e-7 max|u|")
+    return out, counts
+
+
+class SolveRecorder:
+    """Records (iterations, residual) of each ``solve_dirichlet`` that
+    ``analysis.geodesics`` runs, while active."""
+
+    def __enter__(self):
+        from meshfem_tpu_torch.analysis import geodesics
+
+        self.mod, self.log = geodesics.cg_mod, []
+        self._fn = self.mod.solve_dirichlet
+
+        def rec(*args, **kw):
+            res = self._fn(*args, **kw)
+            self.log.append((res.iters, res.resnorm))
+            return res
+        self.mod.solve_dirichlet = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.solve_dirichlet = self._fn
+
+
+def geodesics_at(n, device, gate, count=True):
+    """geodesic_distances from the corner node of grid_tri(n, n) P1:
+    (distances, its numbers, the launch counts when ``count``)."""
+    from meshfem_tpu_torch.analysis import geodesics
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+
+    V, F = generators.grid_tri(n, n)
+    mesh = FEMMesh(V, F, degree=1)
+    src = mesh.nodes_in_box((0, 0), (0, 0))
+    with SolveRecorder() as rec:
+        if count:
+            d, wall, counts = counted_scalar(
+                f"15c n={n}",
+                lambda: geodesics.geodesic_distances(mesh, src,
+                                                     device=device))
+        else:
+            t0 = time.time()
+            d, counts = geodesics.geodesic_distances(mesh, src,
+                                                     device=device), None
+            wall = time.time() - t0
+    dh = d.cpu().numpy()
+    err = float(np.abs(dh - np.linalg.norm(mesh.node_positions,
+                                           axis=1)).max())
+    diag = [mesh.nodes_in_box((x, x), (x, x))[0] for x in
+            (0.25, 0.5, 0.75, 1.0)]
+    monotone = bool(np.all(np.diff(dh[diag]) > 0))
+    out = dict(n=n, nodes=mesh.num_nodes, solves=rec.log, seconds=wall,
+               max_err=err, monotone=monotone)
+    if count:
+        log(f"15c geodesics grid_tri({n}): (iterations, residual) "
+            f"{rec.log}, {wall:.3f} s, max |d - |x|| {err:.4f}, monotone "
+            f"along the diagonal {monotone}")
+    if gate == "accuracy" and not (err < 0.08 and monotone):
+        raise RuntimeError(f"15c n={n}: max error {err:.4f}, monotone "
+                           f"{monotone}")
+    if gate in ("accuracy", "converge") and not all(
+            it < 1000 for it, _ in rec.log):
+        raise RuntimeError(f"15c n={n}: a solve ran out of maxiter "
+                           f"({rec.log})")
+    return d, out, counts
+
+
+def drive_geodesics(dev):
+    """15c: geodesics in heat at GEO_GATE_N (gated on accuracy, against
+    the CPU too), GEO_CONV_N (both solves converge), GEO_BIG_N and the
+    sizes of GEO_SWEEP (printed)."""
+    out, paths = {}, {}
+    for n in GEO_SWEEP:
+        out[n] = geodesics_at(n, dev, None, count=False)[1]
+        log(f"15c geodesics grid_tri({n}) (printed, no gate): "
+            f"(iterations, residual) {out[n]['solves']}, max |d - |x|| "
+            f"{out[n]['max_err']:.4f}, monotone {out[n]['monotone']}")
+    for n, gate in ((GEO_GATE_N, "accuracy"), (GEO_CONV_N, "converge"),
+                    (GEO_BIG_N, None)):
+        d, out[n], paths[f"15c_geodesics_{n}"] = geodesics_at(n, dev, gate)
+        if n == GEO_GATE_N:
+            d_cpu, cpu, _ = geodesics_at(n, torch.device("cpu"), None,
+                                         count=False)
+            err = rel_err(d.cpu(), d_cpu)
+            out[n]["vs_cpu"] = err
+            if not (err <= 1e-10 and [i for i, _ in cpu["solves"]]
+                    == [i for i, _ in out[n]["solves"]]):
+                raise RuntimeError(f"15c n={n}: card against CPU {err:.3e}, "
+                                   f"iterations {out[n]['solves']} / "
+                                   f"{cpu['solves']}")
+            log(f"15c n={n}: card against CPU {err:.3e}, the same counts")
+    return out, paths
+
+
+def drive_poisson_vs_cpu(dev):
+    """15d: PoissonProblem.solve, neumann_load, geodesic_distances,
+    boundary_laplacian and bilaplacian_apply on grid_tri(16, 16) and
+    grid_tet(4, 4, 4), P1 and P2, card against CPU (1e-10 of max)."""
+    from meshfem_tpu_torch.analysis import geodesics
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.ops import extra_operators, operators
+    from meshfem_tpu_torch.physics import PoissonProblem
+
+    cpu = torch.device("cpu")
+    worst = {}
+    for name, (V, F) in (("tri", generators.grid_tri(16, 16)),
+                         ("tet", generators.grid_tet(4, 4, 4))):
+        for deg in (1, 2):
+            mesh = FEMMesh(V, F, degree=deg)
+            X = mesh.node_positions
+            bn = mesh.bdry_nodes
+            exact = (X ** 2) @ np.array([1.0, -2.0, 1.5])[:mesh.dim]
+            flux = np.linspace(-1.0, 1.0, mesh.num_boundary_elements)
+            u0 = np.random.default_rng(deg).normal(size=mesh.num_nodes)
+            src = mesh.nodes_in_box(X.min(0), X.min(0))
+            res = {}
+            for where, device in (("card", dev), ("cpu", cpu)):
+                prob = PoissonProblem(mesh, device=device)
+                u = torch.as_tensor(u0, device=device)
+                res[where] = dict(
+                    solve=prob.solve(bn, exact[bn], source=lambda x: 1.0,
+                                     tol=1e-13)[0],
+                    neumann_load=prob.neumann_load(flux),
+                    geodesics=geodesics.geodesic_distances(mesh, src,
+                                                           device=device),
+                    boundary_laplacian=extra_operators.boundary_laplacian(
+                        mesh, device=device)(u),
+                    bilaplacian=operators.bilaplacian_apply(
+                        mesh, device=device)(u))
+            for key, a in res["card"].items():
+                b = res["cpu"][key]
+                fin = torch.isfinite(b)
+                # the P2 triangle's lumped mass has zero vertex weights
+                if not torch.equal(torch.isfinite(a).cpu(), fin):
+                    raise RuntimeError(f"15d {name} P{deg} {key}: finite "
+                                       f"entries differ")
+                e = rel_err(a.cpu()[fin], b[fin])
+                worst[f"{name}{deg}/{key}"] = e
+                if not e <= 1e-10:
+                    raise RuntimeError(f"15d {name} P{deg} {key}: card "
+                                       f"against CPU {e:.3e}")
+    log(f"15d card against CPU: worst {max(worst.values()):.3e} "
+        f"({max(worst, key=worst.get)})")
+    return worst
+
+
+def drive_io(sim, u, tmp):
+    """15e: the bench mesh grid_tet(36) P2 with phase 4's u (node vector)
+    and von Mises (element scalar), written as binary and as ASCII MSH and
+    read back by meshio and msh_fields; host seconds of each."""
+    from meshfem_tpu_torch.io import meshio, msh_fields
+
+    mesh = sim.mesh
+    uh = u.cpu().numpy()
+    vm = sim.von_mises_field(u).cpu().numpy()
+    fields = [{"name": "u", "data": uh, "where": "node", "kind": "vector"},
+              {"name": "von_mises", "data": vm, "where": "element",
+               "kind": "scalar"}]
+    out = {}
+    for kind, binary in (("binary", True), ("ascii", False)):
+        path = os.path.join(tmp, f"bench_{kind}.msh")
+        t0 = time.time()
+        meshio.save_msh(path, mesh.node_positions, mesh.elem_nodes,
+                        binary=binary, fields=fields)
+        t_write = time.time() - t0
+        t0 = time.time()
+        V, F = meshio.load(path)
+        t_load = time.time() - t0
+        t0 = time.time()
+        got = msh_fields.read_fields(path)
+        t_fields = time.time() - t0
+        # the nodes go out in binary float64 or as %.17g text, the fields
+        # as %.17g text: both read back to the same float64 bits
+        same = (np.array_equal(V, mesh.node_positions)
+                and np.array_equal(F, mesh.elem_nodes)
+                and np.array_equal(msh_fields.vector_field(got, "u"), uh)
+                and np.array_equal(msh_fields.scalar_field(got, "von_mises"),
+                                   vm))
+        out[kind] = dict(bytes=os.path.getsize(path), write_s=t_write,
+                         load_s=t_load, read_fields_s=t_fields,
+                         bit_for_bit=same)
+        log(f"15e {kind} MSH: {os.path.getsize(path) / 2**20:.1f} MiB, "
+            f"write {t_write:.2f} s, meshio.load {t_load:.2f} s, "
+            f"msh_fields.read_fields {t_fields:.2f} s; equal bit for bit "
+            f"{same}")
+        os.remove(path)
+        if not same:
+            raise RuntimeError(f"15e: the {kind} MSH did not read back bit "
+                               f"for bit")
+    return out
+
+
+def drive_clis(dev, tmp):
+    """15f: cli.poisson on a grid_tri(256, 256) .off, cli.simulate on the
+    13b P2 cantilever as .msh, on the card; outputs read back, the
+    Simulate u against the package API's solve (1e-8 of max|u|)."""
+    from meshfem_tpu_torch.cli import poisson as poisson_cli
+    from meshfem_tpu_torch.cli import simulate as simulate_cli
+    from meshfem_tpu_torch.io import meshio, msh_fields
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.physics import PoissonProblem, load_bc
+    from meshfem_tpu_torch.physics.boundary_conditions import \
+        match_boundary_nodes
+    from meshfem_tpu_torch.utils.expressions import evaluate
+
+    out, paths = {}, {}
+    V, F = generators.grid_tri(CLI_POISSON_N, CLI_POISSON_N)
+    off, bc, msh = (os.path.join(tmp, f) for f in ("sq.off", "p.bc",
+                                                   "u.msh"))
+    meshio.save_off(off, V, F)
+    with open(bc, "w") as fh:
+        fh.write(POISSON_CLI_BC)
+    _, wall, paths["15f_poisson_cli"] = counted_scalar(
+        "15f cli.poisson", lambda: poisson_cli.main([off, "-b", bc, "-o",
+                                                     msh]))
+    got = msh_fields.read_fields(msh)
+    u_cli = msh_fields.scalar_field(got, "u")
+    # the same solve through the package API
+    mesh = FEMMesh(V, F, degree=1)
+    nodes, vals = [], []
+    for region in load_bc(bc, dim=2).regions:
+        ns = match_boundary_nodes(mesh, region)
+        nodes.append(ns)
+        vals.append(evaluate(region.value[0], mesh.node_positions[ns]))
+    u_api, _ = PoissonProblem(mesh, device=dev).solve(
+        np.concatenate(nodes), np.concatenate(vals), tol=1e-12)
+    err = float(np.abs(u_cli - u_api.cpu().numpy()).max())
+    out["poisson"] = dict(seconds=wall, nodes=mesh.num_nodes,
+                          vs_api=err, u_min=float(u_cli.min()),
+                          u_max=float(u_cli.max()))
+    log(f"15f cli.poisson grid_tri({CLI_POISSON_N}): {wall:.2f} s, u in "
+        f"[{u_cli.min():.6g}, {u_cli.max():.6g}], against the API {err:.3e}")
+    if not (err <= 1e-12 * np.abs(u_cli).max() and u_cli.max() <= 1 + 1e-9
+            and u_cli.min() >= -1e-6 and "grad_u" in got):
+        raise RuntimeError("15f cli.poisson: bad output")
+
+    sim = cantilever_2d(CANT_P2_N, 2, dev)
+    V2, F2 = sim.mesh.V, sim.mesh.F
+    bar, mat, bc2, out_msh = (os.path.join(tmp, f) for f in (
+        "bar.msh", "mat.material", "bar.bc", "bar_out.msh"))
+    meshio.save_msh(bar, V2, F2)
+    with open(mat, "w") as fh:
+        json.dump({"type": "isotropic_material", "dim": 2, "young": E_2D,
+                   "poisson": NU_2D}, fh)
+    with open(bc2, "w") as fh:
+        fh.write(CANTILEVER_2D_BC)
+    _, wall, paths["15f_simulate_cli"] = counted(
+        "15f cli.simulate", lambda: simulate_cli.main(
+            [bar, "-m", mat, "-b", bc2, "-o", out_msh, "--degree", "2"]))
+    got = msh_fields.read_fields(out_msh)
+    u_cli = msh_fields.vector_field(got, "u", 2)
+    with warnings.catch_warnings(record=True) as stalled:
+        warnings.simplefilter("always", RuntimeWarning)
+        u_api, res = sim.solve(tol=1e-11)
+    u_api = u_api.cpu().numpy()
+    err = float(np.abs(u_cli - u_api).max())
+    umax = float(np.abs(u_api).max())
+    out["simulate"] = dict(seconds=wall, dofs=2 * sim.num_dofs, vs_api=err,
+                           max_u=umax, api_iters=res.iters,
+                           api_rounds=res.rounds, api_relres=res.resnorm,
+                           api_warnings=[str(w.message) for w in stalled])
+    log(f"15f cli.simulate grid_tri({CANT_P2_N}, {CANT_P2_N // 4}) P2: "
+        f"{wall:.2f} s, fields {sorted(got)}, u against the API {err:.3e} "
+        f"(max|u| {umax:.4e}); the API solve at the CLI's tol 1e-11: "
+        f"{res.rounds} rounds, {res.iters} inner iterations, relres "
+        f"{res.resnorm:.3e}, warnings {out['simulate']['api_warnings']}")
+    if not (err <= 1e-8 * umax and {"u", "load", "strain", "stress",
+                                     "von_mises"} <= set(got)):
+        raise RuntimeError("15f cli.simulate: bad output")
+    return out, paths
+
+
+def drive_poisson(dev, sim, u):
+    """Phase 15a-f; returns (summary, launch counts per path, the largest
+    P1 problem for 15g)."""
+    import tempfile
+
+    out, paths = {}, {}
+    t0 = time.time()
+    out["convergence"], paths["15a_convergence"], big = \
+        drive_convergence(dev)
+    out["convergence_s"] = time.time() - t0
+    out["quadratic_3d"], paths["15b_quadratic_3d"] = drive_quadratic_3d(dev)
+    t = time.time()
+    out["geodesics"], p = drive_geodesics(dev)
+    out["geodesics_s"] = time.time() - t
+    paths.update(p)
+    out["vs_cpu"] = drive_poisson_vs_cpu(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["io"] = drive_io(sim, u, tmp)
+        out["clis"], p = drive_clis(dev, tmp)
+    paths.update(p)
+    out["phase_s"] = time.time() - t0
+    log(f"phase 15 (15a-f): {out['phase_s']:.1f} s")
+    return out, paths, big
+
+
+def kernels_poisson(dev, entry, big, paths, gen):
+    """15g: kernel B on the scalar path, the plan of 15a's largest P1
+    operator (one value a node, float64): held against its plain version
+    and bit-identical across two runs, timed with ``entry``; then one full
+    Laplacian apply by its stages.  Returns the stage times."""
+    from meshfem_tpu_torch import kernels
+
+    plan_p = big.L._kernel.plan
+    Rp, Np = plan_p.num_rows, plan_p.num_segments
+    src_p = torch.randn((Rp, 1), generator=gen, device=dev,
+                        dtype=torch.float64)
+    y1 = kernels.segment_sum_rows(src_p, plan_p.perm, plan_p.offsets)
+    y2 = kernels.segment_sum_rows(src_p, plan_p.perm, plan_p.offsets)
+    if not torch.equal(y1, y2):
+        raise RuntimeError("15g: segment_sum_rows f64 (1 value) not "
+                           "bit-identical across two runs")
+    err_p = check_rows_on_plan(plan_p, torch.float64,
+                               "15g B rows f64 (1 value)", gen, P=1)
+    log(f"15g B rows f64 at 1 value ({Rp} rows into {Np} nodes): "
+        f"bit-identical across two runs, max abs err against plain "
+        f"{err_p:.3e}")
+    del y1, y2
+    dst_p = big.L._kernel.elem_dofs.reshape(-1)
+    acc_p = torch.zeros((Np, 1), device=dev, dtype=torch.float64)
+    conv = paths["15a_convergence"]
+    entry("segment_sum_rows/f64/1",
+          "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
+          "meshfem_tpu/sparse/route.py:207 (_reduce_kernel, 1 plane; f64: "
+          "the XLA segment_sum of meshfem_tpu/sparse/assembly.py and "
+          "sparse/ebe.py)", conv["segment_sum_rows/f64"], err_p,
+          lambda: plan_p.sum_rows(src_p),
+          lambda: kernels.segment_sum_rows_plain(src_p, plan_p.perm,
+                                                 plan_p.offsets),
+          lambda: acc_p.index_add_(0, dst_p, src_p),
+          Rp * 8 + Rp * 4 + (Np + 1) * 4 + Np * 8, Rp,
+          flop_rate=F64_FLOP_PER_S,
+          mode="f64 rows [R, 1] -> [N, 1]: every scalar apply, diagonal "
+               "and scatter_load",
+          launches_path="15a convergence suite (all sizes, P1 and P2)",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"grid_tri({POISSON_P1_SIZES[-1]}) P1 Laplacian plan: src "
+                f"[{Rp}, 1] f64 -> [{Np}, 1]")
+    # one full Laplacian apply by its stages (events, warm L2)
+    kern = big.L._kernel
+    Ep = kern.Ke.shape[0]
+    lap_inputs = [torch.randn(Np, generator=gen, device=dev,
+                              dtype=torch.float64) for _ in range(7)]
+    st, whole, y = stage_ms(
+        [("gather", lambda v: v[kern.elem_dofs].reshape(Ep, 3, 1)),
+         ("bmm", lambda ue: torch.bmm(kern.Ke, ue)),
+         ("B", lambda fe: kern.plan(fe.reshape(Rp, 1)))], lap_inputs)
+    if not torch.equal(y.reshape(-1), big.L(lap_inputs[-1])):
+        raise RuntimeError("15g: the staged Laplacian apply differs from "
+                           "the operator's")
+    stages = dict(
+        st, whole_ms=whole, apply_ms=median_apply_ms(big.L, lap_inputs),
+        gather_bound_ms=(Ep * 3 * 8 + Ep * 3 * 8 + Np * 8)
+        / HBM_BYTES_PER_S * 1e3,
+        bmm_bound_ms=(Ep * 9 * 8 + 2 * Ep * 3 * 8) / HBM_BYTES_PER_S * 1e3)
+    log(f"15g Laplacian apply by stages (grid_tri({POISSON_P1_SIZES[-1]}) "
+        f"P1, events, warm L2): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in stages.items()))
+    return stages
+
+
 def check_b_rows(src, op, offsets, label):
     """Kernel B in rows on a routed operator's element-major plan: twice
     bit for bit, bit for bit against B in planes on the same contributions
@@ -3899,6 +4507,13 @@ def main() -> int:
                                         ptxas)
     two_d["kernels_s"] = time.time() - t0
     del hsim_2d
+
+    # -- 15. scalar Poisson, operators, geodesics, I/O and the CLIs --------
+    poisson, poisson_paths, big = drive_poisson(dev, sim, u)
+    poisson["laplacian_stages"] = kernels_poisson(dev, entry, big,
+                                                  poisson_paths, gen)
+    summary["poisson"] = poisson
+    del big
     summary.update(
         dense_bmm_ms=timer(lambda: torch.bmm(rk.KeP, ue_dense)),
         dense_bmm_bound_ms=rk.KeP.numel() * 4 / HBM_BYTES_PER_S * 1e3,
@@ -3911,6 +4526,8 @@ def main() -> int:
                                     for p, c in cell_paths.items()}
         r["launches_2d_paths"] = {p: own_mode(c, r["name"])
                                   for p, c in paths_2d.items()}
+        r["launches_poisson_paths"] = {p: own_mode(c, r["name"])
+                                       for p, c in poisson_paths.items()}
     summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))

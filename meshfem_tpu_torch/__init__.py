@@ -14,7 +14,10 @@ boundary correction, P1 levels, a dense coarse inverse), and the
 boundary-condition front end (``physics.parse_bc``,
 ``apply_boundary_conditions``), the rigid-motion projection and warm
 starts on every other solve branch, with materials, their ``.material``
-files and fits, and the ``ElasticityTensor`` class.  The JAX
+files and fits, and the ``ElasticityTensor`` class; and the scalar layer:
+the discrete operators (``ops/operators.py``, ``ops/extra_operators.py``),
+``physics.PoissonProblem``, geodesics in heat, mesh and field I/O
+(``io/``) and the Poisson and Simulate command lines (``cli/``).  The JAX
 package ``meshfem_tpu`` is the reference; this package imports nothing of
 it and nothing of JAX.
 """

@@ -41,3 +41,12 @@ def default_device() -> torch.device:
 def resolve_device(device=None) -> torch.device:
     """``device`` as a torch.device, or :func:`default_device` when None."""
     return default_device() if device is None else torch.device(device)
+
+
+def device_for(device=None, like=None) -> torch.device:
+    """``device`` when given, else the device of the tensor ``like``, else
+    :func:`default_device`: an entry point handed a tensor works where the
+    tensor lies."""
+    if device is None and isinstance(like, torch.Tensor):
+        return like.device
+    return resolve_device(device)

@@ -154,13 +154,23 @@ class FEMMesh:
     def boundary_barycenters(self) -> np.ndarray:
         return self.V[self.bdry_elems].mean(axis=1)
 
-    def geometry(self, device=None) -> ElementGeometry:
+    def geometry(self, device=None, *,
+                 node_positions=None) -> ElementGeometry:
         """Float64 embedding of all elements on ``device`` (the CUDA device
-        by default).  A triangle surface in 3D takes the in-plane normals
-        of its boundary edges (``geometry.embedded_boundary_normals``)."""
-        dev = config.resolve_device(device)
-        X = torch.as_tensor(self.node_positions, dtype=config.REAL,
+        by default, or the device of a ``node_positions`` tensor).
+        ``node_positions [N, dim]``, node-indexed, re-embeds the mesh at
+        perturbed positions (reference ``geometry(node_positions)``,
+        ``femmesh.py:209``); the corner tables hold vertex ids, which are
+        the first node ids in the reference order.  A triangle surface in
+        3D takes the in-plane normals of its boundary edges
+        (``geometry.embedded_boundary_normals``)."""
+        dev = config.device_for(device, node_positions)
+        X = torch.as_tensor(self.node_positions if node_positions is None
+                            else node_positions, dtype=config.REAL,
                             device=dev)
+        if tuple(X.shape) != (self.num_nodes, self.dim):
+            raise ValueError(f"node_positions must be [{self.num_nodes}, "
+                             f"{self.dim}], got {tuple(X.shape)}")
         corners = X[torch.as_tensor(self.F, device=dev)]   # vertices first
         grad_lambda, volume = geom.simplex_geometry(corners, self.K)
         bcorners = X[torch.as_tensor(self.bdry_elems, device=dev)]

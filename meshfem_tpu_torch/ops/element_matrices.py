@@ -11,7 +11,10 @@ For a constant material the stiffness is ONE product
 ``Ke = (gg * vol) @ M`` with ``gg [E, ((K+1) d)^2]`` the geometry outer
 products and ``M`` the fused constant tensor (``fused_matrix_for`` :160,
 ``element_elasticity_fused`` :223).  That product is an XLA matmul in the
-reference, so here it is ``torch.matmul`` (TF32 off, ``config.py``).
+reference, so here it is ``torch.matmul`` (TF32 off, ``config.py``).  The
+scalar operators' tables (``mass_table``, ``element_mass``,
+``element_mass_lumped``, ``element_laplacian``) follow the reference's
+formulas term for term.
 """
 
 from __future__ import annotations
@@ -69,6 +72,13 @@ def _basis_and_derivs(K: int, deg: int):
 
 
 @functools.lru_cache(maxsize=None)
+def mass_table(K: int, deg: int) -> np.ndarray:
+    """[n, n] exact int phi_i phi_j over the unit-volume reference simplex."""
+    exps, coeffs, _, _ = _basis_and_derivs(K, deg)
+    return _poly_product_integrals(exps, coeffs, exps, coeffs, K)
+
+
+@functools.lru_cache(maxsize=None)
 def gradgrad_table(K: int, deg: int) -> np.ndarray:
     """[K+1, K+1, n, n] exact int (dphi_i/dlam_k)(dphi_j/dlam_l)."""
     _, _, dexps, dcoeffs = _basis_and_derivs(K, deg)
@@ -88,6 +98,31 @@ def shape_grad_table(K: int, deg: int) -> np.ndarray:
     _, _, dexps, dcoeffs = _basis_and_derivs(K, deg)
     fac = _monomial_integral_factor(np.asarray(dexps), K)
     return np.einsum("m,vmn->vn", fac, dcoeffs)
+
+
+def _table(T: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(T, dtype=like.dtype, device=like.device)
+
+
+def element_mass(volume, K: int, deg: int):
+    """[E, n, n] consistent mass matrices (reference ``element_mass``
+    :111, ``MassMatrix.hh:49``)."""
+    return volume[:, None, None] * _table(mass_table(K, deg), volume)
+
+
+def element_mass_lumped(volume, K: int, deg: int):
+    """[E, n] row-sum lumped mass (``element_mass_lumped`` :117)."""
+    return volume[:, None] * _table(mass_table(K, deg).sum(axis=1), volume)
+
+
+def element_laplacian(grad_lambda, volume, deg: int):
+    """[E, n, n] stiffness int grad phi_i . grad phi_j (reference
+    ``element_laplacian`` :123, ``Laplacian.hh:28-56``) for K-simplices
+    embedded in any dimension: ``grad_lambda [E, K+1, dim]``."""
+    K = grad_lambda.shape[-2] - 1
+    T = _table(gradgrad_table(K, deg), grad_lambda)
+    G = torch.einsum("ekd,eld->ekl", grad_lambda, grad_lambda)
+    return volume[:, None, None] * torch.einsum("ekl,klij->eij", G, T)
 
 
 def fused_matrix_for(D, K: int, deg: int) -> np.ndarray:

@@ -15,6 +15,7 @@ summed as they lie, with no transpose.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -66,5 +67,6 @@ class ScatterPlan:
 
     def __call__(self, rows: torch.Tensor) -> torch.Tensor:
         """rows [R] or [R, w] -> [N] or [N, w] segment sums."""
-        y = self.sum_rows(rows.reshape(self.num_rows, -1).contiguous())
+        width = math.prod(rows.shape[1:])
+        y = self.sum_rows(rows.reshape(self.num_rows, width).contiguous())
         return y.reshape((self.num_segments,) + tuple(rows.shape[1:]))

@@ -322,8 +322,19 @@ def test_homogenize_inclusion_matches_reference(inclusion):
     assert _rel(u.numpy(), ru) < 1e-8 and _rel(strain.numpy(), rstrain) < 1e-8
 
 
+@pytest.fixture(scope="module")
+def inclusion_ebe_Ch(inclusion):
+    """The reference's EBE tensor of the inclusion cell (jacobi, tol
+    1e-10), shared by the routed cases."""
+    rsim, _ = inclusion
+    rw, _ = rhom.solve_cell_problems(rsim, tol=1e-10, precond="jacobi",
+                                     operator="ebe")
+    return rhom.homogenized_tensor_stress_form(rsim, rw)
+
+
 @pytest.mark.parametrize("precond", ["jacobi", "block"])
-def test_cell_problems_routed_dense_match_ebe(inclusion, precond):
+def test_cell_problems_routed_dense_match_ebe(inclusion, inclusion_ebe_Ch,
+                                              precond):
     """operator='routed' (float32 block CG inside float64 refinement, dense
     backend, MaterialField) against the reference's EBE tensor: 2e-5."""
     rsim, sim = inclusion
@@ -333,10 +344,7 @@ def test_cell_problems_routed_dense_match_ebe(inclusion, precond):
     assert sim._routed is not None and sim._routed.bm == 6
     assert sim._routed.KeP is not None and iters[0] > 0
     Ch = hom.homogenized_tensor_stress_form(sim, w)
-    rw, _ = rhom.solve_cell_problems(rsim, tol=1e-10, precond="jacobi",
-                                     operator="ebe")
-    rCh = rhom.homogenized_tensor_stress_form(rsim, rw)
-    assert _rel(Ch.numpy(), rCh) < 2e-5
+    assert _rel(Ch.numpy(), inclusion_ebe_Ch) < 2e-5
 
 
 def test_void_cell_factored_tq_and_forms(monkeypatch):

@@ -480,35 +480,46 @@ def test_indexed_regions_2d_match_reference():
                                   rcf(rsim.mesh))
 
 
-@pytest.mark.parametrize("operator", ["ebe", "routed"])
-def test_no_rigid_motion_2d(operator):
-    """The reference test's pure-traction square under ``no_rigid_motion``
-    (``tests/test_elasticity.py:160-190``, here on 8 x 4 cells): u's part
-    orthogonal to the
-    rigid modes against the reference's to 1e-10 relative (the routed
-    solve's rigid part is float32 projection rounding, ~2e-8 of u), zero
-    mean to 1e-9, compression in y; rigid modes (3) and the posedness analysis
-    equal."""
+@pytest.fixture(scope="module")
+def free_square():
+    """The reference's pure-traction square under ``no_rigid_motion``
+    (``tests/test_elasticity.py:160-190``, here on 8 x 4 cells): its
+    inputs, rigid modes, posedness analysis and solution, shared by both
+    port operators."""
     V, F = rgen.grid_tri(8, 4, lo=(-1, -1), hi=(1, 1))
     spec = json.dumps({"no_rigid_motion": True, "regions": [
         {"type": "traction", "value": [0, 0.3],
          "box": _box([-1.05, -1.05], [1.05, -0.95])},
         {"type": "traction", "value": [0, -0.3],
          "box": _box([-1.05, 0.95], [1.05, 1.05])}]})
-    sim = ElasticitySimulator(FEMMesh(V, F, degree=1),
-                              Material.isotropic(2, 10.0, 0.3), device="cpu")
     rsim = RSim(RFEMMesh(V, F, degree=1), RMat.isotropic(2, 10.0, 0.3))
-    sim.apply_boundary_conditions(parse_bc(spec, dim=2))
     rsim.apply_boundary_conditions(rparse_bc(spec, dim=2))
+    ru, _ = rsim.solve(tol=1e-12)
+    return dict(V=V, F=F, spec=spec, Z=np.asarray(rsim.rigid_modes()),
+                posedness=rsim.analyze_dirichlet_posedness(), u=ru)
+
+
+@pytest.mark.parametrize("operator", ["ebe", "routed"])
+def test_no_rigid_motion_2d(free_square, operator):
+    """The reference test's pure-traction square under ``no_rigid_motion``:
+    u's part orthogonal to the
+    rigid modes against the reference's to 1e-10 relative (the routed
+    solve's rigid part is float32 projection rounding, ~2e-8 of u), zero
+    mean to 1e-9, compression in y; rigid modes (3) and the posedness analysis
+    equal."""
+    c = free_square
+    sim = ElasticitySimulator(FEMMesh(c["V"], c["F"], degree=1),
+                              Material.isotropic(2, 10.0, 0.3), device="cpu")
+    sim.apply_boundary_conditions(parse_bc(c["spec"], dim=2))
     Z = sim.rigid_modes()
     assert Z.shape == (2 * sim.num_dofs, 3)
-    np.testing.assert_allclose(Z, np.asarray(rsim.rigid_modes()), atol=1e-15)
+    np.testing.assert_allclose(Z, c["Z"], atol=1e-15)
     nt, nr = sim.analyze_dirichlet_posedness()
-    rnt, rnr = rsim.analyze_dirichlet_posedness()
+    rnt, rnr = c["posedness"]
     np.testing.assert_array_equal(nt, rnt)
     assert nr == rnr
     u, _ = sim.solve(tol=1e-12, operator=operator)
-    ru, _ = rsim.solve(tol=1e-12)
+    ru = c["u"]
     Q, _ = np.linalg.qr(Z)
 
     def free_part(v):

@@ -305,7 +305,45 @@ of which raises on failure:
    apply on that operator timed by its stages (the gather, the batched
    ``bmm``, B; events, warm L2); every kernel line carries
    ``launches_poisson_paths``, its launches on each of these paths;
-16. last, ``{"ok": true, "device": {...}}``.
+16. the unstructured multigrid (``precond="amg"``), deformed
+   configurations and deformed cells, every path counted (counts zeroed
+   just before, read just after, its kernels required), with TF32 checked
+   off: (a) the clamped bench problem by ``sim.solve(operator="routed",
+   precond="amg", tol=1e-10)`` (the operator and the hierarchy built inside
+   the count: P2, P1, the aggregation levels and the dense coarsest),
+   relative residual <= 1e-10 and u within 1e-6 of max|u| of phase 4's
+   routed u; the build's stages, the rounds, the inner iterations, ms an
+   inner iteration (host clock, the hierarchy cached) and one V-cycle
+   (events) printed; (b) the V-cycle's symmetry at bench size on two
+   random free vectors (|<y, M x> - <x, M y>| <= 1e-4 of the larger, <x,
+   M x> > 0, the reference's criteria), its launches counted: kernels A and
+   B once each per routed apply and once per transfer; (c) ``grid_tet(36)``
+   with its interior vertices moved by up to 0.15 of a cell (it fails
+   ``validate_kuhn_grid``) by AMG and by Jacobi to 1e-10, side by side, and
+   the 1e4-contrast field of ``tests/test_amg.py`` on it by AMG (1e-10) and
+   by Jacobi capped at ``JACOBI_CAP`` iterations an inner solve (where it
+   stopped printed); (d) ``homogenize_deformed`` on phase 7's void cell:
+   the identity against phase 7's ``Ch``, a rotation R that maps the cell
+   onto itself (the cyclic permutation of the axes; 90 degrees in 2D)
+   warped and in ``transform_version`` form against ``transform(Ch, R)``
+   (1e-7 of max), a homogeneous ``grid_tet(8)`` cell under the shear [[1,
+   0.2, 0], [0, 1, 0], [0, 0, 1]] against D (1e-8; its loads are rounding
+   noise, so it is kept small), the void cell under it printed; the same
+   on 13c's triangle cell with a homogeneous ``grid_tri(16)``; (e) ``homogenized_tensor_shape_gradient``
+   on the void cell against a central difference of the frozen-w energy
+   form along a random direction (1e-5); (f) ``cli.homogenize`` (with
+   ``-o``) and ``cli.deformed_cells`` (``--jacobian``, and
+   ``--parametrizedTransform`` with two jacobians on stdin) on the void
+   cell written by ``io.meshio.save_msh``, their printed ``Ch`` against
+   16d's and phase 7's to the printed digits; (g) kernel A on the P1 -> P2
+   prolongation and the aggregation prolongation, kernel B on the P2 -> P1
+   restriction, the aggregation restriction (6 values) and the float64
+   Gershgorin row sums, each bit for bit against its plain version (B
+   also against B in planes and the CPU's plain sum) and timed as phase
+   14 times the others; kernel E on the sheared void cell's geometry
+   (``node_positions``) within one float32 ulp of the float64 ``Ke``; every
+   kernel line carries ``launches_amg_paths``;
+17. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -3299,6 +3337,566 @@ def kernels_poisson(dev, entry, big, paths, gen):
     return stages
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the unstructured multigrid, deformed configurations and cells
+# ---------------------------------------------------------------------------
+
+AMG_N = 36                    # the bench mesh, perturbed for 16c
+AMG_CONTRAST = 1e4            # tests/test_amg.py:17-34's field
+JACOBI_CAP = 500              # maxiter of each Jacobi inner solve at 1e4
+DEFORM_SHEAR = ((1.0, 0.2, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
+# rotations that map the discrete cells onto themselves, so that the
+# transform_version form (the base material rotated; isotropic, so unchanged)
+# must give transform(Ch, R) too: the cyclic permutation of the axes (120
+# degrees about (1, 1, 1)) keeps the Kuhn grid's diagonal; 90 degrees keeps
+# grid_tri's alternating diagonals on an even grid
+ROT_3D = ((0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+ROT_2D = ((0.0, -1.0), (1.0, 0.0))
+AMG_PATH = ("gather_rows", "segment_sum_rows", "element_stiffness")
+# the homogeneous sheared cells: w = 0 solves their cell problems, whose
+# loads are rounding noise that CG must resolve in every mode, so they are
+# kept small (the EBE path: kernel B in float64)
+HOMOGENEOUS_3D_N = 8
+HOMOGENEOUS_2D_N = 16
+
+
+def perturbed_clamped(n, device, contrast=None):
+    """grid_tet(n) P2 with its interior vertices moved by up to 0.15 of a
+    cell (seeded; it fails ``validate_kuhn_grid``), clamped and loaded as
+    ``clamped_problem``; with ``contrast`` the field of
+    ``tests/test_amg.py:17-34`` (E = 200 above z = 0.5, 200 / contrast
+    below)."""
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.physics import (ElasticitySimulator, Material,
+                                           MaterialField)
+
+    V, T = generators.grid_tet(n, n, n)
+    V = V.copy()
+    interior = ((V > 1e-9) & (V < 1 - 1e-9)).all(axis=1)
+    rng = np.random.default_rng(16)
+    V[interior] += (0.15 / n) * rng.uniform(-1, 1, (interior.sum(), 3))
+    mesh = FEMMesh(V, T, degree=2)
+    if contrast is None:
+        mat = Material.isotropic(3, 200.0, 0.3)
+    else:
+        E_el = np.where(V[T].mean(axis=1)[:, 2] > 0.5, 200.0,
+                        200.0 / contrast)
+        mat = MaterialField.isotropic_field(3, E_el, np.full(len(E_el), 0.3))
+    sim = ElasticitySimulator(mesh, mat, device=device)
+    X = mesh.node_positions
+    sim.fix_nodes(np.flatnonzero(X[:, 0] < 1e-9))
+    load = np.zeros((mesh.num_nodes, 3))
+    load[X[:, 0] > X[:, 0].max() - 1e-9, 1] = -1.0
+    sim.neumann_load = torch.as_tensor(load, device=sim.device)
+    return sim
+
+
+def amg_solve(sim, label, required=AMG_PATH, **kw):
+    """One counted ``sim.solve(operator="routed", precond="amg")`` with the
+    operator and the hierarchy built anew (inside the count); returns (u,
+    CGResult, seconds, counts, the hierarchy)."""
+    sim._routed, sim._amg = None, None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        (u, res), wall, counts = counted(label, lambda: sim.solve(
+            operator="routed", precond="amg", **kw), required)
+    mg = sim._amg[1]
+    log(f"{label}: {wall:.3f} s with the build, {res.rounds} rounds "
+        f"{[h[1] for h in res.history]}, {res.iters} inner MG-PCG "
+        f"iterations, relres {res.resnorm:.3e}; hierarchy "
+        f"{amg_levels(mg)} unknowns; build " + ", ".join(
+            f"{k} {v:.3f}" for k, v in mg.timings.items())
+        + f"; launches {counts}")
+    return u, res, wall, counts, mg
+
+
+def amg_levels(mg):
+    """Unknowns per level: P2, P1, each aggregation level (the last one the
+    dense coarsest)."""
+    return [3 * mg.Nf, 3 * mg.NC] + [6 * lv.n_agg for lv in mg.levels]
+
+
+def vcycle_symmetry(mg, gen, label):
+    """16b: two random free vectors x, y (internal order): |<y, M x> - <x,
+    M y>| <= 1e-4 max(|<y, M x>|, |<x, M y>|) and <x, M x> > 0 (the
+    reference's criteria, ``tests/test_amg.py:37-53``); the first V-cycle
+    counted: every routed apply launched A and B once in rows and every
+    transfer (P2 <-> P1 and each aggregation level) one more A or B, so A
+    and B each launch (applies + 1 + levels) times."""
+    Nf = mg.Nf
+    x = torch.randn((Nf, 3), generator=gen, device=gen.device) * mg.free_f
+    y = torch.randn((Nf, 3), generator=gen, device=gen.device) * mg.free_f
+    with ApplyCounter() as applies:
+        Mx, _, counts = counted(label, lambda: mg.precondition(x),
+                                ("gather_rows", "segment_sum_rows"))
+    My = mg.precondition(y)
+    a = float(torch.vdot(y.reshape(-1), Mx.reshape(-1)))
+    b = float(torch.vdot(x.reshape(-1), My.reshape(-1)))
+    xMx = float(torch.vdot(x.reshape(-1), Mx.reshape(-1)))
+    asym = abs(a - b) / max(abs(a), abs(b))
+    expect = applies.count + 1 + len(mg.levels)
+    log(f"{label}: <y, Mx> {a:.9e}, <x, My> {b:.9e}, asymmetry {asym:.3e}, "
+        f"<x, Mx> {xMx:.6e}; {applies.count} routed applies, gather_rows "
+        f"{counts['gather_rows']}, segment_sum_rows "
+        f"{counts['segment_sum_rows']} (expected {expect} each)")
+    if not (asym <= 1e-4 and xMx > 0):
+        raise RuntimeError(f"{label}: the V-cycle is not symmetric positive")
+    if not (counts["gather_rows"] == expect
+            and counts["segment_sum_rows"] == expect
+            and counts["segment_sum_rows/f64"] == 0
+            and counts["gather_planes"] == counts["segment_sum_csr"] == 0):
+        raise RuntimeError(f"{label}: a transfer or apply did not run on "
+                           f"kernels A and B in rows")
+    return dict(asymmetry=asym, xMx=xMx, routed_applies=applies.count), \
+        counts
+
+
+def drive_amg(dev, sim, u_routed, gen):
+    """16a-c; returns (summary, launch counts per path, the bench
+    hierarchy)."""
+    from meshfem_tpu_torch.ops.structured import validate_kuhn_grid
+
+    out, paths = {}, {}
+    t_phase = time.time()
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("16: TF32 is on; the V-cycle needs full float32")
+    # 16a: the clamped bench problem through AMG
+    u, res, wall, paths["16a_amg"], mg = amg_solve(sim, "16a AMG (bench)",
+                                                   tol=1e-10)
+    relres = check_solution(sim, u, "16a AMG (bench)")
+    du = float((u - u_routed).abs().max() / u_routed.abs().max())
+    log(f"16a: u against phase 4's routed u {du:.3e} of max|u|")
+    if not du <= 1e-6:
+        raise RuntimeError(f"16a: AMG and routed solutions differ ({du})")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, res2 = sim.solve(operator="routed", precond="amg", tol=1e-10)
+    torch.cuda.synchronize()
+    solve_s = time.time() - t0
+    vin = [torch.randn((mg.Nf, 3), generator=gen, device=dev) * mg.free_f
+           for _ in range(5)]
+    vcycle_ms = median_apply_ms(mg.precondition, vin)
+    out["bench"] = dict(
+        levels=amg_levels(mg), build=mg.timings, first_solve_s=wall,
+        solve_s=solve_s, rounds=res2.rounds, inner_iters=res2.iters,
+        round_iters=[h[1] for h in res2.history], relres=relres,
+        inner_iter_ms=solve_s / max(res2.iters, 1) * 1e3,
+        vcycle_ms=vcycle_ms, vs_routed=du)
+    log(f"16a: solve with the hierarchy cached {solve_s:.3f} s, "
+        f"{res2.rounds} rounds, {res2.iters} inner iterations, "
+        f"{out['bench']['inner_iter_ms']:.3f} ms an inner iteration (host "
+        f"clock); one V-cycle {vcycle_ms:.4f} ms (events, median of "
+        f"{len(vin)})")
+    # 16b: the V-cycle's symmetry at bench size
+    out["symmetry"], paths["16b_vcycle"] = vcycle_symmetry(
+        mg, gen, "16b V-cycle (bench)")
+    # 16c: the unstructured case, AMG beside Jacobi
+    psim = perturbed_clamped(AMG_N, dev)
+    try:
+        validate_kuhn_grid(psim.mesh)
+        raise RuntimeError("16c: the perturbed mesh passed the Kuhn-grid "
+                           "validation")
+    except ValueError:
+        pass
+    up, res_a, wall_a, paths["16c_amg"], mg_p = amg_solve(
+        psim, "16c AMG (perturbed)", tol=1e-10)
+    check_solution(psim, up, "16c AMG (perturbed)")
+    psim._routed = None
+    (uj, res_j), wall_j, paths["16c_jacobi"] = counted(
+        "16c Jacobi (perturbed)", lambda: psim.solve(
+            operator="routed", precond="jacobi", tol=1e-10), AMG_PATH)
+    check_solution(psim, uj, "16c Jacobi (perturbed)")
+    dj = float((up - uj).abs().max() / uj.abs().max())
+    log(f"16c perturbed grid_tet({AMG_N}): AMG {wall_a:.3f} s (build "
+        f"{mg_p.timings['total_s']:.3f}), {res_a.iters} inner iterations; "
+        f"Jacobi {wall_j:.3f} s, {res_j.iters}; u AMG vs Jacobi {dj:.3e} "
+        f"of max")
+    if not dj <= 1e-6:
+        raise RuntimeError(f"16c: AMG and Jacobi solutions differ ({dj})")
+    out["perturbed"] = dict(
+        amg=dict(s=wall_a, build_s=mg_p.timings["total_s"],
+                 rounds=res_a.rounds, inner_iters=res_a.iters,
+                 levels=amg_levels(mg_p)),
+        jacobi=dict(s=wall_j, rounds=res_j.rounds, inner_iters=res_j.iters),
+        amg_vs_jacobi=dj)
+    del mg_p
+    csim = perturbed_clamped(AMG_N, dev, contrast=AMG_CONTRAST)
+    uc, res_c, wall_c, paths["16c_contrast_amg"], mg_c = amg_solve(
+        csim, f"16c AMG (perturbed, {AMG_CONTRAST:g} contrast)", tol=1e-10,
+        required=("gather_rows", "segment_sum_rows"))
+    relres_c = check_solution(csim, uc, "16c AMG (contrast)")
+    csim._routed = None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        (ucj, res_cj), wall_cj, paths["16c_contrast_jacobi"] = counted(
+            "16c Jacobi (contrast)", lambda: csim.solve(
+                operator="routed", precond="jacobi", tol=1e-10,
+                maxiter=JACOBI_CAP), ("gather_rows", "segment_sum_rows"))
+    log(f"16c {AMG_CONTRAST:g} contrast: AMG {wall_c:.3f} s, {res_c.rounds} "
+        f"rounds, {res_c.iters} inner iterations, relres {relres_c:.3e}; "
+        f"Jacobi capped at {JACOBI_CAP} an inner solve stopped after "
+        f"{res_cj.rounds} rounds, {res_cj.iters} iterations, {wall_cj:.3f} "
+        f"s, at relres {res_cj.resnorm:.3e}")
+    out["contrast"] = dict(
+        amg=dict(s=wall_c, rounds=res_c.rounds, inner_iters=res_c.iters,
+                 relres=relres_c, levels=amg_levels(mg_c)),
+        jacobi_capped=dict(maxiter=JACOBI_CAP, s=wall_cj,
+                           rounds=res_cj.rounds, inner_iters=res_cj.iters,
+                           relres=res_cj.resnorm))
+    del psim, csim, mg_c, uc, ucj
+    out["phase_s"] = time.time() - t_phase
+    log(f"16a-c: {out['phase_s']:.1f} s")
+    return out, paths, mg
+
+
+def deformed_gates(label, mesh, mat, Ch_plain, rot, shear, homogeneous,
+                   dev, paths, gate=1e-7, sheared_cell=True):
+    """16d on one cell: ``homogenize_deformed`` under the identity (against
+    ``Ch_plain``), a rotation ``rot`` warped and in ``transform_version``
+    form (against ``transform(Ch_plain, rot)``), each to ``gate`` of
+    max|Ch|; the ``homogeneous`` cell (no void) under ``shear`` gives D
+    (1e-8); with ``sheared_cell`` the cell under ``shear`` printed.  Each
+    run counted."""
+    from meshfem_tpu_torch.analysis.deformed_cells import homogenize_deformed
+    from meshfem_tpu_torch.fem import elasticity_tensor as et
+
+    out, res = {}, {}
+    dim = mesh.dim
+    Rt = torch.as_tensor(np.asarray(rot))
+    Sm = np.asarray(shear)[:dim, :dim]
+    expect_R = et.transform(Ch_plain.cpu(), Rt)
+    runs = (("identity", mesh, np.eye(dim), False, Ch_plain.cpu()),
+            ("rotation", mesh, Rt.numpy(), False, expect_R),
+            ("rotation_transform_version", mesh, Rt.numpy(), True, expect_R),
+            ("homogeneous_shear", homogeneous, Sm, False, mat.D),
+            ("shear", mesh, Sm, False, None))[:5 if sheared_cell else 4]
+    for name, m, J, tv, expect in runs:
+        required = ("segment_sum_rows",) if m is homogeneous else AMG_PATH
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            r, wall, paths[f"16d_{label}_{name}"] = counted(
+                f"16d {label} {name}", lambda: homogenize_deformed(
+                    m, mat, J, transform_version=tv, tol=1e-10), required)
+        err = None if expect is None else rel_err(r.Ch, expect)
+        log(f"16d {label} {name}: {wall:.3f} s, block CG iterations "
+            f"{r.cg_iters[0]}, Ch {np.round(r.Ch.cpu().numpy(), 6).tolist()}"
+            + ("" if err is None else f"; {err:.3e} of max|Ch| from the "
+               f"expected tensor"))
+        g = 1e-8 if name == "homogeneous_shear" else gate
+        if err is not None and not err <= g:
+            raise RuntimeError(f"16d {label} {name}: {err:.3e} > {g:g}")
+        out[name] = dict(s=wall, iters=r.cg_iters[0], err=err,
+                         Ch=r.Ch.cpu().tolist())
+        res[name] = r
+    return out, res
+
+
+def drive_deformed(dev, cell, hsim, Ch_cell, Ch_tri):
+    """16d-f; returns (summary, launch counts per path, the sheared cell's
+    simulator for 16g)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from meshfem_tpu_torch.analysis import deformed_cells as dc
+    from meshfem_tpu_torch.cli import deformed_cells as cli_dc
+    from meshfem_tpu_torch.cli import homogenize as cli_h
+    from meshfem_tpu_torch.io import meshio
+    from meshfem_tpu_torch.mesh import FEMMesh, generators, periodic
+    from meshfem_tpu_torch.physics import ElasticitySimulator, Material
+
+    out, paths = {}, {}
+    t_phase = time.time()
+    mat = Material.isotropic(3, 200.0, 0.3)
+    n = HOMOGENEOUS_3D_N
+    full = FEMMesh(*generators.grid_tet(n, n, n), degree=2)
+    out["cell_3d"], res3 = deformed_gates(
+        "void cell", cell, mat, Ch_cell, ROT_3D, DEFORM_SHEAR, full, dev,
+        paths)
+    del full
+    tri = FEMMesh(*tri_void_cell(TRI_CELL_N), degree=2)
+    n = HOMOGENEOUS_2D_N
+    full2 = FEMMesh(*generators.grid_tri(n, n), degree=2)
+    out["cell_2d"], _ = deformed_gates(
+        "triangle cell", tri, Material.isotropic(2, E_2D, NU_2D),
+        torch.as_tensor(Ch_tri, dtype=torch.float64), ROT_2D, DEFORM_SHEAR,
+        full2, dev, paths, sheared_cell=False)
+    del tri, full2
+
+    # 16e: the shape gradient at full width, against a central difference
+    w = res3["identity"].w
+    Wg = torch.randn((6, 6), generator=torch.Generator().manual_seed(16),
+                     dtype=torch.float64)
+    Wg = (Wg + Wg.t()).numpy()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    g = dc.homogenized_tensor_shape_gradient(hsim, w, Wg)
+    torch.cuda.synchronize()
+    t_grad = time.time() - t0
+    X0 = torch.as_tensor(cell.node_positions, device=dev)
+    v = torch.randn(X0.shape, generator=torch.Generator(device=dev)
+                    .manual_seed(16), device=dev, dtype=torch.float64)
+    Wt = torch.as_tensor(Wg, device=dev)
+    J = lambda X: float((Wt * dc._energy_form_tensor(cell, hsim.D, w, X))
+                        .sum())
+    eps = 1e-6
+    fd = (J(X0 + eps * v) - J(X0 - eps * v)) / (2 * eps)
+    gv = float((g * v).sum())
+    fd_err = abs(fd - gv) / abs(fd)
+    log(f"16e shape gradient ({cell.num_nodes} nodes): {t_grad:.3f} s; "
+        f"along a random direction {gv:.9e}, central difference (eps "
+        f"{eps:g}) {fd:.9e}, {fd_err:.3e} relative")
+    if not fd_err <= 1e-5:
+        raise RuntimeError(f"16e: the shape gradient misses its central "
+                           f"difference ({fd_err:.3e})")
+    out["shape_gradient"] = dict(s=t_grad, along_v=gv, central_difference=fd,
+                                 rel_err=fd_err)
+
+    # 16f: the Homogenize and DeformedCells CLIs on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        meshio.save_msh(f"{tmp}/cell.msh", cell.V, cell.F)
+        with open(f"{tmp}/base.material", "w") as f:
+            json.dump({"type": "isotropic_material", "dim": 3,
+                       "young": 200.0, "poisson": 0.3}, f)
+        args = [f"{tmp}/cell.msh", "-m", f"{tmp}/base.material",
+                "--tol", "1e-10", "--device", str(dev)]
+
+        def run_cli(main, argv, stdin=None):
+            buf = io.StringIO()
+            saved = sys.stdin
+            if stdin is not None:
+                sys.stdin = io.StringIO(stdin)
+            try:
+                with contextlib.redirect_stdout(buf):
+                    main(argv)
+            finally:
+                sys.stdin = saved
+            return buf.getvalue()
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            text_h, t_h, paths["16f_cli_homogenize"] = counted(
+                "16f cli.homogenize", lambda: run_cli(
+                    cli_h.main, args + ["-o", f"{tmp}/w.msh"]), AMG_PATH)
+            S = np.asarray(DEFORM_SHEAR)
+            text_j, t_j, paths["16f_cli_deformed_jacobian"] = counted(
+                "16f cli.deformed_cells --jacobian", lambda: run_cli(
+                    cli_dc.main, args + ["--jacobian"]
+                    + [repr(float(x)) for x in S.ravel()]), AMG_PATH)
+            stdin = "\n".join(" ".join(repr(float(x)) for x in np.ravel(J))
+                              for J in (np.eye(3), ROT_3D)) + "\n"
+            text_p, t_p, paths["16f_cli_deformed_parametrized"] = counted(
+                "16f cli.deformed_cells --parametrizedTransform",
+                lambda: run_cli(cli_dc.main,
+                                args + ["--parametrizedTransform"], stdin),
+                AMG_PATH)
+        out_w = os.path.getsize(f"{tmp}/w.msh")
+    rows = [[float(x) for x in line.split()]
+            for line in text_h.splitlines()[1:7]]
+    ch_lines = [[float(x) for x in line.split()[1:]]
+                for line in (text_j + text_p).splitlines()
+                if line.startswith("Ch:")]
+    iu = np.triu_indices(6)
+    errs = dict(
+        homogenize=rel_err(torch.as_tensor(rows), Ch_cell),
+        jacobian_shear=rel_err(torch.as_tensor(ch_lines[0]),
+                               res3["shear"].Ch.cpu()[iu]),
+        parametrized_identity=rel_err(torch.as_tensor(ch_lines[1]),
+                                      res3["identity"].Ch.cpu()[iu]),
+        parametrized_rotation=rel_err(torch.as_tensor(ch_lines[2]),
+                                      res3["rotation"].Ch.cpu()[iu]))
+    log(f"16f CLIs: homogenize {t_h:.3f} s (-o wrote {out_w} bytes), "
+        f"deformed_cells --jacobian {t_j:.3f} s, --parametrizedTransform "
+        f"(2 jacobians) {t_p:.3f} s; printed Ch against 16d / phase 7: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    # the printed digits: 6 significant for homogenize, 8 for the rest
+    if not (errs["homogenize"] <= 1e-5 and max(
+            v for k, v in errs.items() if k != "homogenize") <= 1e-7):
+        raise RuntimeError(f"16f: a CLI's printed Ch differs: {errs}")
+    out["clis"] = dict(homogenize_s=t_h, jacobian_s=t_j,
+                       parametrized_s=t_p, msh_bytes=out_w, errs=errs)
+
+    # the sheared void cell's simulator (node_positions), for 16g
+    dof_map, _, _ = periodic.match_periodic_nodes(cell.node_positions,
+                                                  cell.bbox())
+    dsim = ElasticitySimulator(cell, mat, device=dev, dof_map=dof_map,
+                               node_positions=cell.node_positions
+                               @ np.asarray(DEFORM_SHEAR).T)
+    out["phase_s"] = time.time() - t_phase
+    log(f"16d-f: {out['phase_s']:.1f} s")
+    return out, paths, dsim
+
+
+def kernels_amg(dev, entry, sim, mg, paths, dsim, gen):
+    """16g: kernels A and B on the AMG plans (the P2 <-> P1 transfers, the
+    aggregation restriction and prolongation, the float64 row sums) held
+    bit for bit against their plain versions (B also against B in planes
+    and the CPU's plain sum), and E on the deformed cell's geometry to one
+    float32 ulp of the float64 Ke; each timed with ``entry``."""
+    from meshfem_tpu_torch import kernels
+    from meshfem_tpu_torch.ops import element_matrices as em
+
+    out = {}
+    main = paths["16a_amg"]
+    Nf, NC = mg.Nf, mg.NC
+    # A: the P1 -> P2 prolongation (2 Nf endpoint ids, 3 values a row)
+    src_c = torch.randn((NC, 3), generator=gen, device=dev)
+    ab = mg.ids_ab
+    if not torch.equal(kernels.gather_rows(src_c, ab),
+                       kernels.gather_rows_plain(src_c, ab)):
+        raise RuntimeError("16g: gather_rows on the prolongation != plain")
+    ab_long = ab.long()
+    entry("gather_rows/amg_prolong", "meshfem_tpu_torch/csrc/gather_planes.cu",
+          "meshfem_tpu/sparse/route.py:139 (here the P1 -> P2 prolongation, "
+          "plan_copy at meshfem_tpu/solvers/amg.py:303)",
+          own_mode(main, "gather_rows"), 0.0,
+          lambda: kernels.gather_rows(src_c, ab),
+          lambda: kernels.gather_rows_plain(src_c, ab),
+          lambda: torch.index_select(src_c, 0, ab_long),
+          2 * Nf * 4 + NC * 3 * 4 + 2 * Nf * 3 * 4, 0,
+          mode="rows [NC, 3] -> [2 Nf, 3], as UnstructuredMG._prolong_f "
+               "runs it", launches_path="16a AMG solve, float32 launches",
+          library_call="torch.index_select",
+          shape=f"src [{NC}, 3] f32, ids_ab [{2 * Nf}] int32")
+    # B: the P2 -> P1 restriction (2 Nf halves into NC rows)
+    pr = mg.plan_r
+    err_r = check_rows_on_plan(pr, torch.float32, "16g B restriction", gen)
+    half = torch.randn((Nf, 3), generator=gen, device=dev)
+    acc_c = torch.zeros((NC, 3), device=dev)
+    seg_r = torch.cat([ab_long[:Nf], ab_long[Nf:]])
+    half2 = torch.cat([half, half])
+    entry("segment_sum_rows/amg_restrict",
+          "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
+          "meshfem_tpu/sparse/route.py:162 (here the P2 -> P1 restriction, "
+          "plan_reduce at meshfem_tpu/solvers/amg.py:304)",
+          own_mode(main, "segment_sum_rows"), err_r,
+          lambda: pr.sum_rows(half),
+          lambda: kernels.segment_sum_rows_plain(half, pr.perm, pr.offsets),
+          lambda: acc_c.index_add_(0, seg_r, half2),
+          Nf * 3 * 4 + 2 * Nf * 4 + (NC + 1) * 4 + NC * 3 * 4, 2 * Nf * 3,
+          mode="rows [Nf, 3] read twice (2 Nf halves) -> [NC, 3], as "
+               "UnstructuredMG._restrict_f runs it",
+          launches_path="16a AMG solve, float32 launches",
+          library_call="Tensor.index_add_ (float atomics, not "
+                       "deterministic)",
+          shape=f"src [{Nf}, 3] f32, perm [{2 * Nf}] -> [{NC}, 3]")
+    # the aggregation level: B restriction and A prolongation, 6 values
+    lv = mg.levels[0]
+    n_units, n_agg = lv.agg_of.shape[0], lv.n_agg
+    err_a6 = check_rows_on_plan(lv.plan, torch.float32,
+                                "16g B aggregation restriction", gen, P=6)
+    con = torch.randn((n_units, 6), generator=gen, device=dev)
+    acc_a = torch.zeros((n_agg, 6), device=dev)
+    agg_long = lv.agg_of.long()
+    entry("segment_sum_rows/agg/6", "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
+          "meshfem_tpu/sparse/route.py:162 (here AggLevel.restrict, "
+          "jax.ops.segment_sum at meshfem_tpu/solvers/amg.py:83)",
+          own_mode(main, "segment_sum_rows"), err_a6,
+          lambda: lv.plan.sum_rows(con),
+          lambda: kernels.segment_sum_rows_plain(con, lv.plan.perm,
+                                                 lv.plan.offsets),
+          lambda: acc_a.index_add_(0, agg_long, con),
+          n_units * 6 * 4 + n_units * 4 + (n_agg + 1) * 4 + n_agg * 6 * 4,
+          n_units * 6,
+          mode="rows [units, 6] -> [aggregates, 6], as AggLevel.restrict "
+               "runs it", launches_path="16a AMG solve, float32 launches",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"src [{n_units}, 6] f32 -> [{n_agg}, 6]")
+    src_a = torch.randn((n_agg, 6), generator=gen, device=dev)
+    if not torch.equal(kernels.gather_rows(src_a, lv.agg_of),
+                       kernels.gather_rows_plain(src_a, lv.agg_of)):
+        raise RuntimeError("16g: gather_rows on the aggregate ids != plain")
+    entry("gather_rows/agg/6", "meshfem_tpu_torch/csrc/gather_planes.cu",
+          "meshfem_tpu/sparse/route.py:139 (here AggLevel.prolong, an XLA "
+          "gather at meshfem_tpu/solvers/amg.py:89)",
+          own_mode(main, "gather_rows"), 0.0,
+          lambda: kernels.gather_rows(src_a, lv.agg_of),
+          lambda: kernels.gather_rows_plain(src_a, lv.agg_of),
+          lambda: torch.index_select(src_a, 0, agg_long),
+          n_units * 4 + n_agg * 6 * 4 + n_units * 6 * 4, 0,
+          mode="rows [aggregates, 6] -> [units, 6], as AggLevel.prolong "
+               "runs it", launches_path="16a AMG solve, float32 launches",
+          library_call="torch.index_select",
+          shape=f"src [{n_agg}, 6] f32, agg_of [{n_units}] int32")
+    # B float64: the P2 Gershgorin row sums on the EBE plan
+    plan64 = sim._kernel.plan
+    err_64 = check_rows_on_plan(plan64, torch.float64,
+                                "16g B f64 row sums", gen)
+    Keabs = sim.Ke.abs().sum(dim=2).reshape(-1, 3).contiguous()
+    R64, N64 = plan64.num_rows, plan64.num_segments
+    dst = sim._kernel.elem_dofs.reshape(-1)
+    acc64 = torch.zeros((N64, 3), device=dev, dtype=torch.float64)
+    entry("segment_sum_rows/f64/rowsums",
+          "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
+          "meshfem_tpu/sparse/route.py:162 (f64; here the P2 Gershgorin row "
+          "sums, jax.ops.segment_sum at meshfem_tpu/solvers/amg.py:378)",
+          own_mode(main, "segment_sum_rows/f64"), err_64,
+          lambda: plan64.sum_rows(Keabs),
+          lambda: kernels.segment_sum_rows_plain(Keabs, plan64.perm,
+                                                 plan64.offsets),
+          lambda: acc64.index_add_(0, dst, Keabs),
+          3 * R64 * 8 + R64 * 4 + (N64 + 1) * 4 + 3 * N64 * 8, 3 * R64,
+          flop_rate=F64_FLOP_PER_S,
+          mode="f64 rows [E n, 3] |Ke| row sums -> [N, 3]",
+          launches_path="16a AMG solve, float64 launches (the row sums and "
+                        "the EBE residuals)",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"src [{R64}, 3] f64 -> [{N64}, 3]")
+    del Keabs
+    # E on the sheared void cell (node_positions): one float32 ulp of the
+    # float64 Ke of its own (float32) inputs, and near the simulator's
+    # float64 Ke, whose gradients float32 cannot hold exactly once sheared
+    g32 = dsim.geom.grad_lambda.float().contiguous()
+    v32 = dsim.geom.volume.float().contiguous()
+    D_host = dsim.D.cpu()
+    Ke32 = kernels.element_stiffness(g32, v32, D_host, 2)
+    e_ref = kernels.element_stiffness_plain(g32, v32, D_host, 2)
+    scale = float(dsim.Ke.abs().max())
+    err_e = float((Ke32 - e_ref).abs().max())
+    err_sim = float((Ke32.double() - dsim.Ke).abs().max())
+    del e_ref
+    ulps = ulps_from(Ke32, em.element_elasticity_fused(
+        g32.double(), v32.double(), dsim.D, 2))
+    del Ke32
+    log(f"16g E on the sheared void cell ({dsim.mesh.num_elements} tets, "
+        f"node_positions): max abs err {err_e:.3e} against plain, "
+        f"{err_sim:.3e} against the simulator's f64 Ke (max|Ke| "
+        f"{scale:.3e}); {ulps:.3f} ulp of each entry from the f64 Ke of "
+        f"the same float32 inputs")
+    if not (err_e <= 1e-5 * scale and err_sim <= 1e-5 * scale
+            and ulps <= 1.0):
+        raise RuntimeError("16g: element_stiffness on the deformed cell "
+                           "disagrees")
+    Ed = g32.shape[0]
+    deformed_runs = [c for p, c in paths.items()
+                     if p.startswith("16d_void cell")]
+    M32 = torch.as_tensor(em.fused_matrix_for(dsim.D, 3, 2),
+                          dtype=torch.float32, device=dev)
+    entry("element_stiffness/deformed",
+          "meshfem_tpu_torch/csrc/element_stiffness.cu",
+          "meshfem_tpu/kernels/element_stiffness.py:42",
+          sum(c["element_stiffness"] for c in deformed_runs), err_e,
+          lambda: kernels.element_stiffness(g32, v32, D_host, 2),
+          lambda: kernels.element_stiffness_plain(g32, v32, D_host, 2),
+          lambda: em.element_elasticity_fused_apply(g32, v32, M32, 10),
+          (12 + 1 + 900) * Ed * 4 + 36 * 8,
+          (2 * (144 * 9 + 900 * 16) + 900) * Ed,
+          algorithm_flops=(2 * (10 * (9 + 81) + 900 * 16) + 900) * Ed,
+          algorithm_flop_rate=F64_FLOP_PER_S,
+          mode="f32 Ke [E, 30, 30] at the sheared positions, as "
+               "ElasticitySimulator(node_positions=...)._routed_Ke runs it",
+          max_ulps_vs_f64=ulps, max_abs_err_vs_simulator_f64=err_sim,
+          launches_path="16d void-cell runs (one a dense operator build)",
+          library_call="ops.element_matrices.element_elasticity_fused_apply "
+                       "(einsum + torch.matmul, TF32 off)",
+          shape=f"grad_lambda [{Ed}, 4, 3] f32, vol [{Ed}] f32")
+    out.update(restrict_err=err_r, agg_err=err_a6, rowsum_err=err_64,
+               deformed_E_err=err_e, deformed_E_vs_simulator=err_sim,
+               deformed_E_ulps=ulps)
+    return out
+
+
 def check_b_rows(src, op, offsets, label):
     """Kernel B in rows on a routed operator's element-major plan: twice
     bit for bit, bit for bit against B in planes on the same contributions
@@ -4514,6 +5112,18 @@ def main() -> int:
                                                   poisson_paths, gen)
     summary["poisson"] = poisson
     del big
+
+    # -- 16. AMG, deformed configurations, deformed cells and their CLIs ---
+    amg_out, amg_paths, mg = drive_amg(dev, sim, u, gen)
+    amg_out["deformed"], p, dsim = drive_deformed(
+        dev, cell, hsim, Chs["dense"], two_d["tri_cell"]["Ch"])
+    amg_paths.update(p)
+    t0 = time.time()
+    amg_out["kernel_checks"] = kernels_amg(dev, entry, sim, mg, amg_paths,
+                                           dsim, gen)
+    amg_out["kernels_s"] = time.time() - t0
+    summary["amg"] = amg_out
+    del mg, dsim
     summary.update(
         dense_bmm_ms=timer(lambda: torch.bmm(rk.KeP, ue_dense)),
         dense_bmm_bound_ms=rk.KeP.numel() * 4 / HBM_BYTES_PER_S * 1e3,
@@ -4528,6 +5138,8 @@ def main() -> int:
                                   for p, c in paths_2d.items()}
         r["launches_poisson_paths"] = {p: own_mode(c, r["name"])
                                        for p, c in poisson_paths.items()}
+        r["launches_amg_paths"] = {p: own_mode(c, r["name"])
+                                   for p, c in amg_paths.items()}
     summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))

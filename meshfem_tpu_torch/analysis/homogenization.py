@@ -59,6 +59,10 @@ class HomogenizationResult:
     cg_iters: list
     timings: dict = dataclasses.field(default_factory=dict)
 
+    @property
+    def tensor(self) -> et.ElasticityTensor:
+        return et.ElasticityTensor(self.Ch)
+
 
 def canonical_strain(dim: int, i: int, dtype=torch.float64):
     """The symmetrized basis e^(kl) = 1/2 (e_k x e_l + e_l x e_k): raw flat

@@ -6,7 +6,8 @@
         [--device cuda]
 
 Outputs u, strain, stress, von Mises (and the load) as MSH fields.
-``--precond amg`` raises ``NotImplementedError``: AMG is not ported.
+``--precond amg`` runs on the routed operator (``--operator routed``, or
+``auto`` on CUDA past ``MESHFEM_ROUTED_MIN_E`` elements).
 """
 
 from __future__ import annotations

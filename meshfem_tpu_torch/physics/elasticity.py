@@ -29,7 +29,21 @@ Counterpart of ``meshfem_tpu/physics/elasticity.py::ElasticitySimulator``:
   (``x0``); ``precond`` is 'jacobi', 'block' or 'chebyshev'
   (``solvers/precond.py``), or 'twolevel' / 'twolevel-mult' (the P1-coarse
   two-level preconditioner, ``solvers/twolevel.py``, cached by
-  ``_twolevel_for`` :165-183) on the float64 EBE and the routed branches;
+  ``_twolevel_for`` :165-183) on the float64 EBE and the routed branches,
+  or 'amg' on the routed branch (the unstructured multigrid,
+  ``solvers/amg.py``, cached by Dirichlet mask, :675-707);
+* deformed configurations: ``node_positions`` (keyword only) re-embeds the
+  mesh, and ``geom``, ``Ke``, kernel E's float32 ``Ke``, the factored
+  tables, the boundary normals, every field and the rigid modes follow
+  it.  Two reads of the mesh's stored positions stay, as in the
+  reference: the boundary-condition regions (given on the mesh as
+  written) and the routed operator's RCB coordinates (an ordering only).
+  Where the reference reads the stored positions to its cost, the port
+  reads the simulator's: a simulator built at other positions is not
+  structured-eligible (the reference's ``_solve_structured`` builds from
+  ``self.mesh`` and would solve the undeformed problem), and
+  ``rigid_modes`` places its rotations at the simulator's positions (the
+  null space of its ``K``);
 * the homogenization load ``constant_strain_load``, the strain, stress and
   von Mises fields and the strain energy.
 
@@ -98,19 +112,27 @@ class ElasticitySimulator:
     ([fl, fl] or per element [E, fl, fl]).  ``dof_map`` ([N] node -> dof)
     identifies nodes (periodic cells).  ``Ke`` (optional, [E, n*d, n*d])
     shares an element stiffness computed elsewhere
-    (``interop.simulator_from_arrays``) instead of assembling."""
+    (``interop.simulator_from_arrays``) instead of assembling.
+    ``node_positions`` ([N, dim], keyword only) builds the simulator on the
+    mesh re-embedded at those positions (a deformed configuration); a
+    tensor given there without ``device`` sets the device."""
 
     def __init__(self, mesh: FEMMesh, material, device=None, Ke=None,
-                 dof_map=None):
+                 dof_map=None, *, node_positions=None):
         if mesh.dim != mesh.K:
             raise ValueError("elasticity requires embedding dim == K")
-        self.device = config.resolve_device(device)
+        self.device = config.device_for(device, node_positions)
         self.mesh = mesh
         self.dim = mesh.dim
         D = material.D if isinstance(material, (Material, MaterialField)) \
             else material
         self.D = torch.as_tensor(D, dtype=config.REAL, device=self.device)
-        self.geom = mesh.geometry(self.device)
+        self.geom = mesh.geometry(self.device, node_positions=node_positions)
+        self.deformed = node_positions is not None
+        # the positions this simulator is built at (host, float64)
+        self.node_positions = mesh.node_positions if node_positions is None \
+            else torch.as_tensor(node_positions, dtype=config.REAL) \
+            .cpu().numpy()
         if bool((self.geom.volume <= 0).any()):
             raise ValueError("mesh has non-positive element volumes "
                              "(reference rejects these too)")
@@ -138,6 +160,8 @@ class ElasticitySimulator:
         self._routed = None
         self._mg = None                 # (Dirichlet mask bytes, multigrid,
         #                                  build seconds on the host clock)
+        self._amg = None                # (Dirichlet mask bytes,
+        #                                  UnstructuredMG)
         self._twolevel = {}             # (precond, mask, ordered) -> TwoLevel
         d = self.dim
         self.dirichlet_mask = np.zeros((self.num_dofs, d), dtype=bool)
@@ -169,7 +193,9 @@ class ElasticitySimulator:
         if self._routed is not None and block_rhs:
             self._routed.bm = int(block_rhs)
         if self._routed is None:
-            # dof coordinates: position of (a) node carrying each dof
+            # dof coordinates: position of (a) node carrying each dof.  The
+            # mesh's stored positions, as in the reference (:133-134), also
+            # for a deformed simulator: they set only the internal order
             pos = np.zeros((self.num_dofs, self.mesh.node_positions.shape[1]))
             pos[self.dof_map] = self.mesh.node_positions
             factor = None
@@ -231,8 +257,12 @@ class ElasticitySimulator:
 
     def _structured_eligible(self) -> bool:
         """The reference's pre-filter for its structured multigrid path
-        (``elasticity.py:185-193``)."""
-        return (self.dim == 3 and self.mesh.degree == 2
+        (``elasticity.py:185-193``), and the simulator at the mesh's own
+        positions: the structured operator is built from the mesh, so a
+        deformed configuration must not take it (the reference's pre-filter
+        lets it through and solves the undeformed problem)."""
+        return (not self.deformed
+                and self.dim == 3 and self.mesh.degree == 2
                 and self.D.ndim in (2, 3)                 # uniform / field
                 and self.num_dofs == self.mesh.num_nodes  # no periodic ids
                 and not self.no_rigid_motion
@@ -286,6 +316,9 @@ class ElasticitySimulator:
                 # the region's dofs, for surface-force reports
                 self._region_nodes.append(np.asarray(dofs))
             elif region.type in ("traction", "force", "pressure"):
+                # regions are matched on the mesh as written (its stored
+                # positions, reference :270, :301); the loads integrate
+                # over this simulator's geometry
                 belems = bc_mod.match_boundary_elements(mesh, region)
                 if len(belems) == 0:
                     raise ValueError(f"BC region matched no boundary "
@@ -402,12 +435,15 @@ class ElasticitySimulator:
     # ------------------------------------------------------------------
     def rigid_modes(self, translations_only: bool = False) -> np.ndarray:
         """[Nd * dim, n_modes] float64 rigid translation / rotation basis
-        (numpy), dof-major rows ``dof * dim + component``."""
+        (numpy), dof-major rows ``dof * dim + component``, the rotations
+        about the simulator's own positions (the reference takes the mesh's
+        stored ones, :404-412, which for a deformed configuration are not
+        the null space of its ``K``)."""
         d = self.dim
         Nd = self.num_dofs
         # the position of (a) node carrying each dof
         pos = np.zeros((Nd, d))
-        pos[self.dof_map] = self.mesh.node_positions[:, :d]
+        pos[self.dof_map] = self.node_positions[:, :d]
         modes = []
         for c in range(d):
             m = np.zeros((Nd, d))
@@ -480,7 +516,14 @@ class ElasticitySimulator:
         above ``tol``: check ``CGResult.resnorm`` on ill-conditioned
         meshes.  On refined paths ``maxiter`` bounds each inner solve,
         ``CGResult.iters`` counts all inner iterations and ``rounds`` the
-        refinement rounds.  The AMG preconditioner is not ported."""
+        refinement rounds.
+
+        ``precond="amg"`` (routed operator only; ValueError on the EBE
+        path, with ``no_rigid_motion`` or with ``x0``) runs MG-PCG on the
+        unstructured multigrid (``solvers/amg.py``), built once per
+        Dirichlet mask: in float32 alone for a float32 load or ``tol`` >=
+        1e-5, else inside float64 refinement, each inner solve
+        ``mg.solve(r32, tol=1e-4, maxiter=min(maxiter, 200))``."""
         b = self.neumann_load
         if extra_load is not None:
             b = b + torch.as_tensor(extra_load, dtype=b.dtype,
@@ -514,13 +557,10 @@ class ElasticitySimulator:
                 raise ValueError(
                     "structured solve requires a 3D P2 mesh with uniform "
                     "material, identity dof map, some Dirichlet "
-                    "constraint and no rigid-mode projection")
-        if precond == "amg":
-            raise NotImplementedError(
-                "precond='amg' (solvers/amg.py) is queued in ROADMAP.md "
-                "(Queue 1, item 14)")
+                    "constraint and no rigid-mode projection, at the "
+                    "mesh's own node positions")
         if precond not in ("jacobi", "block", "chebyshev", "twolevel",
-                           "twolevel-mult"):
+                           "twolevel-mult", "amg"):
             raise ValueError(f"unknown precond {precond!r}")
         if operator not in ("auto", "routed", "ebe"):
             raise ValueError(f"unknown operator {operator!r}")
@@ -534,6 +574,10 @@ class ElasticitySimulator:
                 and precond in ("jacobi", "block", "chebyshev")):
             return self._solve_ebe_refined(b, fixed, vals, tol, maxiter,
                                            precond, chebyshev_degree)
+        if precond == "amg":
+            raise ValueError(
+                "precond='amg' runs on the routed operator only: pass "
+                "operator='routed' (or 'auto' on CUDA with a large mesh)")
         return self._solve_ebe(b, fixed, vals, tol, maxiter, precond,
                                chebyshev_degree, x0)
 
@@ -702,7 +746,10 @@ class ElasticitySimulator:
         through the same reordering and transpose as the vectors before
         they are orthonormalized; ``x0`` enters the refinement as
         ``proj_hi(x0 - u_d)`` and the plain float32 CG in internal order.
-        Returns the dof-space field and the CGResult."""
+        Returns the dof-space field and the CGResult.  ``precond="amg"``
+        takes :meth:`_solve_amg`."""
+        if precond == "amg":
+            return self._solve_amg(b, fixed, vals, tol, maxiter, x0)
         rk = self.routed_kernel()
         f32 = config.SOLVE
         d, Nd = self.dim, self.num_dofs
@@ -788,6 +835,45 @@ class ElasticitySimulator:
         u = ref.x + u_d
         return u, cg_mod.CGResult(u, ref.inner_iters, ref.resnorm,
                                   ref.rounds, ref.history)
+
+    def _solve_amg(self, b, fixed, vals, tol, maxiter, x0=None):
+        """MG-PCG on the unstructured multigrid (reference ``_solve_routed``
+        :675-707): the hierarchy over the routed operator, cached by the
+        Dirichlet mask's bytes; float32 alone for a float32 load or ``tol``
+        >= 1e-5, else float64 refinement whose residuals run through the
+        float64 EBE operator around float32 MG-PCG solves to 1e-4.  Returns
+        the dof-space field and the CGResult."""
+        from ..solvers.amg import UnstructuredMG
+
+        if self.no_rigid_motion or x0 is not None:
+            raise ValueError("precond='amg' does not support "
+                             "no_rigid_motion or x0 yet")
+        f32 = config.SOLVE
+        key = self.dirichlet_mask.tobytes()
+        if self._amg is None or self._amg[0] != key:
+            self._amg = (key, UnstructuredMG.build(
+                self, fixed_mask=fixed, rk=self.routed_kernel()))
+        mg = self._amg[1]
+        if b.dtype != torch.float64 or tol >= 1e-5:
+            u, res = mg.solve(b.to(f32), fixed_values=vals.to(f32), tol=tol,
+                              maxiter=maxiter)
+            u_dof = u.to(b.dtype)
+            return u_dof, cg_mod.CGResult(u_dof, res.iters, res.resnorm)
+
+        free64 = (~fixed).to(torch.float64)
+        u_d = torch.where(fixed, vals, torch.zeros_like(vals)).to(
+            torch.float64)
+        apply_hi = lambda x: self.apply_K(x) * free64
+        rhs64 = (b.to(torch.float64) - self.apply_K(u_d)) * free64
+
+        def solve_lo(r32):
+            u, r = mg.solve(r32, tol=1e-4, maxiter=min(maxiter, 200))
+            return u, r.iters
+
+        ref = refine_mod.refine(apply_hi, solve_lo, rhs64, tol=tol)
+        u_dof = ref.x + u_d
+        return u_dof, cg_mod.CGResult(u_dof, ref.inner_iters, ref.resnorm,
+                                      ref.rounds, ref.history)
 
     # ------------------------------------------------------------------
     # Loads and fields (LinearElasticity.hh:100-162, 512-552)

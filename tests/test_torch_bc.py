@@ -41,6 +41,16 @@ from meshfem_tpu_torch.solvers import refine as refine_mod
 from meshfem_tpu_torch.utils import expressions as expr
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs six test processes on eight
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class _Lazy:
     """A module of the reference (or JAX), imported on first use: the
     ``cuda`` cases run on a machine with a card and no JAX."""

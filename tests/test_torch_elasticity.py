@@ -33,6 +33,17 @@ from meshfem_tpu_torch import interop
 from meshfem_tpu_torch.mesh import FEMMesh
 from meshfem_tpu_torch.physics import ElasticitySimulator, Material
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs six test processes on eight
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -144,12 +155,20 @@ def test_simulator_from_arrays(reference_solution):
     assert _rel(u.numpy(), u_ref) < 1e-8
 
 
-def test_solve_scope_raises():
+def test_solve_scope_raises(reference_solution):
+    """The solve's scope: the structured and AMG paths' ValueErrors, and
+    precond='amg' running on the routed operator (float64 refinement
+    around float32 MG-PCG) to the reference's float64 EBE solution."""
+    _, load, u_ref, _ = reference_solution
     sim, _ = _clamped_bar(FEMMesh, ElasticitySimulator, Material, "cpu")
     with pytest.raises(ValueError, match="requires a 3D P2 mesh"):
         sim.solve(operator="structured")      # 144 tets: not eligible
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sim.solve(operator="routed", precond="amg")
+    with pytest.raises(ValueError, match="routed operator only"):
+        sim.solve(operator="ebe", precond="amg")
+    sim.neumann_load = torch.as_tensor(load)
+    u, res = sim.solve(operator="routed", precond="amg", tol=1e-10)
+    assert res.resnorm <= 1e-10 and res.rounds >= 1
+    assert _rel(u.numpy(), u_ref) < 1e-8
     with pytest.raises(ValueError, match="unknown precond"):
         sim.solve(operator="ebe", precond="nope")
 
@@ -179,6 +198,8 @@ import meshfem_tpu_torch.utils.expressions, meshfem_tpu_torch.utils.linalg
 import meshfem_tpu_torch.fem.tensor_projection, meshfem_tpu_torch.solvers
 import meshfem_tpu_torch.ops.structured_periodic
 import meshfem_tpu_torch.solvers.twolevel, meshfem_tpu_torch.analysis.topopt
+import meshfem_tpu_torch.solvers.amg, meshfem_tpu_torch.analysis.deformed_cells
+import meshfem_tpu_torch.cli.homogenize, meshfem_tpu_torch.cli.deformed_cells
 V, T = generators.bar_tet(6, 2, 2)
 mesh = FEMMesh(V, T, degree=2)
 sim = ElasticitySimulator(mesh, Material.isotropic(3, 200.0, 0.3),
@@ -232,7 +253,8 @@ print(json.dumps(out))
 
 def test_port_stands_alone(reference_solution):
     _, _, u_ref, vm_ref = reference_solution
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one torch thread, as in the test processes (six share eight cores)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _STANDALONE], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)

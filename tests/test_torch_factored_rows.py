@@ -43,6 +43,17 @@ from meshfem_tpu_torch.kernels import segment_sum as seg_mod
 from meshfem_tpu_torch.sparse import routed_ebe as re_mod
 from meshfem_tpu_torch.sparse import scatter as sc_mod
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs six test processes on eight
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CONFIGS = [(3, 2), (3, 1), (2, 2), (2, 1)]
 CONTRACTIONS = {
     "C": (kernels.qp_contract, kernels.qp_contract_plain),

@@ -19,6 +19,17 @@ from meshfem_tpu_torch.fem import elasticity_tensor as tet
 from meshfem_tpu_torch.ops import element_matrices as tem
 from meshfem_tpu_torch.sparse import contract as tcontract
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs six test processes on eight
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-14
 
 

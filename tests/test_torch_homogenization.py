@@ -30,6 +30,16 @@ from meshfem_tpu_torch.solvers import cg as cg_mod, precond as pc
 from meshfem_tpu_torch.solvers.refine import refine
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs six test processes on eight
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rel(a, b):
     a, b = np.asarray(a), np.asarray(b)
     return float(np.abs(a - b).max() / np.abs(b).max())
@@ -428,19 +438,22 @@ def test_periodic_simulator_solve_and_fields():
 def test_structured_prefilter_conditions():
     """``_structured_eligible`` carries all of the reference's conditions
     (``elasticity.py:185-193``): with Dirichlet data on a 3000-element P2
-    mesh the identity map is eligible, a periodic map is not."""
+    mesh the identity map is eligible, a periodic map is not; nor is a
+    simulator built at other node positions (the port's own condition)."""
     mat = Material.isotropic(3, 1.0, 0.3)
 
     class Probe(ElasticitySimulator):
-        def __init__(self, num_dofs, degree=2, rigid=False):
+        def __init__(self, num_dofs, degree=2, rigid=False, deformed=False):
             self.dim, self.D = 3, mat.D
             self.mesh = type("M", (), dict(degree=degree, num_nodes=729,
                                            num_elements=3072))()
             self.num_dofs = num_dofs
             self.no_rigid_motion = rigid
+            self.deformed = deformed
             self.dirichlet_mask = np.ones((num_dofs, 3), bool)
 
     assert Probe(729)._structured_eligible()
+    assert not Probe(729, deformed=True)._structured_eligible()
     assert not Probe(512)._structured_eligible()          # periodic ids
     assert not Probe(729, rigid=True)._structured_eligible()
     assert not Probe(729, degree=1)._structured_eligible()

@@ -11,7 +11,8 @@ meshfem_tpu, on the CPU.
 * ``cli.poisson`` and ``cli.simulate`` with ``--device cpu`` on the meshes
   of ``tests/test_cli.py``: each output read by the reference's reader and
   held against the reference CLI's output on the same files (1e-10 of
-  max), the stiffness dump too, and ``--precond amg`` raising.
+  max), the stiffness dump too, and ``--precond amg`` on the routed
+  operator (1e-8 of max).
 """
 
 import json
@@ -315,5 +316,10 @@ def test_simulate_cli(cli_files, capsys):
     Kt, Kr = _triplets(d / "Kt.txt"), _triplets(d / "Kr.txt")
     assert Kt.shape == Kr.shape and Kt.shape[0] == Kt.shape[1]
     _close(Kt.toarray(), Kr.toarray(), 1e-14)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # AMG: on the routed operator only, as in the reference
+    with pytest.raises(ValueError, match="routed operator only"):
         tcli.main(args + ["--precond", "amg", "--device", "cpu"])
+    tcli.main(args + ["-o", str(d / "sa.msh"), "--precond", "amg",
+                      "--operator", "routed", "--device", "cpu"])
+    _close(rfields.vector_field(rfields.read_fields(d / "sa.msh"), "u", 2),
+           rfields.vector_field(ref, "u", 2), 1e-8)

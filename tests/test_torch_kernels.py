@@ -25,6 +25,16 @@ from meshfem_tpu_torch import kernels
 from meshfem_tpu_torch.sparse.scatter import ScatterPlan
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs six test processes on eight
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _reference():
     """The reference's kernels, imported here so that the CUDA cases also
     run where JAX is not installed."""

@@ -33,6 +33,17 @@ from meshfem_tpu_torch.fem import elasticity_tensor as et
 from meshfem_tpu_torch.fem.flattening import full_to_flat_map
 from meshfem_tpu_torch.sparse.contract import factored_tables
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs six test processes on eight
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CASES = [(3, 2, 10), (2, 2, 6), (3, 1, 4), (2, 1, 3)]
 MATERIALS = ["isotropic", "anisotropic"]
 

@@ -17,6 +17,17 @@ from meshfem_tpu_torch.mesh import FEMMesh, generators as tgen
 from meshfem_tpu_torch.mesh.geometry import simplex_geometry
 from meshfem_tpu_torch.mesh.reorder import rcb_order
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs six test processes on eight
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MESHES = [("grid", (3, 3, 3)), ("grid", (4, 4, 4)), ("grid", (2, 3, 4)),
           ("bar", (6, 2, 2))]
 

@@ -30,6 +30,17 @@ import torch
 from meshfem_tpu_torch.kernels import qp
 from meshfem_tpu_torch.sparse.contract import qp_tables
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs six test processes on eight
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CONFIGS = [(3, 2), (3, 1), (2, 2), (2, 1)]
 NONZERO = {(3, 2): 112, (3, 1): 4, (2, 2): 45, (2, 1): 3}
 LAM, MU = 1.7, 0.9

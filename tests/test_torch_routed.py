@@ -21,6 +21,17 @@ from meshfem_tpu_torch import interop
 from meshfem_tpu_torch.mesh import FEMMesh
 from meshfem_tpu_torch.physics import ElasticitySimulator, Material
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs six test processes on eight
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 5e-6
 
 

@@ -47,6 +47,17 @@ from meshfem_tpu_torch.ops.structured_var import StructuredVarP2Elasticity
 from meshfem_tpu_torch.physics import (ElasticitySimulator, Material,
                                        MaterialField)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs six test processes on eight
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 D_ISO = Material.isotropic(3, 200.0, 0.3).D
 
 

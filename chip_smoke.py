@@ -343,7 +343,45 @@ of which raises on failure:
    14 times the others; kernel E on the sheared void cell's geometry
    (``node_positions``) within one float32 ulp of the float64 ``Ke``; every
    kernel line carries ``launches_amg_paths``;
-17. last, ``{"ok": true, "device": {...}}``.
+17. vibrational modes, material optimization, the autograd pair and
+   Newton, every path counted (counts zeroed just before, read just after;
+   kernel B required, and kernel A where a gradient runs): (a)
+   ``compute_vibrational_modes`` on the bench mesh with
+   ``Material.isotropic(3, 200, 0.35)``, free (rigid modes deflated) and
+   with the x = 0 face as ``fixed_mask``, ``MODES_ITERS`` LOBPCG iterations
+   (the reference's 3D LOBPCG stalls above its tolerance, so the count is
+   fixed): ms an iteration (host clock), the eigenvalues and the residual
+   history printed, then the K and M applies at 6 and 18 columns by stage
+   (the gather, the float64 ``bmm``, B at 18 / 54 values; events, warm
+   L2) beside the ``Ke`` floor; (b) the card against the CPU on
+   grid_tet(4, 3, 2) P2 at ``MODES_SMALL_ITERS`` iterations, the host-stage
+   branch and the device loop (scalar ``EBEKernel`` operators): eigenvalues
+   to 1e-9 relative, the M-projectors onto the blocks to 1e-7; and the
+   reference test's grid_tri(5, 5) P1 modes on the card against scipy's
+   shift-invert ``eigsh`` (rtol 1e-4); (c) ``optimize(...,
+   precond="multigrid")`` on the bench mesh with per-element moduli,
+   ``MO_STEPS`` Adam steps, each split into the multigrid build, the
+   forward and adjoint solves (with their iterations) and the rest; the
+   objective must fall; the backward alone counted (A = B + 2: each
+   adjoint matvec and the replayed matvec one of each, and B's two
+   adjoints); one step on grid_tet(2) P2 (unpreconditioned: the same
+   differentiated code) under ``torch.profiler`` with no library scatter
+   (``index_add_``, an accumulating ``index_put_``, ``scatter_add``); the
+   gradient against central differences on grid_tet(6) P2 (< 1e-4) and
+   against the CPU on grid_tet(4) P2 (1e-8); (d) the gradient of load . u
+   through ``differentiable_displacement`` on ``ComplianceTopOpt(64, 32,
+   32)`` in float64 against ``compliance_and_grad``'s dc (rtol 5e-5), the
+   forward and backward timed; (e) ``newton_from_energy`` on the
+   neo-Hookean energy of a clamped bar grid_tet(2n, n, n) P1 (n =
+   ``NEWTON_N``) stretched 20%, to gradTol 1e-8, s an iteration and the CG
+   iterations printed, and the card against the CPU at n = 3 (x to 1e-8,
+   equal iteration counts); (f) ``cli.material_opt`` on a grid_tet(6) P1
+   mesh and a .bc file with a ``target`` region, the fitted field read back
+   against the API (1e-10); (g) kernel B in float64 rows at 18 and 54
+   values on the modes' plan and kernel A in float64 rows on material
+   optimization's gather, each against its plain version and timed; every
+   kernel line carries ``launches_phase17_paths``;
+18. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -3897,6 +3935,674 @@ def kernels_amg(dev, entry, sim, mg, paths, dsim, gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: vibrational modes, the implicit-function solve, material
+# optimization, differentiable_displacement, nonlinear energies and Newton
+# ---------------------------------------------------------------------------
+
+MODES_NU = 0.35               # examples/vibrational_modes.py's material
+MODES_ITERS = 20              # LOBPCG iterations at bench size (a fixed count:
+#                               the reference's 3D LOBPCG stalls above 1e-7)
+MODES_SMALL_ITERS = 15        # 17b, card against CPU
+MO_STEPS = 3                  # 17c Adam steps at bench size
+MO_FD_N = 6                   # 17c finite-difference gate's grid_tet(n) P2
+MO_CPU_N = 4                  # 17c card against CPU
+MO_PROFILE_N = 2              # 17c the profiled step's grid_tet(n) P2
+TOPOPT17_SHAPE = (64, 32, 32)  # 17d, 12d's grid
+NEWTON_N = 16                 # 17e: the bar grid_tet(2n, n, n) P1
+NEWTON_CPU_N = 3              # 17e card against CPU
+CLI_MO_N = 6                  # 17f: grid_tet(n) P1 for cli.material_opt
+PHASE17_PATH = ("gather_rows", "segment_sum_rows")
+
+
+def m_projector_gap(X, Y, M):
+    """max |P_X - P_Y| of the M-orthogonal projectors onto the spans of the
+    host blocks X and Y ([n, k]), M a host (scipy) matrix."""
+    def P(Z):
+        MZ = M @ Z
+        return Z @ np.linalg.solve(Z.T @ MZ, MZ.T)
+
+    return float(np.abs(P(X) - P(Y)).max())
+
+
+def modes_bench(dev, gen):
+    """17a: ``compute_vibrational_modes`` on the bench mesh (with the
+    clamp's x = 0 face as ``fixed_mask``, then the free body), counted;
+    then the K and M applies timed by stage at 6 and 18 columns."""
+    from meshfem_tpu_torch.analysis import modes
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.ops import operators
+    from meshfem_tpu_torch.physics import ElasticitySimulator, Material
+
+    out, paths = {}, {}
+    V, T = generators.grid_tet(BENCH_N, BENCH_N, BENCH_N)
+    mesh = FEMMesh(V, T, degree=2)
+    t0 = time.time()
+    sim = ElasticitySimulator(mesh, Material.isotropic(3, 200.0, MODES_NU),
+                              device=dev)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.time() - t0
+    X = mesh.node_positions
+    fixed = np.zeros((sim.num_dofs, 3), bool)
+    fixed[X[:, 0] < 1e-9] = True
+    for label, mask in (("clamped", fixed), ("free", None)):
+        hist = []
+        (lam, Xm), wall, paths[f"17a_modes_{label}"] = counted(
+            f"17a modes ({label})", lambda: modes.compute_vibrational_modes(
+                sim, n_modes=6, maxiter=MODES_ITERS, fixed_mask=mask,
+                history=hist), required=("segment_sum_rows",))
+        if not (Xm.shape == (mesh.num_nodes, 3, 6)
+                and bool(torch.isfinite(Xm).all())
+                and np.all(np.isfinite(lam)) and np.all(lam > 0)
+                and np.all(np.diff(lam) >= 0)):
+            raise RuntimeError(f"17a modes ({label}): bad output")
+        c = paths[f"17a_modes_{label}"]
+        out[label] = dict(seconds=wall, iterations=len(hist),
+                          ms_per_iteration=wall / len(hist) * 1e3,
+                          eigenvalues=lam.tolist(),
+                          residual_history=[h.tolist() for h in hist],
+                          launches_b_f64=c["segment_sum_rows/f64"])
+        log(f"17a modes ({label}) grid_tet({BENCH_N}) P2, "
+            f"{3 * sim.num_dofs} dofs: {wall:.3f} s, {len(hist)} LOBPCG "
+            f"iterations, {wall / len(hist) * 1e3:.2f} ms an iteration "
+            f"(host clock); eigenvalues {lam.tolist()}; relative residuals "
+            f"first {hist[0].tolist()} last {hist[-1].tolist()}; B f64 "
+            f"launches {c['segment_sum_rows/f64']}")
+    # the K and M applies by stage (events, warm L2)
+    Mv = operators.mass_elasticity(mesh, device=dev)
+    stages = {}
+    for name, kern in (("K", sim._kernel), ("M", Mv._kernel)):
+        E, nd, _ = kern.Ke.shape
+        R = kern.plan.num_rows
+        for m in (6, 18):
+            ins = [torch.randn((sim.num_dofs, 3, m), generator=gen,
+                               device=dev, dtype=torch.float64)
+                   for _ in range(5)]
+            st, whole, y = stage_ms(
+                [("gather", lambda u: u[kern.elem_dofs].reshape(E, nd, m)),
+                 ("bmm", lambda ue: torch.bmm(kern.Ke, ue)),
+                 ("B", lambda fe: kern.plan(fe.reshape(R, 3 * m)))], ins)
+            if not torch.equal(y.reshape(ins[-1].shape), kern(ins[-1])):
+                raise RuntimeError("17a: the staged apply differs from the "
+                                   "operator's")
+            ue_bytes = E * nd * m * 8
+            stages[f"{name}_{m}"] = dict(
+                st, whole_ms=whole, apply_ms=median_apply_ms(kern, ins),
+                gather_bound_ms=(sim.num_dofs * 3 * m * 8
+                                 + kern.elem_dofs.numel() * 8 + ue_bytes)
+                / HBM_BYTES_PER_S * 1e3,
+                ke_floor_ms=kern.Ke.numel() * 8 / HBM_BYTES_PER_S * 1e3,
+                bmm_bound_ms=(kern.Ke.numel() * 8 + 2 * ue_bytes)
+                / HBM_BYTES_PER_S * 1e3,
+                b_bound_ms=(ue_bytes + R * 4 + (sim.num_dofs + 1) * 4
+                            + sim.num_dofs * 3 * m * 8)
+                / HBM_BYTES_PER_S * 1e3)
+            log(f"17a {name} apply at {m} columns ({3 * m} values a node "
+                f"in B): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                       stages[f"{name}_{m}"].items()))
+            del ins, y
+    out["stages"] = stages
+    return out, paths, sim, Mv
+
+
+def modes_vs_cpu(dev):
+    """17b: the port on the card against the port on the CPU at a fixed
+    iteration count, the host-stage branch (``compute_vibrational_modes``)
+    and the device loop (scalar ``EBEKernel`` operators); then the
+    reference's own 2D check on the card against scipy's shift-invert
+    ``eigsh`` (rtol 1e-4)."""
+    import scipy.sparse.linalg as spla
+
+    from meshfem_tpu_torch.analysis import modes
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.ops import operators
+    from meshfem_tpu_torch.physics import ElasticitySimulator, Material
+    from meshfem_tpu_torch.solvers import eigen
+
+    cpu = torch.device("cpu")
+    out, paths = {}, {}
+    V, T = generators.grid_tet(4, 3, 2, hi=(1.0, 0.8, 0.6))
+    mesh = FEMMesh(V, T, degree=2)
+    mat = Material.isotropic(3, 200.0, MODES_NU)
+    res = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        sim = ElasticitySimulator(mesh, mat, device=d)
+        run = lambda: modes.compute_vibrational_modes(
+            sim, n_modes=6, maxiter=MODES_SMALL_ITERS)
+        if where == "card":
+            res[where], _, paths["17b_modes_small"] = counted(
+                "17b modes (card)", run, required=("segment_sum_rows",))
+        else:
+            res[where] = run()
+    M = operators.mass_elasticity(mesh, device=cpu).to_scipy()
+    lam_gap = float(np.abs(res["card"][0] - res["cpu"][0]).max()
+                    / np.abs(res["cpu"][0]).max())
+    proj_gap = m_projector_gap(res["card"][1].cpu().numpy().reshape(-1, 6),
+                               res["cpu"][1].numpy().reshape(-1, 6), M)
+    out["host_loop"] = dict(eig_rel=lam_gap, projector_gap=proj_gap,
+                            eigenvalues=res["card"][0].tolist())
+    # the device loop: registered operators (the scalar Laplacian and mass)
+    X0 = np.random.default_rng(17).standard_normal((mesh.num_nodes, 3))
+    dl = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        K = operators.laplacian(mesh, device=d)._kernel
+        Mk = operators.mass(mesh, device=d)._kernel
+        if not eigen._ops_are_pytrees(K, Mk):
+            raise RuntimeError("17b: EBEKernel operators did not take the "
+                               "device loop")
+        run = lambda: eigen.lobpcg_generalized(
+            K, Mk, torch.as_tensor(X0, device=d), tol=1e-7,
+            maxiter=MODES_SMALL_ITERS, deflate=np.ones((mesh.num_nodes, 1)))
+        if where == "card":
+            dl[where], _, paths["17b_device_loop"] = counted(
+                "17b device loop (card)", run,
+                required=("segment_sum_rows",))
+        else:
+            dl[where] = run()
+    Ms = operators.mass(mesh, device=cpu).to_scipy()
+    dl_lam = float(np.abs(dl["card"][0] - dl["cpu"][0]).max()
+                   / np.abs(dl["cpu"][0]).max())
+    dl_proj = m_projector_gap(dl["card"][1].cpu().numpy(),
+                              dl["cpu"][1].numpy(), Ms)
+    out["device_loop"] = dict(eig_rel=dl_lam, projector_gap=dl_proj,
+                              eigenvalues=dl["card"][0].tolist())
+    log(f"17b card against CPU, grid_tet(4, 3, 2) P2, {MODES_SMALL_ITERS} "
+        f"iterations: host loop eigenvalues {lam_gap:.3e} relative, "
+        f"projectors {proj_gap:.3e}; device loop eigenvalues {dl_lam:.3e}, "
+        f"projectors {dl_proj:.3e}")
+    if not (lam_gap <= 1e-9 and proj_gap <= 1e-7 and dl_lam <= 1e-9
+            and dl_proj <= 1e-7):
+        raise RuntimeError("17b: modes on the card differ from the CPU")
+    # the reference test's 2D check on the card against scipy
+    V2, F2 = generators.grid_tri(5, 5)
+    m2 = FEMMesh(V2, F2, degree=1)
+    sim2 = ElasticitySimulator(m2, Material.isotropic(2, 5.0, 0.3),
+                               device=dev)
+    (lam2, _), wall2, paths["17b_modes_2d"] = counted(
+        "17b modes 2D", lambda: modes.compute_vibrational_modes(
+            sim2, n_modes=4, tol=1e-7, maxiter=400),
+        required=("segment_sum_rows",))
+    w_ref = np.sort(spla.eigsh(
+        sim2.to_scipy(), k=7,
+        M=operators.mass_elasticity(m2, device=cpu).to_scipy(),
+        sigma=-1e-6, which="LM", return_eigenvectors=False))[3:]
+    rel2 = float(np.abs(lam2[:3] - w_ref[:3]).max() / np.abs(w_ref[:3]).max())
+    out["scipy_2d"] = dict(eigenvalues=lam2.tolist(), scipy=w_ref.tolist(),
+                           rel=rel2, seconds=wall2)
+    log(f"17b grid_tri(5, 5) P1 on the card: {lam2.tolist()} against "
+        f"scipy's eigsh {w_ref[:3].tolist()}: {rel2:.3e} relative, "
+        f"{wall2:.2f} s")
+    if not rel2 <= 1e-4:
+        raise RuntimeError("17b: 2D modes disagree with scipy")
+    return out, paths
+
+
+def mo_problem(n, device, targets=None, E_true=3.0):
+    """grid_tet(n) P2 with the x = 0 face fixed and a unit load on x = 1
+    (-y, spread over the face), targets on x = 1: the displacement of the
+    uniform E_true (as ``tests/test_solvers_autodiff.py:190-219`` makes
+    them, here solved with the multigrid V-cycle) unless given."""
+    from meshfem_tpu_torch.analysis import material_optimization as mo
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+
+    mesh = FEMMesh(*generators.grid_tet(n, n, n), degree=2)
+    X = mesh.node_positions
+    right = np.flatnonzero(X[:, 0] > 1 - 1e-9)
+    fixed = np.zeros((mesh.num_nodes, 3), bool)
+    fixed[X[:, 0] < 1e-9] = True
+    load = np.zeros((mesh.num_nodes, 3))
+    load[right, 1] = -1.0 / len(right)
+    mk = lambda tv: mo.MaterialOptimizationProblem(
+        mesh, 0.3, fixed, np.zeros_like(load),
+        torch.as_tensor(load, device=device), right, tv, bounds=(0.5, 8.0),
+        device=device)
+    if targets is None:
+        prob = mk(np.zeros((len(right), 3)))
+        E = torch.full((mesh.num_elements,), E_true, dtype=torch.float64,
+                       device=device)
+        with torch.no_grad():
+            u = prob.displacement(E, M_inv=mg_vcycle(prob, E))
+        targets = u[torch.as_tensor(right, device=device)].cpu().numpy()
+    return mk(targets)
+
+
+def mg_vcycle(prob, young):
+    """The variable-material V-cycle of ``optimize(precond="multigrid")``
+    for the field ``young``, as a preconditioner of nodal residuals."""
+    from meshfem_tpu_torch.fem import elasticity_tensor as et
+    from meshfem_tpu_torch.ops.structured_mg import VarStructuredMG
+
+    D = et.isotropic(3, young, torch.full_like(young, prob.poisson))
+    mg = VarStructuredMG.build(prob.mesh, D,
+                               fixed_mask=torch.as_tensor(prob.fixed_mask),
+                               device=prob.device)
+    return lambda r: mg.fine.from_channels(
+        mg.precondition(mg.fine.to_channels(r)))
+
+
+class SolveLog:
+    """Times every ``cg`` call (and its iterations) and every
+    ``VarStructuredMG.build`` (its start on the host clock, and its
+    seconds) while active, by wrapping the two names where the port looks
+    them up."""
+
+    def __enter__(self):
+        from meshfem_tpu_torch.ops import structured_mg
+        from meshfem_tpu_torch.solvers import cg as cg_mod
+
+        self.cg, self.builds = [], []
+        self._cg, self._build = cg_mod.cg, structured_mg.VarStructuredMG.build
+
+        def cg(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = self._cg(*a, **k)
+            torch.cuda.synchronize()
+            self.cg.append((time.time() - t0, res.iters))
+            return res
+
+        def build(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            mg = self._build(*a, **k)
+            torch.cuda.synchronize()
+            self.builds.append((t0, time.time() - t0))
+            return mg
+
+        cg_mod.cg = cg
+        structured_mg.VarStructuredMG.build = build
+        return self
+
+    def __exit__(self, *exc):
+        from meshfem_tpu_torch.ops import structured_mg
+        from meshfem_tpu_torch.solvers import cg as cg_mod
+
+        cg_mod.cg = self._cg
+        structured_mg.VarStructuredMG.build = self._build
+
+
+def profile_kernels(fn):
+    """(operator names, device kernel names) of one call of ``fn`` under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    kern = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return ops, kern
+
+
+# library scatters that sum in no fixed order: index_add_ (its CUDA
+# kernels indexFuncSmallIndex / indexFuncLargeIndex) and index_put_ with
+# accumulate=True (its sort-based indexing_backward_kernel), scatter_add
+LIBRARY_SCATTERS = ("index_add", "indexFunc", "indexing_backward",
+                    "scatter_add", "put_with_sort")
+
+
+def drive_material_opt(dev):
+    """17c: ``optimize(..., precond="multigrid")`` at bench size, its steps
+    split by stage; the backward's launches; a profiler trace of one step
+    free of library scatters; the gradient against central differences
+    (grid_tet(6)) and against the CPU (grid_tet(4))."""
+    from meshfem_tpu_torch.analysis import material_optimization as mo
+    from meshfem_tpu_torch.utils.fd_validation import fd_gradient_check
+
+    out, paths = {}, {}
+    t0 = time.time()
+    prob = mo_problem(BENCH_N, dev)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.time() - t0
+    E = prob.mesh.num_elements
+    y0 = torch.full((E,), 2.0, dtype=torch.float64, device=dev)
+    with SolveLog() as sl:
+        (young, hist), wall, paths["17c_optimize"] = counted(
+            "17c optimize", lambda: mo.optimize(
+                prob, y0, steps=MO_STEPS, learning_rate=0.2,
+                precond="multigrid"), required=PHASE17_PATH)
+    t_end = time.time()
+    # a step starts with its multigrid build: its seconds run from that
+    # build's start to the next one's (the last to the call's end)
+    starts = [t for t, _ in sl.builds] + [t_end]
+    steps = []
+    for k in range(MO_STEPS):
+        (tf, itf), (ta, ita) = sl.cg[2 * k], sl.cg[2 * k + 1]
+        tb = sl.builds[k][1]
+        ts = starts[k + 1] - starts[k]
+        steps.append(dict(step_s=ts, mg_build_s=tb, forward_s=tf,
+                          forward_iters=itf, adjoint_s=ta, adjoint_iters=ita,
+                          gradient_and_rest_s=ts - tb - tf - ta))
+    step_s = wall / MO_STEPS
+    out.update(seconds=wall, s_per_step=step_s, history=hist, steps=steps,
+               young_range=[float(young.min()), float(young.max())])
+    log(f"17c optimize grid_tet({BENCH_N}) P2 ({E} tets, per-element "
+        f"moduli), precond=multigrid, {MO_STEPS} Adam steps: {wall:.2f} s, "
+        f"{step_s:.3f} s a step; objective {hist}; steps {steps}")
+    if not (hist[-1] < hist[0] and all(np.isfinite(hist))
+            and bool(torch.isfinite(young).all())):
+        raise RuntimeError("17c: the objective did not fall")
+    # the backward alone, counted: B's adjoint is kernel A
+    M_inv = mg_vcycle(prob, young)
+    th = young.detach().clone().requires_grad_(True)
+    with SolveLog() as sl:
+        val = prob.objective(th, M_inv=M_inv)
+        (g,), wall_b, paths["17c_backward"] = counted(
+            "17c backward", lambda: torch.autograd.grad(val, th),
+            required=PHASE17_PATH)
+    c = paths["17c_backward"]
+    n_adj = sl.cg[-1][1]
+    out["backward"] = dict(seconds=wall_b, adjoint_iters=n_adj,
+                           gather_rows=c["gather_rows"],
+                           segment_sum_rows=c["segment_sum_rows"])
+    log(f"17c backward alone: {wall_b:.3f} s, adjoint CG {n_adj} "
+        f"iterations; launches A {c['gather_rows']}, B "
+        f"{c['segment_sum_rows']} (each adjoint matvec one of each, the "
+        f"replayed matvec one of each, and B's two adjoints: A = B + 2)")
+    if not (c["gather_rows"] == c["segment_sum_rows"] + 2
+            and c["segment_sum_rows"] == n_adj + 1):
+        raise RuntimeError("17c: the backward's launches are not the A/B "
+                           "pair's")
+    # the gradient against central differences, then against the CPU
+    p6 = mo_problem(MO_FD_N, dev)
+    y6 = 2.0 + torch.rand(p6.mesh.num_elements, dtype=torch.float64,
+                          generator=torch.Generator().manual_seed(6)).to(dev)
+    fd_err = fd_gradient_check(p6.objective, y6, eps=1e-5, n_dirs=3)
+    p4 = mo_problem(MO_CPU_N, dev)
+    p4c = mo_problem(MO_CPU_N, "cpu", targets=p4.target_values)
+    y4 = 2.0 + torch.rand(p4.mesh.num_elements, dtype=torch.float64,
+                          generator=torch.Generator().manual_seed(4))
+    g_card = p4.gradient(y4.to(dev)).cpu()
+    g_cpu = p4c.gradient(y4)
+    cpu_rel = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+    out.update(fd_err=fd_err, vs_cpu=cpu_rel)
+    # one optimization step under the profiler (grid_tet(2), the
+    # unpreconditioned solve: the same differentiated code as at full
+    # width, in ~80,000 events where a multigrid step at full width makes
+    # ~600,000): no library scatter
+    p2 = mo_problem(MO_PROFILE_N, dev)
+    y2 = torch.full((p2.mesh.num_elements,), 2.0, dtype=torch.float64,
+                    device=dev)
+    ops, kern = profile_kernels(lambda: mo.optimize(p2, y2, steps=1,
+                                                    learning_rate=0.2))
+    bad = sorted({n for n in ops + kern
+                  if any(s in n for s in LIBRARY_SCATTERS)})
+    out["profile"] = dict(ops=len(ops), kernels=len(kern), scatters=bad)
+    log(f"17c one step under torch.profiler (grid_tet({MO_PROFILE_N}) P2): "
+        f"{len(ops)} operator events, {len(kern)} device kernels; library "
+        f"scatters {bad}")
+    if bad or not kern:
+        raise RuntimeError(f"17c: a library scatter ran: {bad}")
+    log(f"17c gradient: against central differences (grid_tet({MO_FD_N}) "
+        f"P2) {fd_err:.3e}; card against CPU (grid_tet({MO_CPU_N}) P2) "
+        f"{cpu_rel:.3e} relative")
+    if not (fd_err < 1e-4 and cpu_rel <= 1e-8):
+        raise RuntimeError("17c: the gradient disagrees")
+    return out, paths, prob
+
+
+def drive_diff_displacement(dev):
+    """17d: the gradient of load . u(rho) through
+    ``differentiable_displacement`` against ``compliance_and_grad``'s dc
+    (rtol 5e-5, ``tests/test_topopt.py:60-75``), float64 at 12d's grid."""
+    from meshfem_tpu_torch.analysis import topopt
+
+    out = {}
+    top = topopt.ComplianceTopOpt(*TOPOPT17_SHAPE, dtype=torch.float64,
+                                  solve_tol=1e-10, device=dev)
+    rho = (0.5 + 0.05 * torch.randn(TOPOPT17_SHAPE, dtype=torch.float64,
+                                    generator=torch.Generator()
+                                    .manual_seed(17))).clamp(0.3, 0.8)
+    rho = rho.to(dev).requires_grad_(True)
+    u_of_rho = topopt.differentiable_displacement(top)
+
+    def forward():
+        return torch.vdot(top.load.reshape(-1), u_of_rho(rho).reshape(-1))
+
+    J, wall_f, paths = counted("17d forward", forward)
+    (g,), wall_b, pb = counted("17d backward",
+                               lambda: torch.autograd.grad(J, rho))
+    _, dc, _ = top.compliance_and_grad(rho.detach())
+    scale = float(dc.abs().max())
+    err = float(((g - dc).abs() - 5e-5 * dc.abs()).max())
+    out.update(forward_s=wall_f, backward_s=wall_b,
+               max_excess=err, dc_max=scale,
+               rel=float((g - dc).abs().max()) / scale)
+    log(f"17d differentiable_displacement {TOPOPT17_SHAPE} (float64): "
+        f"forward {wall_f:.3f} s, backward {wall_b:.3f} s; gradient against "
+        f"dc {out['rel']:.3e} of max|dc| ({scale:.3e})")
+    if not err <= 1e-10 * scale:
+        raise RuntimeError("17d: the gradient differs from dc")
+    return out, {"17d_forward": paths, "17d_backward": pb}
+
+
+def newton_bar(n, device):
+    """The neo-Hookean total energy of grid_tet(2n, n, n) P1 on [0, 2] x
+    [0, 1]^2, clamped at x = 0 and stretched 20% (x = 2 moved to 2.4, its
+    other components free), from the uniform stretch; returns (energy,
+    x0, projector)."""
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.physics import energies
+    from meshfem_tpu_torch.solvers import cg as cg_mod
+
+    mesh = FEMMesh(*generators.grid_tet(2 * n, n, n, hi=(2.0, 1.0, 1.0)),
+                   degree=1)
+    X = mesh.node_positions
+    fixed = np.zeros((mesh.num_nodes, 3), bool)
+    fixed[X[:, 0] < 1e-9] = True
+    fixed[X[:, 0] > 2 - 1e-9, 0] = True
+    x0 = X.copy()
+    x0[:, 0] *= 1.2
+    E = energies.total_energy(mesh, "neo_hookean", 2.0, 1.0, device=device)
+    return (E, torch.as_tensor(x0, device=device),
+            cg_mod.mask_projector(torch.as_tensor(~fixed, device=device)))
+
+
+def drive_newton(dev):
+    """17e: ``newton_from_energy`` on the stretched bar, counted, and the
+    card against the CPU at a small size (x to 1e-8, equal counts)."""
+    from meshfem_tpu_torch.solvers import newton
+
+    out = {}
+    E, x0, proj = newton_bar(NEWTON_N, dev)
+    (x, rep), wall, paths = counted(
+        "17e Newton", lambda: newton.newton_from_energy(
+            E, x0, project=proj, gradTol=1e-8, maxiter=30),
+        required=PHASE17_PATH)
+    dofs = x0.numel()
+    out.update(seconds=wall, dofs=dofs, iterations=rep.iterations,
+               converged=rep.converged, cg_iters=rep.cg_iters,
+               grad_norm=rep.grad_norm, energy=rep.energy,
+               s_per_iteration=wall / max(rep.iterations, 1))
+    log(f"17e Newton, neo-Hookean bar grid_tet({2 * NEWTON_N}, {NEWTON_N}, "
+        f"{NEWTON_N}) P1 ({dofs} dofs): {wall:.2f} s, {rep.iterations} "
+        f"iterations ({out['s_per_iteration']:.3f} s each), CG iterations "
+        f"{rep.cg_iters}, |g| {rep.grad_norm}")
+    if not (rep.converged and bool(torch.isfinite(x).all())
+            and rep.energy[-1] < rep.energy[0]):
+        raise RuntimeError("17e: Newton did not converge")
+    res = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        Es, xs0, ps = newton_bar(NEWTON_CPU_N, d)
+        res[where] = newton.newton_from_energy(Es, xs0, project=ps,
+                                               gradTol=1e-8, maxiter=30)
+    (xc, rc), (xh, rh) = res["card"], res["cpu"]
+    rel = float((xc.cpu() - xh).abs().max() / xh.abs().max())
+    out["vs_cpu"] = dict(rel=rel, iterations=[rc.iterations, rh.iterations],
+                         cg_iters=[rc.cg_iters, rh.cg_iters])
+    log(f"17e card against CPU (n = {NEWTON_CPU_N}): x {rel:.3e} relative, "
+        f"iterations {rc.iterations} / {rh.iterations}, CG {rc.cg_iters} / "
+        f"{rh.cg_iters}")
+    if not (rel <= 1e-8 and rc.iterations == rh.iterations):
+        raise RuntimeError("17e: Newton on the card differs from the CPU")
+    return out, {"17e_newton": paths}
+
+
+def drive_material_cli(dev, tmp):
+    """17f: ``cli.material_opt`` on a grid_tet(6) P1 mesh and a .bc file with
+    a ``target`` region written here; the fitted field read back from its
+    MSH against the API's ``optimize`` on the same problem (1e-10)."""
+    from meshfem_tpu_torch.analysis import material_optimization as mo
+    from meshfem_tpu_torch.cli import material_opt
+    from meshfem_tpu_torch.io import meshio, msh_fields
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.physics import (ElasticitySimulator, Material,
+                                           load_bc)
+    from meshfem_tpu_torch.physics.boundary_conditions import (
+        expression_env, match_boundary_nodes)
+
+    V, F = generators.grid_tet(CLI_MO_N, CLI_MO_N, CLI_MO_N)
+    msh, bc, fit = (os.path.join(tmp, f) for f in ("mo.msh", "mo.bc",
+                                                   "fit.msh"))
+    meshio.save_msh(msh, V, F)
+    with open(bc, "w") as fh:
+        fh.write(bc_json([{"type": "dirichlet", "value": [0, 0, 0],
+                           **FACE_X0},
+                          {"type": "force", "value": [0.1, 0, 0], **FACE_X1},
+                          {"type": "target", "value": [0.02, 0, 0],
+                           **FACE_X1}]))
+    args = [msh, "-b", bc, "--steps", "3", "--lr", "0.2", "-o", fit,
+            "--device", str(dev)]
+    _, wall, paths = counted("17f cli.material_opt",
+                             lambda: material_opt.main(args),
+                             required=PHASE17_PATH)
+    young_cli = np.asarray(msh_fields.read_fields(fit)["young"]["data"])
+    Vm, Fm = meshio.load(msh)
+    mesh = FEMMesh(Vm, Fm, degree=1)
+    b = load_bc(bc, dim=3)
+    sim = ElasticitySimulator(mesh, Material.isotropic(3, 1.0, 0.3),
+                              device=dev)
+    sim.apply_boundary_conditions(b)
+    reg = [r for r in b.regions if r.type == "target"][0]
+    nodes = match_boundary_nodes(mesh, reg)
+    vals = reg.eval_value(mesh.node_positions[nodes], expression_env(mesh))
+    prob = mo.MaterialOptimizationProblem(
+        mesh, 0.3, sim.dirichlet_mask, sim.dirichlet_values,
+        sim.neumann_load, nodes, vals[:, :3], device=dev)
+    y, hist = mo.optimize(prob, torch.ones(mesh.num_elements,
+                                           dtype=torch.float64, device=dev),
+                          steps=3, learning_rate=0.2)
+    y = y.cpu().numpy()
+    err = float(np.abs(young_cli.reshape(-1) - y).max() / np.abs(y).max())
+    log(f"17f cli.material_opt grid_tet({CLI_MO_N}) P1: {wall:.2f} s, "
+        f"young in [{young_cli.min():.6g}, {young_cli.max():.6g}], against "
+        f"the API {err:.3e}")
+    if not (young_cli.size == mesh.num_elements and err <= 1e-10
+            and hist[-1] < hist[0]):
+        raise RuntimeError("17f cli.material_opt: bad output")
+    return dict(seconds=wall, vs_api=err, history=hist), \
+        {"17f_material_opt_cli": paths}
+
+
+def drive_phase17(dev, gen):
+    """Phase 17a-f; returns (summary, launch counts per path, the objects
+    17g times kernels on)."""
+    import tempfile
+
+    out, paths, parts = {}, {}, {}
+    t0 = time.time()
+
+    def part(key, fn, *args):
+        t = time.time()
+        res = fn(*args)
+        parts[key] = time.time() - t
+        paths.update(res[1])
+        return res
+
+    out["modes"], _, msim, Mv = part("17a", modes_bench, dev, gen)
+    out["modes_vs_cpu"], _ = part("17b", modes_vs_cpu, dev)
+    out["material_opt"], _, prob = part("17c", drive_material_opt, dev)
+    out["diff_displacement"], _ = part("17d", drive_diff_displacement, dev)
+    out["newton"], _ = part("17e", drive_newton, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["material_cli"], _ = part("17f", drive_material_cli, dev, tmp)
+    out["parts_s"] = parts
+    out["phase_s"] = time.time() - t0
+    log(f"phase 17 (17a-f): {out['phase_s']:.1f} s, by part "
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return out, paths, (msim, Mv, prob)
+
+
+def kernels_phase17(dev, entry, objs, paths, gen):
+    """17g: kernel B in float64 rows at 18 and 54 values on the modes'
+    plan (LOBPCG's K and M applies at 6 and 18 columns) and kernel A in
+    float64 rows as B's adjoint on material optimization's gather, each
+    held against its plain version (B also bit for bit against B in planes
+    and the CPU's plain sum) and timed with ``entry``."""
+    from meshfem_tpu_torch import kernels
+
+    msim, Mv, prob = objs
+    out = {}
+    plan = msim._kernel.plan
+    R, N = plan.num_rows, plan.num_segments
+    dst = msim._kernel.elem_dofs.reshape(-1)
+    modes_runs = [c for p, c in paths.items() if p.startswith("17a_modes")]
+    for P in (18, 54):
+        err = check_rows_on_plan(plan, torch.float64,
+                                 f"17g B f64 rows ({P} values)", gen, P=P)
+        src = torch.randn((R, P), generator=gen, device=dev,
+                          dtype=torch.float64)
+        acc = torch.zeros((N, P), device=dev, dtype=torch.float64)
+        entry(f"segment_sum_rows/f64/{P}/modes",
+              "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
+              "meshfem_tpu/sparse/route.py:162 (f64: the XLA scatter of "
+              "meshfem_tpu/sparse/ebe.py, LOBPCG's K and M applies)",
+              sum(c["segment_sum_rows/f64"] for c in modes_runs), err,
+              lambda: plan.sum_rows(src),
+              lambda: kernels.segment_sum_rows_plain(src, plan.perm,
+                                                     plan.offsets),
+              lambda: acc.index_add_(0, dst, src),
+              P * R * 8 + R * 4 + (N + 1) * 4 + P * N * 8, P * R,
+              flop_rate=F64_FLOP_PER_S,
+              mode=f"f64 rows [R, {P}] -> [N, {P}]: the EBE apply of a "
+                   f"[N, 3, {P // 3}] block, as compute_vibrational_modes "
+                   f"runs it",
+              launches_path="17a modes (free and clamped), float64 launches "
+                            "at 18 and 54 values together",
+              library_call="Tensor.index_add_ (float atomics)",
+              shape=f"grid_tet({BENCH_N}) P2 plan: src [{R}, {P}] f64 -> "
+                    f"[{N}, {P}]")
+        del src, acc
+    # A: B's adjoint on the material-optimization gather (f64, 3 values)
+    g = prob.gather
+    ids = g.ids
+    src = torch.randn((g.num_sources, 3), generator=gen, device=dev,
+                      dtype=torch.float64)
+    if not (torch.equal(kernels.gather_rows(src, ids),
+                        kernels.gather_rows_plain(src, ids))
+            and torch.equal(kernels.gather_rows(src, ids).cpu(),
+                            kernels.gather_rows_plain(src.cpu(),
+                                                      ids.cpu()))):
+        raise RuntimeError("17g: gather_rows f64 != plain")
+    ids_long = ids.long()
+    S = ids.shape[0]
+    bw = paths["17c_backward"]
+    entry("gather_rows/f64/adjoint", "meshfem_tpu_torch/csrc/gather_planes.cu",
+          "meshfem_tpu/sparse/route.py:139 (f64: the transpose of the XLA "
+          "scatter that jax.grad takes through meshfem_tpu/analysis/"
+          "material_optimization.py:75-78)",
+          bw["gather_rows/f64"], 0.0,
+          lambda: kernels.gather_rows(src, ids),
+          lambda: kernels.gather_rows_plain(src, ids),
+          lambda: torch.index_select(src, 0, ids_long),
+          S * 4 + g.num_sources * 3 * 8 + S * 3 * 8, 0,
+          mode="f64 rows [N, 3] -> [E n, 3] (as float32 pairs): B's "
+               "adjoint in material optimization's backward, and its "
+               "matvec's gather",
+          launches_path="17c backward alone, float64 launches (the adjoint "
+                        "CG's matvecs and B's two adjoints)",
+          library_call="torch.index_select",
+          shape=f"grid_tet({BENCH_N}) P2 elem_nodes: src [{g.num_sources}, "
+                f"3] f64, ids [{S}] int32")
+    out["checked"] = ["segment_sum_rows/f64/18/modes",
+                      "segment_sum_rows/f64/54/modes",
+                      "gather_rows/f64/adjoint"]
+    return out
+
+
 def check_b_rows(src, op, offsets, label):
     """Kernel B in rows on a routed operator's element-major plan: twice
     bit for bit, bit for bit against B in planes on the same contributions
@@ -5124,6 +5830,14 @@ def main() -> int:
     amg_out["kernels_s"] = time.time() - t0
     summary["amg"] = amg_out
     del mg, dsim
+
+    # -- 17. modes, material optimization, autograd, energies, Newton -----
+    p17, paths17, objs17 = drive_phase17(dev, gen)
+    t0 = time.time()
+    p17["kernel_checks"] = kernels_phase17(dev, entry, objs17, paths17, gen)
+    p17["kernels_s"] = time.time() - t0
+    summary["phase17"] = p17
+    del objs17
     summary.update(
         dense_bmm_ms=timer(lambda: torch.bmm(rk.KeP, ue_dense)),
         dense_bmm_bound_ms=rk.KeP.numel() * 4 / HBM_BYTES_PER_S * 1e3,
@@ -5140,6 +5854,8 @@ def main() -> int:
                                        for p, c in poisson_paths.items()}
         r["launches_amg_paths"] = {p: own_mode(c, r["name"])
                                    for p, c in amg_paths.items()}
+        r["launches_phase17_paths"] = {p: own_mode(c, r["name"])
+                                       for p, c in paths17.items()}
     summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))

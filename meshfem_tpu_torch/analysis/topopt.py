@@ -13,9 +13,9 @@ Standard SIMP setup (Sigmund's 88-line algorithm):
   min  c(rho) = f^T u(rho)   s.t.  K(rho) u = f,  mean(rho_f) <= volfrac,
 optimality-criteria update with bisection on the volume multiplier.
 
-``differentiable_displacement`` (u(rho) for arbitrary objectives through
-an implicit-function adjoint) needs the autograd solve of ROADMAP Queue 1,
-item 12 and raises NotImplementedError until then.
+``differentiable_displacement`` gives u(rho) for arbitrary objectives
+through an implicit-function adjoint: a ``torch.autograd.Function`` whose
+backward solves the adjoint with the same multigrid.
 """
 
 from __future__ import annotations
@@ -237,10 +237,39 @@ class ComplianceTopOpt:
         return rho, history
 
 
+class _DisplacementOfDensity(torch.autograd.Function):
+    """u(rho) = topopt.solve(rho); backward: the (self-adjoint) adjoint
+    system solved with the same hierarchy, contracted as -lambda^T dK/drho
+    u through the per-cell unit energies, then the filter's adjoint."""
+
+    @staticmethod
+    def forward(ctx, rho, topopt):
+        u, _, rho_f, mg = topopt.solve(rho)
+        ctx.topopt, ctx.mg, ctx.rho_dtype = topopt, mg, rho.dtype
+        ctx.save_for_backward(rho_f, u)
+        return u
+
+    @staticmethod
+    def backward(ctx, gbar):
+        t = ctx.topopt
+        rho_f, u = ctx.saved_tensors
+        lam_u, _ = ctx.mg.solve(gbar.to(t.dtype), tol=t.solve_tol,
+                                maxiter=300)
+        w = t.cell_energies(lam_u, u)
+        dE = t.penal * rho_f ** (t.penal - 1.0) * (t.E0 - t.E_min)
+        return t.filter_adjoint(-(dE * w)).to(ctx.rho_dtype), None
+
+
 def differentiable_displacement(topopt: ComplianceTopOpt):
-    """u(rho) as a differentiable function of the densities: needs the
-    autograd solve (``solvers/implicit.py``), not ported yet."""
-    raise NotImplementedError(
-        "differentiable_displacement needs the implicit-function autograd "
-        "solve (solvers/implicit.py), queued in ROADMAP.md (Queue 1, "
-        "item 12)")
+    """u(rho) as a differentiable function of the densities, by the
+    implicit-function theorem: the backward solves the (self-adjoint)
+    adjoint system with the same multigrid hierarchy and contracts
+    -lambda^T dK/drho u through the per-cell unit energies.  Each call runs
+    the multigrid solver; an objective J(u) then gets dJ/drho by autograd
+    through J(differentiable_displacement(topopt)(rho))."""
+
+    def u_of_rho(rho):
+        rho = torch.as_tensor(rho, device=topopt.device)
+        return _DisplacementOfDensity.apply(rho, topopt).to(rho.dtype)
+
+    return u_of_rho

@@ -151,9 +151,20 @@ def element_elasticity(grad_lambda, volume, D, deg: int):
     T = torch.as_tensor(gradgrad_table(K, deg), dtype=grad_lambda.dtype,
                         device=grad_lambda.device)
     n = T.shape[-1]
-    f2f = torch.as_tensor(full_to_flat_map(dim), device=grad_lambda.device)
     D = D.to(dtype=grad_lambda.dtype, device=grad_lambda.device)
-    C = D[..., f2f[:, :, None, None], f2f[None, None, :, :]]   # [E,d,d,d,d]
+    # C[e, i, j, k, l] = D[e, f2f[i, j], f2f[k, l]] as a product with a 0/1
+    # selection matrix: exact (each entry is one D entry times 1), and its
+    # gradient is a product too, where an index's would be an accumulating
+    # index_put_ (material optimization differentiates Ke in D)
+    fl = D.shape[-1]
+    f2f = full_to_flat_map(dim)
+    sel = np.zeros((fl, fl, dim, dim, dim, dim))
+    i, j, k, l = np.indices((dim,) * 4)
+    sel[f2f[i, j], f2f[k, l], i, j, k, l] = 1.0
+    sel = torch.as_tensor(sel.reshape(fl * fl, dim ** 4), dtype=D.dtype,
+                          device=D.device)
+    C = (D.reshape(D.shape[:-2] + (fl * fl,)) @ sel).reshape(
+        D.shape[:-2] + (dim,) * 4)                              # [E,d,d,d,d]
     H = torch.einsum("eka,elb,ecafb->eklcf", grad_lambda, grad_lambda, C)
     Ke = torch.einsum("klij,eklcf->eicjf", T, H)
     Ke = volume[:, None, None, None, None] * Ke

@@ -466,22 +466,16 @@ def test_structured_prefilter_conditions():
 
 
 def test_unported_options_name_their_roadmap_items():
-    """What still raises names its ROADMAP item:
-    ``differentiable_displacement`` (item 12); an unknown ``precond`` is a
-    ValueError.  A 2D (pixel) occupancy, which raised naming item 3 before
-    triangle meshes were ported, runs: an all-solid 2 x 2 pixel cell gives
-    the material's own plane-stress tensor."""
-    from meshfem_tpu_torch.analysis.topopt import (
-        ComplianceTopOpt, differentiable_displacement)
-
+    """An unknown ``precond`` is a ValueError.  A 2D (pixel) occupancy,
+    which raised naming item 3 before triangle meshes were ported, runs: an
+    all-solid 2 x 2 pixel cell gives the material's own plane-stress
+    tensor."""
     mat = Material.isotropic(3, 5.0, 0.3)
     mesh = FEMMesh(*generators.grid_tet(2, 2, 2), degree=1)
     sim = hom.periodic_simulator(mesh, mat, device="cpu")
     res = hom.homogenize_voxels(np.ones((2, 2)), device="cpu")
     D2 = Material.isotropic(2, 1.0, 0.3).D
     assert float((res.Ch - D2).abs().max()) <= 1e-9 * float(D2.abs().max())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        differentiable_displacement(ComplianceTopOpt(2, 1, 1, device="cpu"))
     with pytest.raises(ValueError):
         hom.solve_cell_problems(sim, precond="nope")
     with pytest.raises(ValueError):

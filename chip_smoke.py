@@ -381,7 +381,36 @@ of which raises on failure:
    values on the modes' plan and kernel A in float64 rows on material
    optimization's gather, each against its plain version and timed; every
    kernel line carries ``launches_phase17_paths``;
-18. last, ``{"ok": true, "device": {...}}``.
+18. multi-device (``meshfem_tpu_torch/parallel/``) on the clamped bench
+   problem with 4 shards in one process (``LocalShards`` on the card), every
+   path counted (counts zeroed just before, read just after): (a)
+   ``DomainDecomposition.from_simulator(sim, 4)`` timed, ``Nl``, ``H``,
+   ``K``, each shard's interior and boundary elements and the halo scalars
+   an apply beside the full vector's 3 N printed; (b) ``dd_cg_solve``,
+   float64, block Jacobi, to tol 1e-8 (host checks every 100 iterations):
+   true relative residual through the EBE operator <= 1e-7, u within 5e-3
+   of max|u| of phase 4's routed u, kernel B in float64 once for each
+   shard's interior and once for its boundary elements an iteration;
+   iterations, seconds, ms an iteration (host clock), one shard apply and
+   one exchange (events, warm L2) printed; (c) S = 1, 2 and 4 at 30
+   iterations within 1e-8 of max|u| of each other; (d) the routed shards
+   (``dd.build_routed()``, float32) at 25 iterations within 2e-4 of max|u|
+   of the float64 DD at the same count, every shard apply one launch of A
+   in rows and one of B in rows, nothing in planes; (e) ``DDCoarse`` with
+   ``agg_size=128`` (396 aggregates, 2,376 coarse unknowns, <= 3,000), its
+   build by stage, at 60 iterations its res2 <= 1e-2 of block Jacobi's;
+   (f) ``sharded_elasticity_solve_multichip`` on 2 domain x 2 column
+   groups, six strain loads, 20 iterations, within 1e-9 of max|U| of a
+   single-device Jacobi ``cg_block`` of the same count; (g)
+   ``dryrun_multidevice(4)`` with both of its gates, then the same dry run
+   in a one-rank NCCL group in this process (``FileStore``, 120 s
+   timeout) equal bit for bit to one in-process shard; (h) kernels A and B
+   on every shard plan held against their plain versions (A exactly, B in
+   f32 to 1e-5 and in f64 to 1e-12 of max|y|, B also bit for bit against B
+   in planes and the CPU's plain sum) and shard 0's timed
+   (``.../shard`` lines); every kernel line carries
+   ``launches_phase18_paths``;
+19. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -4603,6 +4632,349 @@ def kernels_phase17(dev, entry, objs, paths, gen):
     return out
 
 
+# -- phase 18: multi-device ------------------------------------------------
+DD_SHARDS = 4                 # LocalShards on the one card
+DD_CHUNK = 100                # host tol checks every 100 iterations
+DD_MAXITER = 20000
+DD_INVARIANCE_ITERS = 30
+DD_ROUTED_ITERS = 25
+DD_COARSE_ITERS = 60
+DD_AGG_SIZE = 128             # 50,653 P1 vertices -> 396 aggregates
+DD_MULTICHIP_ITERS = 20
+DD_BACKEND = "nccl"           # the one-rank group of 18g
+
+
+def dd_shard_applies(dd, iters):
+    """Kernel B launches a float64 DD solve of ``iters`` iterations makes:
+    one for each shard's interior and one for its boundary elements an
+    iteration."""
+    return iters * int((dd.n_int > 0).sum() + (dd.n_bnd > 0).sum())
+
+
+def dd_timings(dd, comm, gen):
+    """Events (warm L2, as inside CG): shard 0's apply (interior, the
+    halo-extended boundary) and one exchange of every shard's send slots."""
+    S, Nl, K = dd.n_shards, dd.Nl, dd.K
+    op0 = dd.shard_ops(0)
+    xs = [torch.randn((S, Nl, 3, 1), generator=gen, device=gen.device,
+                      dtype=torch.float64) for _ in range(5)]
+    sends = [torch.stack([x[s][dd.shard_ops(s).send] for s in range(S)])
+             .reshape(S, S, K, 3, 1) for x in xs]
+    recv = comm.exchange(sends[0]).wait()
+
+    def shard_apply(x):
+        x_loc = torch.cat([x[0], recv[0][op0.take]])
+        return op0.interior(x[0]) + op0.boundary(x_loc)[:Nl]
+
+    return dict(shard_apply_ms=median_apply_ms(shard_apply, xs),
+                exchange_ms=median_apply_ms(
+                    lambda s: comm.exchange(s).wait(), sends),
+                exchange_values=S * S * K * 3)
+
+
+def drive_multidevice(dev, sim, u_routed, gen):
+    """Phase 18a-g on the clamped bench problem; returns (summary, launch
+    counts per path, the objects 18h checks and times kernels on)."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from meshfem_tpu_torch.parallel import (
+        DDCoarse, DomainDecomposition, LocalShards, RankShards, dd_cg_solve,
+        dryrun_multidevice, sharded_elasticity_solve_multichip)
+    from meshfem_tpu_torch.solvers import cg as cg_mod
+
+    t_phase = time.time()
+    out, paths = {}, {}
+    S = DD_SHARDS
+    free = torch.as_tensor(~sim.dirichlet_mask, dtype=torch.float64,
+                           device=dev)
+    b = sim.neumann_load * free
+    N3 = 3 * sim.num_dofs
+
+    def relres(u):
+        return float(torch.linalg.norm((b - sim.apply_K(u)) * free)
+                     / torch.linalg.norm(b))
+
+    # (a) the build
+    torch.cuda.synchronize()
+    t0 = time.time()
+    dd = DomainDecomposition.from_simulator(sim, S)
+    torch.cuda.synchronize()
+    vol = dd.comms_volume_per_spmv()
+    out["build"] = dict(seconds=time.time() - t0, Nl=dd.Nl, H=dd.H, K=dd.K,
+                        n_int=dd.n_int.tolist(), n_bnd=dd.n_bnd.tolist(),
+                        halo_scalars=vol, full_vector=N3,
+                        halo_share=vol / N3)
+    log(f"18a DomainDecomposition.from_simulator(sim, {S}): "
+        f"{out['build']['seconds']:.2f} s; Nl {dd.Nl}, H {dd.H}, K {dd.K}; "
+        f"interior elements {dd.n_int.tolist()}, boundary "
+        f"{dd.n_bnd.tolist()}; halo scalars an apply {vol} of the full "
+        f"vector's {N3} ({vol / N3:.4f})")
+    comm = LocalShards(S, dev)
+
+    # (b) the float64 DD solve, block Jacobi, to 1e-8
+    st = {}
+    (u_dd, r2), wall, counts = counted(
+        "18b DD solve", lambda: dd_cg_solve(
+            dd, b, comm, free_mask=free, iters=DD_MAXITER, tol=1e-8,
+            chunk=DD_CHUNK, precond="block", stats=st),
+        ("segment_sum_rows",))
+    paths["18b_dd_f64"] = counts
+    iters = st["iters"]
+    want = dd_shard_applies(dd, iters)
+    if not (counts["segment_sum_rows/f64"] == want
+            and counts["gather_planes"] == counts["segment_sum_csr"] == 0):
+        raise RuntimeError(f"18b: kernel B f64 launched "
+                           f"{counts['segment_sum_rows/f64']} times, every "
+                           f"shard apply needs one of each of its {want}")
+    rr = relres(u_dd)
+    du = float((u_dd - u_routed).abs().max() / u_routed.abs().max())
+    out["dd_solve"] = dict(iters=iters, chunks=st["chunks"], seconds=wall,
+                           ms_per_iter=wall / iters * 1e3, relres=rr,
+                           res2=float(r2), vs_routed=du,
+                           **dd_timings(dd, comm, gen))
+    log(f"18b DD solve (block Jacobi, {S} shards, tol 1e-8): {iters} "
+        f"iterations in {wall:.3f} s, {wall / iters * 1e3:.3f} ms an "
+        f"iteration (host clock); true f64 relative residual {rr:.3e}; "
+        f"{du:.3e} of max|u| from phase 4's routed u; one shard apply "
+        f"{out['dd_solve']['shard_apply_ms']:.4f} ms, one exchange "
+        f"{out['dd_solve']['exchange_ms']:.4f} ms (events); B f64 launches "
+        f"{counts['segment_sum_rows/f64']} = {want}")
+    if not rr <= 1e-7:
+        raise RuntimeError(f"18b: true relative residual {rr:.3e} > 1e-7")
+    if not du <= 5e-3:
+        raise RuntimeError(f"18b: {du:.3e} of max|u| from the routed u")
+
+    # (c) partition invariance at a fixed count
+    us = {}
+    for Sx in (1, 2, S):
+        ddx = dd if Sx == S else DomainDecomposition.from_simulator(sim, Sx)
+        (us[Sx], _), _, paths[f"18c_S{Sx}"] = counted(
+            f"18c S={Sx}", lambda: dd_cg_solve(
+                ddx, b, LocalShards(Sx, dev), free_mask=free,
+                iters=DD_INVARIANCE_ITERS), ("segment_sum_rows",))
+        del ddx
+    scale = float(us[1].abs().max())
+    inv = max(float((us[a] - us[c]).abs().max()) / scale
+              for a in us for c in us)
+    out["invariance"] = dict(iters=DD_INVARIANCE_ITERS, max_rel_diff=inv)
+    log(f"18c partition invariance, S = 1, 2, {S} at "
+        f"{DD_INVARIANCE_ITERS} iterations: {inv:.3e} of max|u|")
+    if not inv <= 1e-8:
+        raise RuntimeError(f"18c: shards disagree by {inv:.3e}")
+    del us
+
+    # (d) the routed shards
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rsp = dd.build_routed()
+    torch.cuda.synchronize()
+    t_rb = time.time() - t0
+    with ApplyCounter() as applies:
+        (u_r, _), wall_r, counts = counted(
+            "18d routed shards", lambda: dd_cg_solve(
+                dd, b, comm, free_mask=free, iters=DD_ROUTED_ITERS,
+                routed_spmv=rsp), ("gather_rows", "segment_sum_rows"))
+    paths["18d_routed"] = counts
+    check_rows_path("18d routed shards", counts, applies.count)
+    if not (applies.count == S * DD_ROUTED_ITERS
+            and counts["segment_sum_rows"] == applies.count
+            and counts["segment_sum_rows/f64"] == 0):
+        raise RuntimeError("18d: not one A and one B an apply, or an apply "
+                           "missing")
+    u_e, _ = dd_cg_solve(dd, b, comm, free_mask=free, iters=DD_ROUTED_ITERS)
+    dr = float((u_r - u_e).abs().max() / u_e.abs().max())
+    out["routed"] = dict(build_s=t_rb, iters=DD_ROUTED_ITERS, seconds=wall_r,
+                         ms_per_iter=wall_r / DD_ROUTED_ITERS * 1e3,
+                         applies=applies.count, vs_f64=dr)
+    log(f"18d routed shards: built in {t_rb:.2f} s; {DD_ROUTED_ITERS} "
+        f"iterations in {wall_r:.3f} s, {applies.count} shard applies "
+        f"(A rows {counts['gather_rows']}, B rows "
+        f"{counts['segment_sum_rows']}); {dr:.3e} of max|u| from the f64 DD "
+        f"at the same count")
+    if not dr <= 2e-4:
+        raise RuntimeError(f"18d: routed shards {dr:.3e} from the f64 DD")
+
+    # (e) the coarse level
+    cst = {}
+    co = DDCoarse.from_simulator(sim, dd, agg_size=DD_AGG_SIZE, stats=cst)
+    n_coarse = co.n_agg * co.nm
+    _, r2_plain = dd_cg_solve(dd, b, comm, free_mask=free,
+                              iters=DD_COARSE_ITERS, precond="block")
+    (_, r2_co), wall_co, paths["18e_coarse"] = counted(
+        "18e DDCoarse", lambda: dd_cg_solve(
+            dd, b, comm, free_mask=free, iters=DD_COARSE_ITERS,
+            precond="block", coarse=co), ("segment_sum_rows",))
+    ratio = float(r2_co) / float(r2_plain)
+    out["coarse"] = dict(agg_size=DD_AGG_SIZE, n_agg=co.n_agg,
+                         coarse_unknowns=n_coarse, build_s=cst,
+                         iters=DD_COARSE_ITERS, res2_ratio=ratio,
+                         seconds=wall_co)
+    log(f"18e DDCoarse(agg_size={DD_AGG_SIZE}): {co.n_agg} aggregates, "
+        f"{n_coarse} coarse unknowns; build " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in cst.items())
+        + f"; at {DD_COARSE_ITERS} iterations res2 {float(r2_co):.3e} "
+        f"against block Jacobi's {float(r2_plain):.3e} ({ratio:.3e})")
+    if not n_coarse <= 3000:
+        raise RuntimeError(f"18e: {n_coarse} coarse unknowns")
+    if not ratio <= 1e-2:
+        raise RuntimeError(f"18e: the coarse level reduced res2 only to "
+                           f"{ratio:.3e} of block Jacobi's")
+    del co
+
+    # (f) the element-sharded multichip solve, 2 x 2
+    cols = []
+    for i in range(6):
+        e = torch.zeros(6, dtype=torch.float64)
+        e[i] = 1e-3
+        cols.append(sim.constant_strain_load(e))
+    B = torch.stack(cols, dim=-1) * free[..., None]
+    (U, _), wall_f, paths["18f_multichip"] = counted(
+        "18f multichip", lambda: sharded_elasticity_solve_multichip(
+            sim, B, LocalShards(2, dev, col_groups=2), free_mask=free,
+            iters=DD_MULTICHIP_ITERS), ("segment_sum_rows",))
+    diag = sim.K_diagonal()
+    safe = torch.where(diag > 0, diag, torch.ones_like(diag))[..., None]
+    ref = cg_mod.cg_block(sim.apply_K, B, M_inv=lambda r: r / safe,
+                          project=lambda v: v * free[..., None], tol=0.0,
+                          maxiter=DD_MULTICHIP_ITERS)
+    dm = float((U - ref.x).abs().max() / ref.x.abs().max())
+    out["multichip"] = dict(iters=DD_MULTICHIP_ITERS, seconds=wall_f,
+                            vs_single=dm, single_iters=ref.iters)
+    log(f"18f sharded_elasticity_solve_multichip, 2 domain x 2 column "
+        f"groups, 6 strain loads, {DD_MULTICHIP_ITERS} iterations: "
+        f"{wall_f:.3f} s; {dm:.3e} of max|U| from a single-device Jacobi "
+        f"block CG of {ref.iters} iterations")
+    if not (ref.iters == DD_MULTICHIP_ITERS and dm <= 1e-9):
+        raise RuntimeError(f"18f: {dm:.3e} from the single-device solve")
+    del B, U, ref
+
+    # (g) the dry run, and one rank of a process group
+    dry, wall_g, paths["18g_dryrun"] = counted(
+        "18g dryrun", lambda: dryrun_multidevice(S, device=dev),
+        ("segment_sum_rows",))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            DD_BACKEND, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=timedelta(seconds=120))
+        try:
+            ranked, _, paths["18g_rank"] = counted(
+                f"18g one {DD_BACKEND} rank",
+                lambda: dryrun_multidevice(1, comm=RankShards()),
+                ("segment_sum_rows",))
+        finally:
+            dist.destroy_process_group()
+    local1 = dryrun_multidevice(1, comm=LocalShards(1, dev))
+    same = (torch.equal(ranked["u"], local1["u"])
+            and torch.equal(ranked["res2"], local1["res2"]))
+    out["dryrun"] = dict(seconds=wall_g, relres=dry["relres"].tolist(),
+                         err=dry["err"], rank_equals_local=same,
+                         backend=DD_BACKEND)
+    log(f"18g dryrun_multidevice({S}): {wall_g:.2f} s, true relative "
+        f"residuals {dry['relres'].tolist()}, invariance {dry['err']:.3e}; "
+        f"one {DD_BACKEND} rank "
+        f"{'equal bit for bit to' if same else 'DIFFERENT from'} one "
+        f"in-process shard")
+    if not same:
+        raise RuntimeError(f"18g: the {DD_BACKEND} rank differs from one "
+                           f"in-process shard")
+    out["phase_s"] = time.time() - t_phase
+    log(f"phase 18: {out['phase_s']:.1f} s")
+    return out, paths, (dd, rsp)
+
+
+def kernels_multidevice(dev, entry, objs, paths, gen):
+    """18h: kernels A and B on every shard plan of 18a-d held against their
+    plain versions (A exactly, B f32 1e-5 and f64 1e-12 of max|y|, B also
+    bit for bit against B in planes and the CPU's plain sum), shard 0's
+    timed with ``entry``."""
+    from meshfem_tpu_torch import kernels
+
+    dd, rsp = objs
+    errs = {}
+    for s, op in rsp.ops.items():
+        x = torch.randn((rsp.NlH, 3), generator=gen, device=dev)
+        if not torch.equal(kernels.gather_rows(x, op.ids_em),
+                           kernels.gather_rows_plain(x, op.ids_em)):
+            raise RuntimeError(f"18h: gather_rows != plain on shard {s}")
+        errs[(s, "f32")] = check_rows_on_plan(op.plan_em, torch.float32,
+                                              f"18h shard {s} routed", gen)
+        ops = dd.shard_ops(s)
+        for which, ebe in (("interior", ops.interior),
+                           ("boundary", ops.boundary)):
+            if ebe is not None:
+                errs[(s, which)] = check_rows_on_plan(
+                    ebe.plan, torch.float64, f"18h shard {s} {which}", gen)
+    log("18h A and B on the shard plans: A equal to plain, B within gates; "
+        + ", ".join(f"{k}: {v:.3e}" for k, v in errs.items()))
+    op = rsp.ops[0]
+    NlH, ids = rsp.NlH, op.ids_em
+    R = ids.shape[0]
+    x = torch.randn((NlH, 3), generator=gen, device=dev)
+    ids_long = ids.long()
+    entry("gather_rows/shard", "meshfem_tpu_torch/csrc/gather_planes.cu",
+          "meshfem_tpu/sparse/route.py:139 (the routed gather inside each "
+          "shard, meshfem_tpu/parallel/routed_dd.py:133-137)",
+          paths["18d_routed"]["gather_rows"], 0.0,
+          lambda: kernels.gather_rows(x, ids),
+          lambda: kernels.gather_rows_plain(x, ids),
+          lambda: torch.index_select(x, 0, ids_long),
+          R * 4 + NlH * 3 * 4 + R * 3 * 4, 0,
+          mode="rows [Nl + H, 3] -> [E_s n, 3], shard 0 of 4",
+          launches_path="18d routed shards (4 shards x 25 iterations)",
+          library_call="torch.index_select",
+          shape=f"x [{NlH}, 3] f32, ids_em [{R}] int32")
+    plan = op.plan_em
+    fe = torch.randn((R, 3), generator=gen, device=dev)
+    acc = torch.zeros((NlH, 3), device=dev)
+    dst = plan.ids.long()
+    entry("segment_sum_rows/shard",
+          "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
+          "meshfem_tpu/sparse/route.py:162 (the shard's SumPlan rung and "
+          "its final XLA scatter-add, meshfem_tpu/parallel/routed_dd.py:"
+          "142-149)",
+          own_mode(paths["18d_routed"], "segment_sum_rows/shard"),
+          errs[(0, "f32")],
+          lambda: kernels.segment_sum_rows(fe, plan.perm, plan.offsets),
+          lambda: kernels.segment_sum_rows_plain(fe, plan.perm,
+                                                 plan.offsets),
+          lambda: acc.index_add_(0, dst, fe),
+          3 * R * 4 + R * 4 + (NlH + 1) * 4 + 3 * NlH * 4, 3 * R,
+          mode="f32 rows [E_s n, 3] -> [Nl + H, 3], shard 0 of 4",
+          launches_path="18d routed shards, float32 launches",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"src [{R}, 3] f32 -> [{NlH}, 3]")
+    plan64 = dd.shard_ops(0).interior.plan
+    R64, N64 = plan64.num_rows, plan64.num_segments
+    src64 = torch.randn((R64, 3), generator=gen, device=dev,
+                        dtype=torch.float64)
+    acc64 = torch.zeros((N64, 3), device=dev, dtype=torch.float64)
+    dst64 = plan64.ids.long()
+    entry("segment_sum_rows/f64/shard",
+          "meshfem_tpu_torch/csrc/segment_sum_csr.cu",
+          "meshfem_tpu/sparse/route.py:162 (f64: the shard's XLA "
+          "segment_sum, meshfem_tpu/parallel/domain.py:361-375)",
+          own_mode(paths["18b_dd_f64"], "segment_sum_rows/f64/shard"),
+          errs[(0, "interior")],
+          lambda: plan64.sum_rows(src64),
+          lambda: kernels.segment_sum_rows_plain(src64, plan64.perm,
+                                                 plan64.offsets),
+          lambda: acc64.index_add_(0, dst64, src64),
+          3 * R64 * 8 + R64 * 4 + (N64 + 1) * 4 + 3 * N64 * 8, 3 * R64,
+          flop_rate=F64_FLOP_PER_S,
+          mode="f64 rows [E_s n, 3] -> [Nl, 3]: shard 0's interior EBE "
+               "apply",
+          launches_path="18b DD solve, float64 launches (interior and "
+                        "boundary of every shard)",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"src [{R64}, 3] f64 -> [{N64}, 3]")
+    return {"checked": ["gather_rows/shard", "segment_sum_rows/shard",
+                        "segment_sum_rows/f64/shard"],
+            "max_abs_err": {f"{s}/{k}": v for (s, k), v in errs.items()}}
+
+
 def check_b_rows(src, op, offsets, label):
     """Kernel B in rows on a routed operator's element-major plan: twice
     bit for bit, bit for bit against B in planes on the same contributions
@@ -5838,6 +6210,15 @@ def main() -> int:
     p17["kernels_s"] = time.time() - t0
     summary["phase17"] = p17
     del objs17
+
+    # -- 18. multi-device: domain decomposition, routed shards, ranks -----
+    p18, paths18, objs18 = drive_multidevice(dev, sim, u, gen)
+    t0 = time.time()
+    p18["kernel_checks"] = kernels_multidevice(dev, entry, objs18, paths18,
+                                               gen)
+    p18["kernels_s"] = time.time() - t0
+    summary["phase18"] = p18
+    del objs18
     summary.update(
         dense_bmm_ms=timer(lambda: torch.bmm(rk.KeP, ue_dense)),
         dense_bmm_bound_ms=rk.KeP.numel() * 4 / HBM_BYTES_PER_S * 1e3,
@@ -5856,6 +6237,8 @@ def main() -> int:
                                    for p, c in amg_paths.items()}
         r["launches_phase17_paths"] = {p: own_mode(c, r["name"])
                                        for p, c in paths17.items()}
+        r["launches_phase18_paths"] = {p: own_mode(c, r["name"])
+                                       for p, c in paths18.items()}
     summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))

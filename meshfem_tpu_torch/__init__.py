@@ -17,7 +17,10 @@ starts on every other solve branch, with materials, their ``.material``
 files and fits, and the ``ElasticityTensor`` class; and the scalar layer:
 the discrete operators (``ops/operators.py``, ``ops/extra_operators.py``),
 ``physics.PoissonProblem``, geodesics in heat, mesh and field I/O
-(``io/``) and the Poisson and Simulate command lines (``cli/``).  The JAX
+(``io/``) and the Poisson and Simulate command lines (``cli/``); and
+multi-device solves (``parallel/``: domain decomposition with halo exchange,
+routed shards, element sharding, over shards in one process or the ranks of
+a ``torch.distributed`` group).  The JAX
 package ``meshfem_tpu`` is the reference; this package imports nothing of
 it and nothing of JAX.
 """

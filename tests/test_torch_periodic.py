@@ -215,9 +215,10 @@ def test_grid_cell_problems_multigrid(grid_cell):
 
 
 def test_homogenize_voxels_matches_reference():
-    """The voxel entry point on the 6^3 cross lattice (1e-6 ersatz void):
-    the reference's gates and its tensor."""
-    occ = _cross_lattice(6)
+    """The voxel entry point on the 4^3 cross lattice (1e-6 ersatz void):
+    the reference's gates and its tensor (the reference's compiles, not
+    the size, set this test's time)."""
+    occ = _cross_lattice(4)
     res = hom.homogenize_voxels(occ, E_solid=1.0, nu=0.3, device="cpu")
     rres = rhom.homogenize_voxels(occ, E_solid=1.0, nu=0.3)
     Ch = res.Ch.numpy()
@@ -256,9 +257,10 @@ def test_dof_map_must_tile_the_torus():
 
 def test_orthotropic_multigrid_matches_reference():
     """``homogenize_orthotropic(precond='multigrid')`` on the reference
-    test's 1000:1 sphere at n = 6: Ch, w, the per-probe iterations and
-    timings, and the orthotropic structure."""
-    n = 6
+    test's 1000:1 sphere, here at n = 4 (the reference test's n = 6 costs
+    the same compiles and a third more solve time): Ch, w, the per-probe
+    iterations and timings, and the orthotropic structure."""
+    n = 4
     V, T = generators.grid_tet(n, n, n, hi=(0.5, 0.5, 0.5))
     E, nu = _sphere_moduli(V, T, centre=0.25, r2=0.02)
     res = hom.homogenize_orthotropic(

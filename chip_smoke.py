@@ -331,7 +331,9 @@ of which raises on failure:
    noise, so it is kept small), the void cell under it printed; the same
    on 13c's triangle cell with a homogeneous ``grid_tri(16)``; (e) ``homogenized_tensor_shape_gradient``
    on the void cell against a central difference of the frozen-w energy
-   form along a random direction (1e-5); (f) ``cli.homogenize`` (with
+   form along a random direction (1e-5), twice equal to the bit and under
+   ``torch.profiler`` with no library scatter (its corner gather is a
+   ``GatherPlan``, kernel B in the backward); (f) ``cli.homogenize`` (with
    ``-o``) and ``cli.deformed_cells`` (``--jacobian``, and
    ``--parametrizedTransform`` with two jacobians on stdin) on the void
    cell written by ``io.meshio.save_msh``, their printed ``Ch`` against
@@ -410,7 +412,58 @@ of which raises on failure:
    in planes and the CPU's plain sum) and shard 0's timed
    (``.../shard`` lines); every kernel line carries
    ``launches_phase18_paths``;
-19. last, ``{"ok": true, "device": {...}}``.
+19. the analyses, every path counted (counts zeroed just before, read
+   just after): (a) ``open_linkage`` on a grid_tri(256) P2 cell with a
+   tilted elliptical void (``slot_cell``; 13c's round void is softest in
+   pure shear, whose first component is ~1e-15, so the eigenstrain's sign
+   flip would be decided by roundoff), ``Material.isotropic(2, 1, 0.3)``,
+   3 steps at speed 0.005, tol 1e-7, routed: each step's block residual
+   through the float64 EBE operator, translations projected, <= tol in
+   the whole-block norm, Eh symmetric (1e-6) and positive definite, the
+   opening strain's first component >= 0.1 of its largest, the step's
+   largest vertex move the speed to 1e-9, kernel E once a step, A and B
+   in rows on every block apply; the grid_tri(8) cell on the card against
+   the CPU (Eh and vertices to 1e-8); (b) ``optimize_linkage`` on the same
+   cell, 2 steps of a quarter grid spacing: identified vertices' steps
+   equal (1e-12); dEh by autograd at full width, the forward and each of
+   the 9 reverse passes timed, twice equal to the bit, counted (A f64 2,
+   B f64 18) and under ``torch.profiler`` with no library scatter; on the
+   small cell dEh against the CPU (1e-9) and along a seeded direction
+   against a central difference of the whole pipeline on the card (2e-4);
+   (c) ``harmonic`` (two Jacobi CGs to 1e-11 within the reference's
+   1,000 iterations, the boundary on the unit circle to 1e-8, every scale
+   factor > 0) on the paraboloid cap grid_tri(408) P1 in 3D (cut: the
+   largest grid, in steps of 8, that converges within the cap; 416 is
+   logged beside it), ``scp`` (50 LOBPCG iterations, ms an iteration) on
+   the grid_tri(512) cap, ``lscm`` (CG to 1e-11, conformal distortion 1
+   to 1e-6) on the flat grid_tri(256) (cut: at 512 its unpreconditioned
+   CG ends at the reference's 20,000 iterations, 4.4e-6), each counted
+   as a scalar path (kernel B in float64 once for every apply, diagonal
+   and area pairing, and nothing else), CG iterations and ms an
+   iteration (host clock); the
+   grid_tri(16) meshes on the card against the CPU (1e-8; scp at 12
+   iterations, up to sign, eigenvalues 1e-10); (d) on a cube's six
+   grid_tri(256) faces welded and projected onto the unit sphere
+   (393,218 vertices, 786,432 triangles), on one corner plan built once
+   (a call building its own timed beside): Gauss-Bonnet to 1e-9 relative,
+   the sensitivity of the total deficit <= 1e-9 of a per-term gradient
+   (that of a seeded +-1 weighting of the deficits), the gradient of the
+   sum of squared deficits against central differences along unit
+   directions over all coordinates (< 1e-5 on the grid_tri(32) sphere;
+   at full width roundoff and truncation leave ~1e-4 at the best step, so
+   < 1e-3 there) and,
+   with the sensitivity, twice equal to the bit; (e) ``cli.mechanisms``
+   ``open`` and ``optimize`` on the grid_tri(8) cell written by
+   ``io.meshio.save_off``, on the card and on the CPU: the files exist and
+   the minimum eigenvalues agree to 1e-8; (f) kernels A and B on the plans
+   phase 19 made (B f64 at 1 value on ``harmonic``'s EBE plan and at 2
+   on ``lscm``'s, A at 3 values and B at 1 on the curvature's corner plan and each
+   the other way, A at 2 values on the endpoint plan of
+   ``node_positions_from_vertices`` and B as its adjoint), each against
+   its plain version and timed, and E on the 19a cell within one float32
+   ulp of the float64 ``Ke``; every kernel line carries
+   ``launches_phase19_paths``;
+20. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -2914,18 +2967,20 @@ class ScalarApplyCounter:
             + self.count["scatter_load"]
 
 
-def counted_scalar(label, fn):
+def counted_scalar(label, fn, extra_sums=lambda: 0):
     """One counted run of a scalar path: every f64 apply, diagonal and
-    ``scatter_load`` must have launched kernel B in float64 once, and
-    nothing else may have launched (no float32 B, no planes, no plain
-    version)."""
+    ``scatter_load``, and the ``extra_sums()`` other f64 sums the path
+    makes through a ``ScatterPlan`` (read after the run), must have
+    launched kernel B in float64 once, and nothing else may have launched
+    (no float32 B, no planes, no plain version)."""
     with ScalarApplyCounter() as sc:
         out, wall, counts = counted(label, fn, ("segment_sum_rows",))
-    n = sc.total()
+    n = sc.total() + extra_sums()
     others = {k: v for k, v in counts.items()
               if v and not k.startswith("segment_sum_rows")}
-    log(f"{label}: {sc.count}, segment_sum_rows {counts['segment_sum_rows']}"
-        f" (f64 {counts['segment_sum_rows/f64']})")
+    log(f"{label}: {sc.count}, other sums {n - sc.total()}, "
+        f"segment_sum_rows {counts['segment_sum_rows']} (f64 "
+        f"{counts['segment_sum_rows/f64']})")
     if not (n > 0 and counts["segment_sum_rows"] == n
             and counts["segment_sum_rows/f64"] == n
             and sc.count["plain"] == 0 and not others):
@@ -3717,8 +3772,25 @@ def drive_deformed(dev, cell, hsim, Ch_cell, Ch_tri):
     if not fd_err <= 1e-5:
         raise RuntimeError(f"16e: the shape gradient misses its central "
                            f"difference ({fd_err:.3e})")
+    # the corner gather is a GatherPlan: its backward is kernel B, so two
+    # gradients agree to the bit and no library scatter runs
+    g2 = dc.homogenized_tensor_shape_gradient(hsim, w, Wg)
+    bitwise = bool(torch.equal(g, g2))
+    ops, kern = profile_kernels(
+        lambda: dc.homogenized_tensor_shape_gradient(hsim, w, Wg))
+    bad = sorted({n for n in ops + kern
+                  if any(s in n for s in LIBRARY_SCATTERS)})
+    log(f"16e shape gradient twice equal to the bit: {bitwise}; under "
+        f"torch.profiler {len(ops)} operator events, {len(kern)} device "
+        f"kernels, library scatters {bad}")
+    if not bitwise or bad or not kern:
+        raise RuntimeError(f"16e: the shape gradient is not repeatable or "
+                           f"ran a library scatter: {bad}")
+    del g2
     out["shape_gradient"] = dict(s=t_grad, along_v=gv, central_difference=fd,
-                                 rel_err=fd_err)
+                                 rel_err=fd_err, bitwise=bitwise,
+                                 profile=dict(ops=len(ops), kernels=len(kern),
+                                              scatters=bad))
 
     # 16f: the Homogenize and DeformedCells CLIs on the card
     with tempfile.TemporaryDirectory() as tmp:
@@ -4975,6 +5047,835 @@ def kernels_multidevice(dev, entry, objs, paths, gen):
             "max_abs_err": {f"{s}/{k}": v for (s, k), v in errs.items()}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the analyses on the card -- linkage mechanisms and their
+# autograd shape derivative, surface parametrization, discrete curvature,
+# the Mechanisms CLI
+# ---------------------------------------------------------------------------
+
+LINK_N = 256                  # 19a-b: grid_tri(256) P2, a tilted void
+LINK_VOID = (0.2, 0.42, 0.35)  # the void's semi-axes and tilt (radians)
+LINK_STEPS = 3
+LINK_OPT_STEPS = 2
+LINK_SPEED = 0.005
+LINK_TOL = 1e-7               # the reference drivers' default tol
+LINK_SMALL_N = 8              # card against CPU, and the CLI's cell
+PARAM_N = 512                 # 19c: scp on grid_tri(512) P1, 263,169 nodes
+HARMONIC_N = 408              # harmonic's cap: its Jacobi CGs take 994
+#                               iterations here, 1,242 at 512, past cg's
+#                               default 1,000, as at HARMONIC_N + 8 (logged)
+LSCM_N = 256                  # lscm's flat grid: the unpreconditioned CG
+#                               ends at its 20,000 iterations at 4.4e-6 on
+#                               grid_tri(512); ~3x the iterations a doubling
+PARAM_SMALL_N = 16            # card against CPU
+SCP_ITERS = 50
+SCP_SMALL_ITERS = 12
+SPHERE_N = 256                # 19d: six grid_tri(256) faces, 393,218 vertices
+SPHERE_FD_N = 32              # 19d's finite-difference gate at 1e-5
+PHASE19_PATH = ("gather_rows", "segment_sum_rows")
+
+
+def slot_cell(n):
+    """grid_tri(n, n) on the unit square without the triangles whose
+    centroid lies in the ellipse ``LINK_VOID`` about the centre (semi-axes
+    a, b, turned by the tilt), vertices renumbered.  The tilt makes the
+    softest eigenstrain simple with a first component far from zero, so
+    the eigenstrain's sign flip is decided alike on the card and the CPU
+    (13c's round void is softest in pure shear, first component ~1e-15)."""
+    from meshfem_tpu_torch.mesh import generators
+
+    a, b, tilt = LINK_VOID
+    V, F = generators.grid_tri(n, n)
+    c = V[F].mean(axis=1) - 0.5
+    x = np.cos(tilt) * c[:, 0] + np.sin(tilt) * c[:, 1]
+    y = -np.sin(tilt) * c[:, 0] + np.cos(tilt) * c[:, 1]
+    F2 = F[(x / a) ** 2 + (y / b) ** 2 > 1]
+    used = np.unique(F2)
+    remap = -np.ones(len(V), dtype=np.int64)
+    remap[used] = np.arange(len(used))
+    return V[used], remap[F2]
+
+
+class CellSolveLog:
+    """Records (simulator, w, iterations) of every ``solve_cell_problems``
+    call while active (the mechanisms look it up as
+    ``homogenization.solve_cell_problems``)."""
+
+    def __enter__(self):
+        from meshfem_tpu_torch.analysis import homogenization as hom
+
+        self.runs, self._inner = [], hom.solve_cell_problems
+
+        def rec(sim, *a, **k):
+            w, iters = self._inner(sim, *a, **k)
+            self.runs.append((sim, w, iters))
+            return w, iters
+
+        hom.solve_cell_problems = rec
+        return self
+
+    def __exit__(self, *exc):
+        from meshfem_tpu_torch.analysis import homogenization as hom
+
+        hom.solve_cell_problems = self._inner
+
+
+class CGLog:
+    """Times every ``cg`` call while active: host seconds, iterations and
+    the relative residual it stopped at (|r| over the projected right-hand
+    side)."""
+
+    def __enter__(self):
+        from meshfem_tpu_torch.solvers import cg as cg_mod
+
+        self.runs, self._cg = [], cg_mod.cg
+
+        def cg(A, b, x0=None, **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = self._cg(A, b, x0, **k)
+            torch.cuda.synchronize()
+            bn = float(torch.linalg.norm((k.get("project")
+                                          or (lambda v: v))(b)))
+            self.runs.append(dict(s=time.time() - t0, iters=int(res.iters),
+                                  relres=res.resnorm / max(bn, 1e-300),
+                                  maxiter=k.get("maxiter", 1000)))
+            return res
+
+        cg_mod.cg = cg
+        return self
+
+    def __exit__(self, *exc):
+        from meshfem_tpu_torch.solvers import cg as cg_mod
+
+        cg_mod.cg = self._cg
+
+
+def identified_steps_equal(mesh, step_field):
+    """max over periodically identified vertex groups of the spread of
+    their steps."""
+    from meshfem_tpu_torch.mesh import periodic
+
+    dof_map, _, _ = periodic.match_periodic_nodes(mesh.node_positions,
+                                                  mesh.bbox(), 1e-7)
+    vdofs = dof_map[mesh.vertex_nodes]
+    order = np.argsort(vdofs, kind="stable")
+    s, d = step_field[order], vdofs[order]
+    first = np.r_[0, np.flatnonzero(np.diff(d)) + 1]
+    lead = np.repeat(s[first], np.diff(np.r_[first, len(d)]), axis=0)
+    return float(np.abs(s - lead).max())
+
+
+def drive_linkage(dev):
+    """19a: ``open_linkage`` on the full-width slot cell, counted; each
+    step's block residual through the float64 EBE operator, Eh symmetric
+    and positive definite, the opening strain's sign, the step's size,
+    kernel E once a step and A and B in rows on every block apply; the
+    small cell on the card against the CPU."""
+    from meshfem_tpu_torch.analysis import mechanisms as mech
+    from meshfem_tpu_torch.mesh import FEMMesh
+    from meshfem_tpu_torch.physics import Material
+
+    out, paths = {}, {}
+    mat = Material.isotropic(2, 1.0, 0.3)
+    t0 = time.time()
+    cell = FEMMesh(*slot_cell(LINK_N), degree=2)
+    out.update(mesh_s=time.time() - t0, triangles=cell.num_elements,
+               nodes=cell.num_nodes)
+    with CellSolveLog() as cells, ApplyCounter() as applies:
+        res, wall, c = counted(
+            "19a open_linkage", lambda: mech.open_linkage(
+                cell, mat, num_steps=LINK_STEPS, opening_speed=LINK_SPEED,
+                tol=LINK_TOL, device=dev),
+            required=PHASE19_PATH + ("element_stiffness",))
+    paths["19a_open_linkage"] = c
+    check_rows_path("19a open_linkage", c, applies.count)
+    if c["element_stiffness"] != LINK_STEPS:
+        raise RuntimeError(f"19a: kernel E ran {c['element_stiffness']} "
+                           f"times in {LINK_STEPS} steps")
+    steps = []
+    for (sim, w, iters), st in zip(cells.runs, res.steps):
+        relres, _ = block_residual(sim, w)
+        Eh = torch.as_tensor(st.Eh)
+        scale = float(Eh.abs().max())
+        o = np.asarray(st.opening_strain)
+        steps.append(dict(
+            relres=relres, inner_iters=iters[0], Eh=st.Eh.tolist(),
+            asym=float((Eh - Eh.t()).abs().max()) / scale,
+            min_eig=float(torch.linalg.eigvalsh(0.5 * (Eh + Eh.t())).min()),
+            min_eigenvalue=st.min_eigenvalue, opening=o.tolist(),
+            step_max=float(np.linalg.norm(st.step_field, axis=1).max())))
+    out.update(seconds=wall, s_per_step=wall / LINK_STEPS, steps=steps,
+               block_applies=applies.count,
+               max_rel_edge_change=res.max_rel_edge_change)
+    log(f"19a open_linkage slot cell grid_tri({LINK_N}) P2 "
+        f"({cell.num_elements} triangles, {cell.num_nodes} nodes, mesh "
+        f"{out['mesh_s']:.2f} s): {LINK_STEPS} steps in {wall:.3f} s "
+        f"({wall / LINK_STEPS:.3f} s a step), {applies.count} block "
+        f"applies, launches {c}; steps {steps}")
+    for k, s in enumerate(steps):
+        o = np.asarray(s["opening"])
+        if not (s["relres"] <= LINK_TOL and s["asym"] <= 1e-6
+                and s["min_eig"] > 0 and o[0] >= 0.1 * np.abs(o).max()
+                and abs(s["step_max"] - LINK_SPEED) <= 1e-9):
+            raise RuntimeError(f"19a: step {k} fails its gates: {s}")
+    sim0, w0, _ = cells.runs[0]
+    del cells, res
+    small = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = FEMMesh(*slot_cell(LINK_SMALL_N), degree=2)
+        small[where] = mech.open_linkage(m, mat, num_steps=LINK_STEPS,
+                                         opening_speed=LINK_SPEED,
+                                         tol=LINK_TOL, device=d)
+    vs_cpu = max([rel_err(torch.as_tensor(a.Eh), torch.as_tensor(b.Eh))
+                  for a, b in zip(small["card"].steps, small["cpu"].steps)]
+                 + [rel_err(torch.as_tensor(small["card"].vertices),
+                            torch.as_tensor(small["cpu"].vertices))])
+    out["vs_cpu"] = vs_cpu
+    log(f"19a card against CPU (slot cell grid_tri({LINK_SMALL_N}) P2, "
+        f"{LINK_STEPS} steps): Eh and vertices {vs_cpu:.3e} relative")
+    if not vs_cpu <= 1e-8:
+        raise RuntimeError("19a: open_linkage on the card differs from the "
+                           "CPU")
+    return out, paths, (cell, mat, sim0, w0)
+
+
+def drive_linkage_opt(dev, cell, mat, w0):
+    """19b: ``optimize_linkage`` on the full-width cell, counted; dEh by
+    autograd at full width (the forward and each reverse pass timed apart,
+    twice equal to the bit, counted, and once under ``torch.profiler`` with
+    no library scatter); identified vertices' steps equal; on the small
+    cell dEh against the CPU and a directional derivative against a
+    central difference of the whole pipeline on the card."""
+    from meshfem_tpu_torch.analysis import homogenization as hom
+    from meshfem_tpu_torch.analysis import mechanisms as mech
+    from meshfem_tpu_torch.mesh import FEMMesh
+
+    out, paths = {}, {}
+    step = 0.25 / LINK_N                   # a quarter of a grid spacing
+    res, wall, paths["19b_optimize_linkage"] = counted(
+        "19b optimize_linkage", lambda: mech.optimize_linkage(
+            cell, mat, num_steps=LINK_OPT_STEPS, step_size=step,
+            tol=LINK_TOL, device=dev),
+        required=PHASE19_PATH + ("element_stiffness",))
+    spread = max(identified_steps_equal(cell, s.step_field)
+                 for s in res.steps)
+    out.update(seconds=wall, s_per_step=wall / LINK_OPT_STEPS,
+               identified_spread=spread,
+               min_eigenvalues=[s.min_eigenvalue for s in res.steps])
+    log(f"19b optimize_linkage ({LINK_OPT_STEPS} steps of {step:g}): "
+        f"{wall:.3f} s, min eigenvalues {out['min_eigenvalues']}, "
+        f"identified vertices' steps spread {spread:.3e}, launches "
+        f"{paths['19b_optimize_linkage']}")
+    if not spread <= 1e-12:
+        raise RuntimeError("19b: identified vertices took different steps")
+
+    # dEh at full width: the forward and the fl^2 reverse passes apart
+    D = mat.D
+    vol = cell.bbox().volume()
+    with torch.enable_grad():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        Xv = torch.tensor(cell.V, dtype=torch.float64, device=dev,
+                          requires_grad=True)
+        Eh = mech.energy_form_Eh(cell, D, w0, Xv, vol)
+        torch.cuda.synchronize()
+        t_fwd = time.time() - t0
+        passes = []
+        fl = Eh.shape[0]
+        for k in range(fl * fl):
+            t0 = time.time()
+            torch.autograd.grad(Eh[k // fl, k % fl], Xv,
+                                retain_graph=k < fl * fl - 1)
+            torch.cuda.synchronize()
+            passes.append(time.time() - t0)
+        del Eh, Xv
+    dEh1, wall1, c = counted(
+        "19b dEh", lambda: mech.eh_vertex_differential(
+            cell, D, w0, base_cell_volume=vol, device=dev),
+        required=PHASE19_PATH)
+    paths["19b_dEh"] = c
+    dEh2 = mech.eh_vertex_differential(cell, D, w0, base_cell_volume=vol,
+                                       device=dev)
+    bitwise = bool(torch.equal(dEh1, dEh2))
+    ops, kern = profile_kernels(lambda: mech.eh_vertex_differential(
+        cell, D, w0, base_cell_volume=vol, device=dev))
+    bad = sorted({n for n in ops + kern
+                  if any(s in n for s in LIBRARY_SCATTERS)})
+    out["dEh"] = dict(seconds=wall1, forward_s=t_fwd, reverse_pass_s=passes,
+                      reverse_s=sum(passes), bitwise=bitwise,
+                      gather_rows_f64=c["gather_rows/f64"],
+                      segment_sum_rows_f64=c["segment_sum_rows/f64"],
+                      profile=dict(ops=len(ops), kernels=len(kern),
+                                   scatters=bad))
+    log(f"19b dEh [{cell.num_vertices}, 2, 3, 3] at full width: "
+        f"{wall1:.3f} s; the forward {t_fwd:.3f} s, {fl * fl} reverse "
+        f"passes {sum(passes):.3f} s ("
+        + ", ".join(f"{p * 1e3:.1f}" for p in passes) + " ms); "
+        f"twice equal to the bit: {bitwise}; launches A f64 "
+        f"{c['gather_rows/f64']} (the endpoint and corner gathers), B f64 "
+        f"{c['segment_sum_rows/f64']} (their adjoints, two a pass); under "
+        f"torch.profiler {len(ops)} operator events, {len(kern)} device "
+        f"kernels, library scatters {bad}")
+    if not (bitwise and c["gather_rows/f64"] == 2
+            and c["segment_sum_rows/f64"] == 2 * fl * fl):
+        raise RuntimeError("19b: dEh not repeatable or not on the A/B pair")
+    if bad or not kern:
+        raise RuntimeError(f"19b: a library scatter ran: {bad}")
+    del dEh1, dEh2
+
+    # the small cell: dEh against the CPU, and a central difference of the
+    # whole pipeline (re-meshed and re-solved at V +- h delta) on the card
+    V, F = slot_cell(LINK_SMALL_N)
+    small = FEMMesh(V, F, degree=2)
+    dEh = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        sim = hom.periodic_simulator(small, mat, device=d)
+        w, _ = hom.solve_cell_problems(sim, tol=1e-12)
+        dEh[where] = mech.eh_vertex_differential(small, D, w).cpu()
+    vs_cpu = rel_err(dEh["card"], dEh["cpu"])
+    delta = np.random.default_rng(19).standard_normal(V.shape)
+    delta[np.any((V < 1e-9) | (V > 1 - 1e-9), axis=1)] = 0.0
+    directional = float(np.einsum("vc,vcij->ij", delta,
+                                  dEh["card"].numpy())[0, 0])
+
+    def full_Eh00(t):
+        m = FEMMesh(V + t * delta, F, degree=2)
+        s = hom.periodic_simulator(m, mat, device=dev)
+        wt, _ = hom.solve_cell_problems(s, tol=1e-13)
+        return float(hom.homogenized_tensor_stress_form(s, wt)[0, 0])
+
+    h = 1e-5
+    fd = (full_Eh00(h) - full_Eh00(-h)) / (2 * h)
+    fd_err = abs(fd - directional) / abs(fd)
+    out.update(vs_cpu=vs_cpu, fd=fd, directional=directional, fd_err=fd_err)
+    log(f"19b small cell (grid_tri({LINK_SMALL_N}) P2): dEh card against "
+        f"CPU {vs_cpu:.3e}; along a seeded direction {directional:.9e}, "
+        f"central difference of the whole pipeline (h {h:g}) {fd:.9e}, "
+        f"{fd_err:.3e} relative")
+    if not (vs_cpu <= 1e-9 and fd_err <= 2e-4):
+        raise RuntimeError("19b: dEh disagrees on the small cell")
+    return out, paths
+
+
+def paraboloid_cap(n, lifted=True):
+    """grid_tri(n) P1 in 3D, on z = (x - 1/2)^2 + (y - 1/2)^2 or flat."""
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+
+    V, F = generators.grid_tri(n, n)
+    z = ((V - 0.5) ** 2).sum(axis=1) if lifted else np.zeros(len(V))
+    return FEMMesh(np.column_stack([V, z]), F, degree=1, embedding_dim=3)
+
+
+class PairingCounter:
+    """Counts, while active, the calls of every conformal operator H that
+    ``parametrization._conformal_operator`` builds: each is one Laplacian
+    apply and one boundary area pairing, a ``ScatterPlan`` sum that
+    launches kernel B in float64 once."""
+
+    def __enter__(self):
+        from meshfem_tpu_torch.analysis import parametrization as par
+
+        self.count, self._build = 0, par._conformal_operator
+
+        def build(*args, **kw):
+            H, L, edges = self._build(*args, **kw)
+
+            def counted_H(z):
+                self.count += 1
+                return H(z)
+            return counted_H, L, edges
+
+        par._conformal_operator = build
+        return self
+
+    def __exit__(self, *exc):
+        from meshfem_tpu_torch.analysis import parametrization as par
+
+        par._conformal_operator = self._build
+
+
+def drive_parametrization(dev):
+    """19c: ``harmonic`` and ``scp`` on paraboloid caps, ``lscm`` on the
+    flat grid, each counted as a scalar path (kernel B in float64 once for
+    every apply, diagonal and area pairing), the CG iterations, residuals
+    and ms an iteration (host clock); the small meshes on the card against
+    the CPU."""
+    from meshfem_tpu_torch.analysis import parametrization as par
+    from meshfem_tpu_torch.ops import operators
+
+    out, paths = {}, {}
+    cap = paraboloid_cap(HARMONIC_N)
+    with CGLog() as cl:
+        uv, wall, paths["19c_harmonic"] = counted_scalar(
+            "19c harmonic", lambda: par.harmonic(cap, device=dev))
+    r = np.linalg.norm(uv.cpu().numpy()[cap.cell.boundary_vertices()],
+                       axis=1)
+    sf = par.scale_factor(cap, uv)
+    out["harmonic"] = dict(seconds=wall, cg=cl.runs,
+                           circle_err=float(np.abs(r - 1).max()),
+                           min_scale_factor=float(sf.min()))
+    log(f"19c harmonic on the paraboloid cap grid_tri({HARMONIC_N}) P1 "
+        f"({cap.num_nodes} nodes, {cap.num_elements} triangles): "
+        f"{wall:.3f} s; CG " + ", ".join(
+            f"{c['iters']} iterations to {c['relres']:.2e} in "
+            f"{c['s']:.3f} s ({c['s'] / max(c['iters'], 1) * 1e3:.4f} ms "
+            f"an iteration)" for c in cl.runs)
+        + f"; boundary off the circle {out['harmonic']['circle_err']:.2e}, "
+        f"min scale factor {out['harmonic']['min_scale_factor']:.3e}")
+    if not (len(cl.runs) == 2 and all(
+            c["relres"] <= 1e-11 and c["iters"] < c["maxiter"]
+            for c in cl.runs)
+            and out["harmonic"]["circle_err"] <= 1e-8
+            and bool((sf > 0).all())):
+        raise RuntimeError("19c: harmonic fails its gates")
+    L1 = operators.laplacian(cap, device=dev)
+    del uv, sf
+    # the next grid up, to show HARMONIC_N is the largest (in steps of 8)
+    # that converges within the reference's cap
+    with CGLog() as cl:
+        par.harmonic(paraboloid_cap(HARMONIC_N + 8), device=dev)
+    out["harmonic"]["next_grid"] = dict(n=HARMONIC_N + 8, cg=cl.runs)
+    log(f"19c harmonic on the next grid up, grid_tri({HARMONIC_N + 8}): "
+        + ", ".join(f"{c['iters']} iterations to {c['relres']:.2e}"
+                    for c in cl.runs))
+
+    flat = paraboloid_cap(LSCM_N, lifted=False)
+    with CGLog() as cl, PairingCounter() as pc:
+        uv, wall, paths["19c_lscm"] = counted_scalar(
+            "19c lscm", lambda: par.lscm(flat, device=dev),
+            extra_sums=lambda: pc.count)
+    dist = par.conformal_distortion(flat, uv)
+    out["lscm"] = dict(seconds=wall, cg=cl.runs,
+                       distortion_err=float((dist - 1).abs().max()))
+    c = cl.runs[0]
+    log(f"19c lscm on the flat grid_tri({LSCM_N}) P1: {wall:.3f} s; CG "
+        f"{c['iters']} iterations to {c['relres']:.2e} "
+        f"({c['s'] / max(c['iters'], 1) * 1e3:.4f} ms an iteration); "
+        f"conformal distortion off 1 by {out['lscm']['distortion_err']:.2e}")
+    if not (c["relres"] <= 1e-11 and c["iters"] < c["maxiter"]
+            and out["lscm"]["distortion_err"] <= 1e-6):
+        raise RuntimeError("19c: lscm fails its gates")
+    L2 = operators.laplacian(flat, device=dev)
+    del uv, dist, flat
+
+    cap = paraboloid_cap(PARAM_N)
+    with PairingCounter() as pc:
+        (z, lam), wall, paths["19c_scp"] = counted_scalar(
+            "19c scp", lambda: par.scp(cap, tol=0.0, maxiter=SCP_ITERS,
+                                       device=dev),
+            extra_sums=lambda: pc.count)
+    M = operators.mass(cap, device=dev)
+    Mz = M(z.contiguous())
+    translations = float(Mz.sum(dim=0).abs().max() / Mz.abs().sum())
+    out["scp"] = dict(seconds=wall, ms_per_iteration=wall / SCP_ITERS * 1e3,
+                      eigenvalues=[float(x) for x in lam],
+                      translations=translations)
+    log(f"19c scp on the cap, {SCP_ITERS} LOBPCG iterations: {wall:.3f} s "
+        f"({out['scp']['ms_per_iteration']:.2f} ms an iteration), "
+        f"eigenvalues {out['scp']['eigenvalues']}, M-weighted mean of the "
+        f"map {translations:.2e}")
+    if not (bool(torch.isfinite(z).all()) and np.all(np.isfinite(lam))
+            and translations <= 1e-10):
+        raise RuntimeError("19c: scp fails its gates")
+    del z, M, Mz
+
+    # the small meshes on the card against the CPU
+    small = paraboloid_cap(PARAM_SMALL_N)
+    small_flat = paraboloid_cap(PARAM_SMALL_N, lifted=False)
+    res = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        res[where] = (par.harmonic(small, device=d).cpu(),
+                      par.lscm(small_flat, device=d).cpu(),
+                      par.scp(small, tol=0.0, maxiter=SCP_SMALL_ITERS,
+                              device=d))
+    (hc, lc, (zc, lamc)), (hh, lh, (zh, lamh)) = res["card"], res["cpu"]
+    sign = 1.0 if float((zc.cpu() * zh).sum()) >= 0 else -1.0
+    errs = dict(harmonic=rel_err(hc, hh), lscm=rel_err(lc, lh),
+                scp=rel_err(sign * zc.cpu(), zh),
+                scp_eig=float(np.abs(lamc - lamh).max()
+                              / np.abs(lamh).max()))
+    out["vs_cpu"] = errs
+    log(f"19c card against CPU (grid_tri({PARAM_SMALL_N})): {errs}")
+    if not (max(errs["harmonic"], errs["lscm"], errs["scp"]) <= 1e-8
+            and errs["scp_eig"] <= 1e-10):
+        raise RuntimeError("19c: parametrization on the card differs from "
+                           "the CPU")
+    return out, paths, (L1, L2)
+
+
+def cube_sphere(n):
+    """A cube's six grid_tri(n) faces, welded and projected onto the unit
+    sphere: (V [6 n^2 + 2, 3], F [12 n^2, 3]), wound outward."""
+    from meshfem_tpu_torch.mesh import generators
+
+    V2, F2 = generators.grid_tri(n, n)
+    s = 2.0 * V2 - 1.0
+    Vs, Fs = [], []
+    for axis in range(3):
+        u, v = (axis + 1) % 3, (axis + 2) % 3
+        for sign in (-1.0, 1.0):
+            P = np.empty((len(V2), 3))
+            P[:, axis], P[:, u], P[:, v] = sign, s[:, 0], s[:, 1]
+            Fs.append((F2 if sign > 0 else F2[:, ::-1])
+                      + sum(len(x) for x in Vs))
+            Vs.append(P)
+    V, F = np.concatenate(Vs), np.concatenate(Fs)
+    # grid coordinates are multiples of 2/n: weld on the exact integers
+    _, first, inv = np.unique(np.rint(V * n / 2).astype(np.int64), axis=0,
+                              return_index=True, return_inverse=True)
+    V = V[first]
+    return V / np.linalg.norm(V, axis=1, keepdims=True), \
+        inv.reshape(-1)[F]
+
+
+def drive_curvature(dev):
+    """19d: the angle deficits of the cube sphere (Gauss-Bonnet), the
+    sensitivity of their sum (zero on a closed surface), the gradient of
+    the sum of squared deficits against central differences and twice
+    equal to the bit, each counted, all on one corner plan built once
+    (its build timed, and a call that builds its own beside one that is
+    handed it).  Returns (summary, launch counts per path, the plan)."""
+    from meshfem_tpu_torch.analysis import curvature as curv
+    from meshfem_tpu_torch.utils.fd_validation import (fd_gradient_check,
+                                                       grad_of)
+
+    out, paths = {}, {}
+    t0 = time.time()
+    V, F = cube_sphere(SPHERE_N)
+    Vt = torch.as_tensor(V, device=dev)
+    out["mesh_s"] = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cp = curv.corner_plan(F, len(V), dev)
+    cp.adjoint
+    torch.cuda.synchronize()
+    out["plan_s"] = time.time() - t0
+    d, wall, paths["19d_deficits"] = counted(
+        "19d angle_deficits", lambda: curv.angle_deficits(Vt, F, plan=cp),
+        required=PHASE19_PATH)
+    _, wall_own, _ = counted(
+        "19d angle_deficits (own plan)", lambda: curv.angle_deficits(Vt, F),
+        required=PHASE19_PATH)
+    total = float(d.sum())
+    K = curv.gaussian_curvature(Vt, F, plan=cp)
+    # the first backward of the process starts autograd's device thread:
+    # the counted call is the second
+    g2, wall_first, _ = counted(
+        "19d sensitivity (first)",
+        lambda: curv.gaussian_curvature_sensitivity(Vt, F, plan=cp))
+    g, wall_g, paths["19d_sensitivity"] = counted(
+        "19d sensitivity",
+        lambda: curv.gaussian_curvature_sensitivity(Vt, F, plan=cp),
+        required=PHASE19_PATH)
+    r = torch.as_tensor(np.random.default_rng(19).choice([-1.0, 1.0],
+                                                         len(V)), device=dev)
+    scale = float(grad_of(
+        lambda X: (r * curv.angle_deficits(X, F, plan=cp)).sum(),
+        Vt).abs().max())
+    sq = lambda X: (curv.angle_deficits(X, F, plan=cp) ** 2).sum()
+    gs, wall_s, paths["19d_squares"] = counted(
+        "19d grad sum d^2", lambda: grad_of(sq, Vt), required=PHASE19_PATH)
+    bitwise = bool(torch.equal(gs, grad_of(sq, Vt))
+                   and torch.equal(g, g2))
+    # central differences along unit directions over all coordinates: at
+    # full width neither step reaches 1e-5 (roundoff of a sum of 393,218
+    # squares ~1.4e-10 / eps, truncation ~8e6 eps^2, from grid_tri(16) -
+    # (128) on the CPU), so the 1e-5 gate is held on SPHERE_FD_N's sphere
+    # and the full width's error, at its best step, to 1e-3
+    fd_err = fd_gradient_check(sq, Vt, eps=2e-6, n_dirs=3)
+    Vs, Fs = cube_sphere(SPHERE_FD_N)
+    fd_small = fd_gradient_check(
+        lambda X: (curv.angle_deficits(X, Fs) ** 2).sum(),
+        torch.as_tensor(Vs, device=dev), eps=1e-6, n_dirs=3)
+    out.update(vertices=len(V), triangles=len(F), deficits_s=wall,
+               deficits_own_plan_s=wall_own,
+               sensitivity_s=wall_g, sensitivity_first_s=wall_first,
+               squares_grad_s=wall_s,
+               gauss_bonnet_err=abs(total - 4 * np.pi) / (4 * np.pi),
+               K_range=[float(K.min()), float(K.max())],
+               sensitivity_max=float(g.abs().max()), per_term_scale=scale,
+               fd_err=fd_err, fd_err_small=fd_small, bitwise=bitwise)
+    log(f"19d curvature on the cube sphere ({len(V)} vertices, {len(F)} "
+        f"triangles, built in {out['mesh_s']:.2f} s; its corner plan and "
+        f"the adjoint {out['plan_s']:.3f} s): deficits {wall:.3f} s on the "
+        f"plan, {wall_own:.3f} s building their own, sum {total:.15f} "
+        f"(4 pi off by {out['gauss_bonnet_err']:.2e} relative), K in "
+        f"{out['K_range']}; sensitivity {wall_g:.3f} s (the process's "
+        f"first backward {wall_first:.3f} s), max "
+        f"{out['sensitivity_max']:.3e} beside a per-term gradient's "
+        f"{scale:.3e}; grad of sum d^2 {wall_s:.3f} s, against central "
+        f"differences {fd_err:.3e} (eps 2e-6; on the grid_tri("
+        f"{SPHERE_FD_N}) sphere {fd_small:.3e}, eps 1e-6); twice equal to "
+        f"the bit: {bitwise}")
+    if not (out["gauss_bonnet_err"] <= 1e-9
+            and out["sensitivity_max"] <= 1e-9 * scale
+            and fd_err <= 1e-3 and fd_small <= 1e-5 and bitwise):
+        raise RuntimeError("19d: curvature fails its gates")
+    return out, paths, cp
+
+
+def drive_mechanisms_cli(dev, tmp):
+    """19e: both subcommands of ``cli.mechanisms`` on the small slot cell
+    written by ``io.meshio.save_off``, on the card (counted) and on the
+    CPU, each in a directory of its own: the files exist and the minimum
+    eigenvalues agree to 1e-8."""
+    import contextlib
+    import io
+
+    from meshfem_tpu_torch.cli import mechanisms as cli
+    from meshfem_tpu_torch.io import meshio
+
+    paths = {}
+    path = os.path.join(tmp, "cell.off")
+    meshio.save_off(path, *slot_cell(LINK_SMALL_N))
+    expect = ("link_minEigenvalue.txt", "link_openingStrain_ellipse.txt",
+              "linkopen_it_0.msh", "linkopen_it_1.msh", "opened.msh",
+              "vertical_linkage_it0.msh")
+    eigs, secs = {}, {}
+    for where, d in (("card", str(dev)), ("cpu", "cpu")):
+        wd = os.path.join(tmp, where)
+        os.makedirs(wd)
+        cwd = os.getcwd()
+        os.chdir(wd)
+        try:
+            runs = {}
+            for sub, args, req in (
+                    ("open", ["open", "link", path, "-n", "2", "-s",
+                              "0.002", "--outputFreq", "1", "-d", "2"],
+                     ("segment_sum_rows",)),
+                    ("optimize", ["optimize", path, "-n", "1"],
+                     PHASE19_PATH)):
+                buf = io.StringIO()
+                fn = lambda: cli.main(args + ["--device", d])
+                with contextlib.redirect_stdout(buf):
+                    if where == "card":
+                        _, t, paths[f"19e_cli_{sub}"] = counted(
+                            f"19e cli.mechanisms {sub}", fn, required=req)
+                    else:
+                        t0 = time.time()
+                        fn()
+                        t = time.time() - t0
+                runs[sub] = (buf.getvalue(), t)
+            missing = [f for f in expect if not os.path.exists(f)]
+            with open("link_minEigenvalue.txt") as fh:
+                opened = [float(x) for x in fh.read().split()]
+        finally:
+            os.chdir(cwd)
+        if missing:
+            raise RuntimeError(f"19e ({where}): missing files {missing}")
+        optimized = [float(line.split()[3]) for line in
+                     runs["optimize"][0].splitlines()
+                     if line.startswith("Minimum Eh eigenvalue")]
+        eigs[where] = opened + optimized
+        secs[where] = {k: v[1] for k, v in runs.items()}
+    err = float(np.abs(np.subtract(eigs["card"], eigs["cpu"])).max()
+                / np.abs(eigs["cpu"]).max())
+    log(f"19e cli.mechanisms open (2 steps) and optimize (1 step) on the "
+        f"grid_tri({LINK_SMALL_N}) slot cell: seconds {secs}; minimum "
+        f"eigenvalues {eigs['card']}, card against CPU {err:.3e}")
+    if not (len(eigs["card"]) == 3 and err <= 1e-8):
+        raise RuntimeError("19e: the CLI's eigenvalues differ")
+    return dict(seconds=secs, eigenvalues=eigs["card"], vs_cpu=err), paths
+
+
+def drive_phase19(dev, gen):
+    """Phase 19a-e; returns (summary, launch counts per path, the objects
+    19f checks and times kernels on)."""
+    import tempfile
+
+    out, paths, parts = {}, {}, {}
+    t0 = time.time()
+
+    def part(key, fn, *args):
+        t = time.time()
+        res = fn(*args)
+        parts[key] = time.time() - t
+        paths.update(res[1])
+        return res
+
+    out["open_linkage"], _, (cell, mat, sim0, w0) = part(
+        "19a", drive_linkage, dev)
+    out["optimize_linkage"], _ = part("19b", drive_linkage_opt, dev, cell,
+                                      mat, w0)
+    out["parametrization"], _, (L1, L2) = part("19c", drive_parametrization,
+                                               dev)
+    out["curvature"], _, cp = part("19d", drive_curvature, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli"], _ = part("19e", drive_mechanisms_cli, dev, tmp)
+    out["parts_s"] = parts
+    out["phase_s"] = time.time() - t0
+    log(f"phase 19 (19a-e): {out['phase_s']:.1f} s, by part "
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return out, paths, (cell, sim0, L1, L2, cp)
+
+
+def kernels_phase19(dev, entry, objs, paths, gen):
+    """19f: kernels A, B and E on the plans phase 19 made, each held
+    against its plain version (A exactly; B bit for bit against B in
+    planes and the CPU's plain sum, 1e-12 of max|y| against the card's
+    plain sum; E within one float32 ulp of the float64 ``Ke`` of its own
+    inputs) and timed with ``entry``: B f64 at 1 value on the EBE plan of
+    harmonic's Laplacian and at 2 on lscm's, A and B f64 on the 19d
+    corner plan (A at 3 values, its adjoint B at 1, both ways), A on the
+    endpoint plan of
+    ``node_positions_from_vertices`` and B as its adjoint (2 values), E on
+    the 19a cell's geometry."""
+    from meshfem_tpu_torch import kernels
+    from meshfem_tpu_torch.ops import element_matrices as em
+
+    cell, sim0, L1, L2, cp = objs
+    f64 = torch.float64
+    out = {}
+    src_dir = "meshfem_tpu_torch/csrc/"
+
+    def f64_launches(prefix, name):
+        return sum(c[f"{name}/f64"] for p, c in paths.items()
+                   if p.startswith(prefix))
+
+    def b_entry(tag, plan, P, launches, launches_path, replaces, mode):
+        err = check_rows_on_plan(plan, f64, f"19f B f64 rows ({tag})", gen,
+                                 P=P)
+        R, N = plan.num_rows, plan.num_segments
+        src = torch.randn((R, P), generator=gen, device=dev, dtype=f64)
+        acc = torch.zeros((N, P), device=dev, dtype=f64)
+        dst = plan.ids.long()
+        entry(f"segment_sum_rows/f64/{P}/{tag}",
+              src_dir + "segment_sum_csr.cu", replaces, launches, err,
+              lambda: plan.sum_rows(src),
+              lambda: kernels.segment_sum_rows_plain(src, plan.perm,
+                                                     plan.offsets),
+              lambda: acc.index_add_(0, dst, src),
+              P * R * 8 + R * 4 + (N + 1) * 4 + P * N * 8, P * R,
+              flop_rate=F64_FLOP_PER_S, mode=mode,
+              launches_path=launches_path,
+              library_call="Tensor.index_add_ (float atomics)",
+              shape=f"src [{R}, {P}] f64 -> [{N}, {P}]")
+        return err
+
+    def a_entry(tag, plan, P, launches, launches_path, replaces, mode):
+        ids = plan.ids
+        src = torch.randn((plan.num_sources, P), generator=gen, device=dev,
+                          dtype=f64)
+        y = kernels.gather_rows(src, ids)
+        if not (torch.equal(y, kernels.gather_rows_plain(src, ids))
+                and torch.equal(y.cpu(), kernels.gather_rows_plain(
+                    src.cpu(), ids.cpu()))):
+            raise RuntimeError(f"19f: gather_rows f64 ({tag}) != plain")
+        S = ids.shape[0]
+        ids_long = ids.long()
+        entry(f"gather_rows/f64/{P}/{tag}", src_dir + "gather_planes.cu",
+              replaces, launches, 0.0,
+              lambda: kernels.gather_rows(src, ids),
+              lambda: kernels.gather_rows_plain(src, ids),
+              lambda: torch.index_select(src, 0, ids_long),
+              S * 4 + plan.num_sources * P * 8 + S * P * 8, 0, mode=mode,
+              launches_path=launches_path, library_call="torch.index_select",
+              shape=f"src [{plan.num_sources}, {P}] f64, ids [{S}] int32")
+
+    # B on the 19c Laplacians' plans: harmonic's at 1 value, lscm's at 2
+    for P, path, lap in ((1, "19c_harmonic", L1), (2, "19c_lscm", L2)):
+        out[f"param_{P}"] = b_entry(
+            "parametrization", lap._kernel.plan, P, f64_launches(path,
+                                                     "segment_sum_rows"),
+            f"{path}, float64 launches (every L and M apply, diagonal and "
+            f"area pairing: the whole path's)",
+            "meshfem_tpu/sparse/route.py:207 (f64: the XLA scatter of "
+            "meshfem_tpu/sparse/ebe.py, the Laplacian's applies in "
+            "meshfem_tpu/analysis/parametrization.py)",
+            f"f64 rows [E n, {P}] -> [N, {P}]: the scalar EBE apply of "
+            f"{'one column' if P == 1 else 'u and v together'}")
+    # A and B on the 19d corner plan: V[F] (A, 3 values) and the vertex
+    # sums (B, 1 value), each the other's adjoint in the gradient
+    out["curv_b1"] = b_entry(
+        "curvature", cp.adjoint, 1,
+        f64_launches("19d", "segment_sum_rows"),
+        "19d deficits, sensitivity and grad sum d^2, float64 launches "
+        "(the vertex sums, and the corner gather's adjoint at 3 values)",
+        "meshfem_tpu/sparse/route.py:207 (f64: the .at[F].add of "
+        "meshfem_tpu/analysis/curvature.py:38,72)",
+        "f64 rows [3 E, 1] -> [Nv, 1]: the angle sums into vertices")
+    check_rows_on_plan(cp.adjoint, f64, "19f B f64 rows (curvature, 3 "
+                       "values: the corner gather's adjoint)", gen, P=3)
+    a_entry("curvature", cp, 3, f64_launches("19d", "gather_rows"),
+            "19d deficits, sensitivity and grad sum d^2, float64 launches "
+            "(the corner gathers, and the vertex sums' adjoint at 1 value)",
+            "meshfem_tpu/sparse/route.py:139 (f64: the V[F] gather of "
+            "meshfem_tpu/analysis/curvature.py:18, and the transpose of "
+            ".at[F].add under jax.grad)",
+            "f64 rows [Nv, 3] -> [3 E, 3]: the corner positions")
+    src1 = torch.randn((cp.num_sources, 1), generator=gen, device=dev,
+                       dtype=f64)
+    if not torch.equal(kernels.gather_rows(src1, cp.ids),
+                       kernels.gather_rows_plain(src1, cp.ids)):
+        raise RuntimeError("19f: gather_rows f64 (curvature, 1 value) != "
+                           "plain")
+    # A on the endpoint plan of node_positions_from_vertices, B its adjoint
+    ep = cell.endpoint_gather(dev)
+    a_entry("linkage", ep, 2, f64_launches("19b", "gather_rows"),
+            "19b optimize_linkage and dEh, float64 launches (the endpoint "
+            "and corner gathers)",
+            "meshfem_tpu/sparse/route.py:139 (f64: the Xv[ends] gather of "
+            "meshfem_tpu/mesh/femmesh.py:247)",
+            "f64 rows [Nv, 2] -> [2 N, 2]: P2 node positions from vertices")
+    out["link_b2"] = b_entry(
+        "linkage", ep.adjoint, 2, f64_launches("19b", "segment_sum_rows"),
+        "19b optimize_linkage and dEh, float64 launches (the gathers' "
+        "adjoints and the EBE residuals)",
+        "meshfem_tpu/sparse/route.py:162 (f64: the transpose of the "
+        "Xv[ends] gather under jax.jacrev)",
+        "f64 rows [2 N, 2] -> [Nv, 2]: dEh's sum into vertices")
+    # E on the 19a cell's geometry
+    g32 = sim0.geom.grad_lambda.float().contiguous()
+    v32 = sim0.geom.volume.float().contiguous()
+    D_host = sim0.D.cpu()
+    Ke32 = kernels.element_stiffness(g32, v32, D_host, 2)
+    e_ref = kernels.element_stiffness_plain(g32, v32, D_host, 2)
+    scale = float(e_ref.abs().max())
+    err_e = float((Ke32 - e_ref).abs().max())
+    ulps = ulps_from(Ke32, em.element_elasticity_fused(
+        g32.double(), v32.double(), sim0.D, 2))
+    del Ke32, e_ref
+    log(f"19f E on the slot cell ({cell.num_elements} triangles): max abs "
+        f"err {err_e:.3e} against plain (max|Ke| {scale:.3e}), {ulps:.3f} "
+        f"ulp of each entry from the f64 Ke of the same float32 inputs")
+    if not (err_e <= 1e-5 * scale and ulps <= 1.0):
+        raise RuntimeError("19f: element_stiffness on the slot cell "
+                           "disagrees")
+    E, K1, d, nn = cell.num_elements, 3, 2, 6
+    nd = nn * d
+    M32 = torch.as_tensor(em.fused_matrix_for(sim0.D, 2, 2),
+                          dtype=torch.float32, device=dev)
+    entry("element_stiffness/linkage", src_dir + "element_stiffness.cu",
+          "meshfem_tpu/kernels/element_stiffness.py:42",
+          sum(c["element_stiffness"] for p, c in paths.items()
+              if p.startswith(("19a", "19b"))), err_e,
+          lambda: kernels.element_stiffness(g32, v32, D_host, 2),
+          lambda: kernels.element_stiffness_plain(g32, v32, D_host, 2),
+          lambda: em.element_elasticity_fused_apply(g32, v32, M32, nn),
+          (K1 * d + 1 + nd * nd) * E * 4 + 9 * 8,
+          (2 * ((K1 * d) ** 2 * d * d + nd * nd * K1 * K1) + nd * nd) * E,
+          algorithm_flops=(2 * (K1 * (K1 + 1) // 2 * (d * d + d ** 4)
+                                + nd * nd * K1 * K1) + nd * nd) * E,
+          algorithm_flop_rate=F64_FLOP_PER_S, max_ulps_vs_f64=ulps,
+          mode="f32 Ke [E, 12, 12] of a linkage step's cell, one per dense "
+               "routed operator build",
+          launches_path="19a open_linkage and 19b optimize_linkage (one a "
+                        "step)",
+          library_call="ops.element_matrices.element_elasticity_fused_apply",
+          shape=f"slot cell grid_tri({LINK_N}) P2: grad_lambda [{E}, 3, 2], "
+                f"vol [{E}] f32")
+    out.update(E_err=err_e, E_ulps=ulps)
+    out["checked"] = ["segment_sum_rows/f64/1/parametrization",
+                      "segment_sum_rows/f64/2/parametrization",
+                      "segment_sum_rows/f64/1/curvature",
+                      "gather_rows/f64/3/curvature",
+                      "gather_rows/f64/2/linkage",
+                      "segment_sum_rows/f64/2/linkage",
+                      "element_stiffness/linkage"]
+    return out
+
+
 def check_b_rows(src, op, offsets, label):
     """Kernel B in rows on a routed operator's element-major plan: twice
     bit for bit, bit for bit against B in planes on the same contributions
@@ -6219,6 +7120,14 @@ def main() -> int:
     p18["kernels_s"] = time.time() - t0
     summary["phase18"] = p18
     del objs18
+
+    # -- 19. the analyses: mechanisms, parametrization, curvature, CLI ----
+    p19, paths19, objs19 = drive_phase19(dev, gen)
+    t0 = time.time()
+    p19["kernel_checks"] = kernels_phase19(dev, entry, objs19, paths19, gen)
+    p19["kernels_s"] = time.time() - t0
+    summary["phase19"] = p19
+    del objs19
     summary.update(
         dense_bmm_ms=timer(lambda: torch.bmm(rk.KeP, ue_dense)),
         dense_bmm_bound_ms=rk.KeP.numel() * 4 / HBM_BYTES_PER_S * 1e3,
@@ -6239,6 +7148,8 @@ def main() -> int:
                                        for p, c in paths17.items()}
         r["launches_phase18_paths"] = {p: own_mode(c, r["name"])
                                        for p, c in paths18.items()}
+        r["launches_phase19_paths"] = {p: own_mode(c, r["name"])
+                                       for p, c in paths19.items()}
     summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))

@@ -11,7 +11,9 @@ The shape derivative differentiates the energy-form tensor with the
 fluctuations frozen (valid because w is the stationary point of the
 cell-problem energy, so the partial derivative is the total one) by
 ``torch.autograd`` through ``mesh.geometry.simplex_geometry``, where the
-reference takes ``jax.grad``.
+reference takes ``jax.grad``; the element-corner gather it differentiates
+is a ``GatherPlan``, so its backward on the card is kernel B, never an
+accumulating ``index_put_``.
 """
 
 from __future__ import annotations
@@ -67,15 +69,20 @@ def homogenize_deformed(mesh: FEMMesh, material, jacobian,
 def _energy_form_tensor(mesh: FEMMesh, D, w, node_positions):
     """[fl, fl] energy-form homogenized tensor at ``node_positions`` [N, dim]
     with the fluctuation displacements w [fl, N, dim] FROZEN:
-        Ehat(i, j) = 1/|Y| int (eps(w_i) + B_i) : C : (eps(w_j) + B_j),
-    equal to the stress-form tensor (the 1/2-normalized canonical basis
-    makes the two coincide entry by entry).  Differentiable in
-    ``node_positions``."""
+        Ehat(i, j) = 1/|Y| int (eps(w_i) + B_i) : C : (eps(w_j) + B_j).
+    Differentiable in ``node_positions``: the element corners come
+    through the mesh's ``GatherPlan`` (kernel B in the backward on the
+    card).  As in the reference (``deformed_cells.py:67``) each element's
+    strains are taken at its centroid, which integrates exactly only
+    where they are constant: on P1 cells Ehat is the stress-form tensor,
+    on P2 cells it is not (ROADMAP Queue 3; ``mechanisms.energy_form_Eh``
+    integrates the P2 energy exactly)."""
     fl = w.shape[0]
     dim = mesh.dim
     X = node_positions
     dev = X.device
-    corners = X[torch.as_tensor(mesh.F, device=dev)]
+    corners = mesh.corner_gather(dev)(X).reshape(
+        mesh.num_elements, mesh.K + 1, X.shape[-1])
     grad_lambda, volume = simplex_geometry(corners, mesh.K)
     # the average strain of each w_i on each element (strains of degree
     # <= 1: the centroid value)
@@ -118,8 +125,8 @@ def homogenized_tensor_shape_gradient(sim, w, weights):
 def homogenized_tensor_at(sim, w, node_positions=None):
     """Stress-form-normalized tensor from the energy form (the autodiff
     path of the shape gradient; agrees with
-    ``homogenized_tensor_stress_form`` for converged w), at the mesh's
-    positions or at ``node_positions``."""
+    ``homogenized_tensor_stress_form`` for converged w on P1 cells), at
+    the mesh's positions or at ``node_positions``."""
     mesh = sim.mesh
     X = torch.as_tensor(mesh.node_positions if node_positions is None
                         else node_positions, dtype=config.REAL,

@@ -3,9 +3,12 @@
 Counterpart of ``meshfem_tpu/fem/shape_functions.py``: the degree-``deg``
 basis on the barycentric lattice ``alpha / deg`` comes from inverting the
 Vandermonde matrix of homogeneous barycentric monomials.  Node order is
-GMSH-consistent: vertices, then edge nodes in edge order.  This slice needs
-P1/P2 bases, their barycentric gradients (``grad_shape_np`` :137) and
-their exact integrals (``integrated_shape_np`` :176).
+GMSH-consistent: vertices, then edge nodes in edge order.  The port
+carries P1/P2 bases: their values (``eval_shape_np`` :131, and
+``eval_shape`` :164 in torch, differentiable in the barycentric points),
+barycentric gradients (``grad_shape_np`` :137), exact integrals
+(``integrated_shape_np`` :176) and node positions
+(``node_positions_barycentric`` :193).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import functools
 import math
 
 import numpy as np
+import torch
 
 from . import simplex
 
@@ -80,6 +84,25 @@ def _lagrange_tables(K: int, deg: int):
     return exps, coeffs
 
 
+def eval_shape_np(K: int, deg: int, lambdas) -> np.ndarray:
+    """Shape function values: [..., nv] barycentric -> [..., n_nodes]."""
+    exps, coeffs = _lagrange_tables(K, deg)
+    return _eval_monomials(exps, np.asarray(lambdas, dtype=np.float64)) \
+        @ coeffs
+
+
+def eval_shape(K: int, deg: int, lambdas) -> torch.Tensor:
+    """``eval_shape_np`` in torch on the points' device and dtype (constant
+    tables, differentiable in ``lambdas``)."""
+    exps, coeffs = _lagrange_tables(K, deg)
+    lam = torch.as_tensor(lambdas)
+    monos = torch.stack([torch.prod(lam ** torch.as_tensor(
+        e, dtype=lam.dtype, device=lam.device), dim=-1) for e in exps],
+        dim=-1)
+    return monos @ torch.as_tensor(coeffs, dtype=lam.dtype,
+                                   device=lam.device)
+
+
 def grad_shape_np(K: int, deg: int, lambdas) -> np.ndarray:
     """d phi / d lambda: [..., nv] -> [..., n_nodes, nv]."""
     exps, coeffs = _lagrange_tables(K, deg)
@@ -113,3 +136,8 @@ def integrated_shape_np(K: int, deg: int) -> np.ndarray:
         math.factorial(K) * np.prod([math.factorial(int(a)) for a in e])
         / math.factorial(int(e.sum()) + K) for e in exps])
     return factors @ coeffs
+
+
+def node_positions_barycentric(K: int, deg: int) -> np.ndarray:
+    """[n_nodes, K+1] barycentric coordinates of the element nodes."""
+    return np.array(node_multi_indices(K, deg), dtype=np.float64) / deg

@@ -11,8 +11,13 @@ the (min, max) vertex pairs).  The region queries (``nodes_in_box``,
 and the lumped nodal measure are torch on the requested device, the latter
 summed by ``ScatterPlan`` (kernel B on the card).  ``vertex_nodes`` and
 ``node_endpoint_vertices`` give the two-level preconditioner its P1
-transfers.  Triangle meshes take their boundary edges from ``TriMesh`` in
-its order (outward wound), and may be embedded in 3D (``embedding_dim``),
+transfers, and ``node_positions_from_vertices`` the differentiable
+re-embedding from vertex positions that the linkage shape derivative
+takes; its endpoint gather, like the element-corner gather of
+``corner_gather``, is a ``GatherPlan`` (kernel A forward, kernel B
+backward on the card, so a gradient sums in a fixed order).  Triangle
+meshes take their boundary edges from ``TriMesh`` in its order (outward
+wound), and may be embedded in 3D (``embedding_dim``),
 where the geometry gives tangential gradients and unsigned areas.  The
 reference's other node orders (``node_order="morton"|"rcb"|"firsttouch"``)
 are not ported: this ``FEMMesh`` keeps the reference order.
@@ -27,7 +32,7 @@ import torch
 
 from .. import config
 from ..fem import shape_functions, simplex
-from ..sparse.scatter import ScatterPlan
+from ..sparse.scatter import GatherPlan, ScatterPlan
 from . import geometry as geom
 from .simplicial import TetMesh, TriMesh
 
@@ -113,6 +118,9 @@ class FEMMesh:
         self.bdry_elems = bdry.astype(np.int64)
         self.bdry_elem_nodes = self._boundary_nodes_of(bdry)
         self.bdry_nodes = np.unique(self.bdry_elem_nodes)
+        self.is_bdry_node = np.zeros(self.num_nodes, dtype=bool)
+        self.is_bdry_node[self.bdry_nodes] = True
+        self._plans = {}
         # vertex i -> its node id: the identity in the reference node
         # order, the only one ported
         self.vertex_nodes = np.arange(nv, dtype=np.int64)
@@ -192,6 +200,41 @@ class FEMMesh:
             ends[nv:, 0] = self._edge_keys // nv
             ends[nv:, 1] = self._edge_keys % nv
         return ends
+
+    def _gather_plan(self, name, ids, num_sources, device) -> GatherPlan:
+        """A ``GatherPlan`` built once per device and kept on the mesh."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = (name, str(device))
+        if key not in self._plans:
+            self._plans[key] = GatherPlan.build(ids, num_sources, device)
+        return self._plans[key]
+
+    def corner_gather(self, device) -> GatherPlan:
+        """Node rows -> element-corner rows ``[E * (K+1)]`` (the corner
+        table holds vertex ids, the first node ids in the reference
+        order)."""
+        return self._gather_plan("corners", self.F.reshape(-1),
+                                 self.num_nodes, device)
+
+    def endpoint_gather(self, device) -> GatherPlan:
+        """Vertex rows -> the two endpoint rows of each node ``[2 N]``
+        (``node_endpoint_vertices``)."""
+        return self._gather_plan("endpoints",
+                                 self.node_endpoint_vertices().reshape(-1),
+                                 self.num_vertices, device)
+
+    def node_positions_from_vertices(self, Xv, device=None) -> torch.Tensor:
+        """Node positions [N, dim] from vertex positions ``Xv`` [Nv, dim],
+        differentiable in ``Xv``: vertex nodes at Xv, P2 edge nodes at edge
+        midpoints (reference ``femmesh.py:247``).  Both endpoints come
+        through one ``GatherPlan``; ``Xv`` a tensor keeps its device."""
+        dev = config.device_for(device, Xv)
+        Xv = torch.as_tensor(Xv, dtype=config.REAL, device=dev)
+        ends = self.endpoint_gather(dev)(Xv).reshape(self.num_nodes, 2,
+                                                     Xv.shape[-1])
+        return 0.5 * (ends[:, 0] + ends[:, 1])
 
     def volume(self, device=None) -> float:
         return float(self.geometry(device).volume.sum())

@@ -328,8 +328,11 @@ of which raises on failure:
    warped and in ``transform_version`` form against ``transform(Ch, R)``
    (1e-7 of max), a homogeneous ``grid_tet(8)`` cell under the shear [[1,
    0.2, 0], [0, 1, 0], [0, 0, 1]] against D (1e-8; its loads are rounding
-   noise, so it is kept small), the void cell under it printed; the same
-   on 13c's triangle cell with a homogeneous ``grid_tri(16)``; (e) ``homogenized_tensor_shape_gradient``
+   noise, so it is kept small), the void cell under it printed, and the
+   energy form (``homogenized_tensor_at``, ``w Ke w``, exact for P2) at
+   its sheared positions against its stress-form ``Ch`` (1e-8 of max);
+   the same on 13c's triangle cell with a homogeneous ``grid_tri(16)``;
+   (e) ``homogenized_tensor_shape_gradient``
    on the void cell against a central difference of the frozen-w energy
    form along a random direction (1e-5), twice equal to the bit and under
    ``torch.profiler`` with no library scatter (its corner gather is a
@@ -463,7 +466,39 @@ of which raises on failure:
    its plain version and timed, and E on the 19a cell within one float32
    ulp of the float64 ``Ke``; every kernel line carries
    ``launches_phase19_paths``;
-20. last, ``{"ok": true, "device": {...}}``.
+20. the host tools, every card path counted, each number printed beside
+   the card's name and power limit: (a) the port's host core (built by
+   ``g++`` beside ``nvcc`` in phase 2, its seconds printed; a failure to
+   build or load fails the run) numbering ``FEMMesh(grid_tet(36))`` P2
+   equal to the bit to ``MESHFEM_TORCH_NO_NATIVE=1`` (``elem_nodes``,
+   ``node_positions``, the boundary and the half-face opposites), host
+   seconds of each, and its Morton codes of the bench nodes equal to
+   ``reorder._morton_codes``; (b) ``triangulate_pslg(quality=True)`` of
+   the unit square with two square holes at min angle 25 and area 8e-6
+   (>= 100,000 triangles; every angle >= 25 - 1e-6, every area positive
+   and <= the target + 1e-12, the area sum exact to 1e-9), ``FEMMesh``
+   P2, x = 0 clamped and x = 1 loaded, solved by the default 2D call
+   (routed Jacobi CG in float32 inside float64 refinement) to an f64
+   relative residual <= 1e-10; (c)
+   ``FieldSampler`` built and ``locate`` of 20,000 seeded points in the
+   domain timed, and of 10 in its holes (where a bucket holds no element
+   and every element is tested); on 2,000 of them x^2 - y exact to 1e-12 and
+   ``sample_nodal`` of the card's u against ``sample_matrix @ u`` (1e-12
+   relative); ``cli.msh_processor`` (``--device cuda``) on the solution
+   written by ``save_msh``: the max nodal |u|, the smoothed von Mises
+   averaged on the elements (``outMSH``) and |u| sampled at a point,
+   each against the same quantity computed on the card (1e-12); (d)
+   ``python -m ...cli.mesh_convert --reflect x --clean --reorient
+   --sortElements`` on the bench mesh equal to the bit to the in-process
+   filters, ``python -m ...cli.tools triangulate`` on a .poly equal to
+   ``triangulate_pslg``, and ``tools isotropic_validation`` (``--device
+   cuda``) on a quadrant quality-meshed and reflected into a periodic cell
+   (>= 50,000 triangles), its printed tensor against ``homogenize`` (1e-12
+   of max); seconds of each; (e) kernels A and B (f32 rows at 2 values,
+   B also f64) and E on the quality mesh's plans and geometry, each held
+   against its plain version and timed; every kernel line carries
+   ``launches_phase20_paths``;
+21. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -475,6 +510,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -3737,6 +3773,19 @@ def drive_deformed(dev, cell, hsim, Ch_cell, Ch_tri):
         "void cell", cell, mat, Ch_cell, ROT_3D, DEFORM_SHEAR, full, dev,
         paths)
     del full
+    # the energy form (w Ke w, exact for P2) at the sheared positions with
+    # the sheared cell's w is its stress-form Ch (det = 1, so |Y| is the
+    # bounding box's); the reference's centroid-strain form misses by ~2e-2
+    Xs = cell.node_positions @ np.asarray(DEFORM_SHEAR).T
+    Eh_s = dc.homogenized_tensor_at(hsim, res3["shear"].w, node_positions=Xs)
+    err_eh = rel_err(Eh_s, res3["shear"].Ch)
+    log(f"16d void cell shear: the energy form at the sheared positions "
+        f"against the stress-form Ch {err_eh:.3e} of max|Ch| "
+        f"({cell.num_elements} P2 tets)")
+    if not err_eh <= 1e-8:
+        raise RuntimeError(f"16d: the energy form misses the stress form on "
+                           f"the sheared P2 cell ({err_eh:.3e})")
+    out["energy_form_vs_stress_form"] = err_eh
     tri = FEMMesh(*tri_void_cell(TRI_CELL_N), degree=2)
     n = HOMOGENEOUS_2D_N
     full2 = FEMMesh(*generators.grid_tri(n, n), degree=2)
@@ -5876,6 +5925,587 @@ def kernels_phase19(dev, entry, objs, paths, gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the host tools on the card: the port's host core, a quality
+# mesh solved on the card, the field sampler, and the mesh tool CLIs
+# ---------------------------------------------------------------------------
+
+# the unit square with two square holes, meshed by Ruppert refinement at
+# QUALITY_AREA (>= 100,000 triangles at 25 degrees)
+QUALITY_HOLES = (((0.2, 0.2), (0.4, 0.4)), ((0.6, 0.55), (0.8, 0.75)))
+QUALITY_ANGLE = 25.0
+QUALITY_AREA = 8e-6
+QUALITY_MIN_TRIANGLES = 100_000
+SAMPLE_POINTS = 20_000            # located and timed
+SAMPLE_CHECKED = 2_000            # of them, sampled and gated
+HOLE_POINTS = 10                  # located in the holes, timed
+SAMPLE_AT = (0.5, 0.5)            # msh_processor's sample: point
+# 20d's isotropic_validation cell: the quadrant [0, 1/2]^2 without a
+# quarter disc of radius CELL_VOID_R about (1/2, 1/2), quality-meshed at
+# CELL_AREA and reflected in x and y (a periodic cell, >= 50,000 triangles)
+CELL_VOID_R = 0.2
+CELL_ARC = 64
+CELL_AREA = 1.5e-5
+CELL_MIN_TRIANGLES = 50_000
+CONVERT_FLAGS = ("--reflect", "x", "--clean", "--reorient", "--sortElements")
+CARD = ""                         # the card's name and power limit
+
+
+def card_log(*args):
+    """A phase-20 line, the card's name and power limit beside it."""
+    log(*args, f"[{CARD}]")
+
+
+def square_pslg():
+    """(outline, holes) of 20b's domain, each counter-clockwise."""
+    outline = np.asarray([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]])
+    holes = [np.asarray([[a, b], [c, b], [c, d], [a, d]])
+             for (a, b), (c, d) in QUALITY_HOLES]
+    return outline, holes
+
+
+def quadrant_outline():
+    """The quadrant without its quarter disc, counter-clockwise."""
+    r = CELL_VOID_R
+    phi = np.linspace(1.5 * np.pi, np.pi, CELL_ARC + 1)[1:-1]
+    arc = 0.5 + r * np.stack([np.cos(phi), np.sin(phi)], axis=1)
+    return np.vstack([[[0.0, 0.0], [0.5, 0.0], [0.5, 0.5 - r]], arc,
+                      [[0.5 - r, 0.5], [0.0, 0.5]]])
+
+
+def triangle_quality(V, F):
+    """(min angle in degrees, areas) of a triangle mesh."""
+    X = V[F]
+    a, b = X[:, 1] - X[:, 0], X[:, 2] - X[:, 0]
+    areas = 0.5 * (a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0])
+    angles = []
+    for i in range(3):
+        u = X[:, (i + 1) % 3] - X[:, i]
+        v = X[:, (i + 2) % 3] - X[:, i]
+        c = (u * v).sum(1) / np.sqrt((u * u).sum(1) * (v * v).sum(1))
+        angles.append(np.degrees(np.arccos(np.clip(c, -1, 1))))
+    return float(np.min(angles)), areas
+
+
+def write_poly(path, loops):
+    """A Triangle .poly of closed loops (1-based), no hole points."""
+    pts = np.vstack(loops)
+    lines = [f"{len(pts)} 2 0 0"]
+    lines += [f"{i + 1} {x:.17g} {y:.17g}" for i, (x, y) in enumerate(pts)]
+    segs, base = [], 0
+    for loop in loops:
+        n = len(loop)
+        segs += [(base + i + 1, base + (i + 1) % n + 1) for i in range(n)]
+        base += n
+    lines.append(f"{len(segs)} 0")
+    lines += [f"{k + 1} {a} {b}" for k, (a, b) in enumerate(segs)]
+    lines.append("0")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def run_main(main, argv):
+    """A CLI's ``main(argv)`` in this process; returns what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def run_module(module, argv):
+    """``python -m module argv`` in a child process from the repository
+    root; returns (stdout, seconds)."""
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", module, *argv],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if res.returncode != 0:
+        raise RuntimeError(f"python -m {module} failed ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    return res.stdout, time.time() - t0
+
+
+def printed_value(text, prefix):
+    """The number after ``prefix: `` on the line that starts with it."""
+    for line in text.splitlines():
+        if line.startswith(prefix + ":"):
+            return float(line.rsplit(" ", 1)[-1])
+    raise RuntimeError(f"no line {prefix!r} in {text!r}")
+
+
+def drive_hostcore(dev, core_s):
+    """20a: the bench mesh's P2 numbering with the host core and without
+    (``MESHFEM_TORCH_NO_NATIVE=1``), equal to the bit, host seconds each;
+    the core's Morton codes of the bench nodes against
+    ``reorder._morton_codes``."""
+    from meshfem_tpu_torch import native
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.mesh.reorder import _morton_codes
+
+    V, T = generators.grid_tet(BENCH_N, BENCH_N, BENCH_N)
+    t0 = time.time()
+    with_core = FEMMesh(V, T, degree=2)
+    t_core = time.time() - t0
+    os.environ["MESHFEM_TORCH_NO_NATIVE"] = "1"
+    try:
+        t0 = time.time()
+        without = FEMMesh(V, T, degree=2)
+        t_numpy = time.time() - t0
+    finally:
+        del os.environ["MESHFEM_TORCH_NO_NATIVE"]
+    same = {name: bool(np.array_equal(getattr(with_core, name),
+                                      getattr(without, name)))
+            for name in ("elem_nodes", "node_positions", "bdry_elems",
+                         "bdry_elem_nodes")}
+    same["half_face_opposites"] = bool(np.array_equal(with_core.cell.O,
+                                                      without.cell.O))
+    card_log(f"20a host core: built in {core_s:.3f} s; FEMMesh(grid_tet("
+             f"{BENCH_N})) P2 ({with_core.num_elements} tets, "
+             f"{with_core.num_nodes} nodes) {t_core:.3f} s with the core, "
+             f"{t_numpy:.3f} s with MESHFEM_TORCH_NO_NATIVE=1 (host "
+             f"seconds); equal to the bit: {same}")
+    if not all(same.values()) \
+            or with_core.num_nodes != (2 * BENCH_N + 1) ** 3:
+        raise RuntimeError(f"20a: the host core's mesh differs: {same}")
+    X = with_core.node_positions
+    d, nb = 3, 21
+    lo, span = X.min(axis=0), np.maximum(X.max(axis=0) - X.min(axis=0),
+                                         1e-300)
+    q = np.minimum(((X - lo) / span * ((1 << nb) - 1)).astype(np.uint64),
+                   (1 << nb) - 1)
+    t0 = time.time()
+    codes = native.morton_codes(q, nb)
+    t_mc = time.time() - t0
+    t0 = time.time()
+    ref = _morton_codes(X)
+    t_np = time.time() - t0
+    ok = codes is not None and bool(np.array_equal(codes, ref))
+    card_log(f"20a morton_codes of the {len(X)} bench nodes: core "
+             f"{t_mc:.4f} s, numpy {t_np:.4f} s, equal: {ok}")
+    if not ok:
+        raise RuntimeError("20a: the core's Morton codes differ")
+    return dict(core_build_s=core_s, femmesh_core_s=t_core,
+                femmesh_numpy_s=t_numpy, equal=same, morton_core_s=t_mc,
+                morton_numpy_s=t_np), with_core
+
+
+def drive_quality_solve(dev):
+    """20b: Ruppert quality mesh of the unit square with two square holes
+    (the reference test's gates), ``FEMMesh`` P2, x = 0 clamped and x = 1
+    loaded, solved by the default 2D call; the f64 relative residual."""
+    from meshfem_tpu_torch.mesh import FEMMesh
+    from meshfem_tpu_torch.mesh.triangulate import triangulate_pslg
+    from meshfem_tpu_torch.physics import (ElasticitySimulator, Material,
+                                           parse_bc)
+
+    outline, holes = square_pslg()
+    (V, F), t_tri = timed(lambda: triangulate_pslg(
+        outline, holes=holes, target_area=QUALITY_AREA,
+        min_angle=QUALITY_ANGLE, quality=True))
+    amin, areas = triangle_quality(V, F)
+    want = 1.0 - sum((c - a) * (d - b) for (a, b), (c, d) in QUALITY_HOLES)
+    area_err = abs(float(areas.sum()) - want)
+    card_log(f"20b triangulate_pslg(quality=True, min_angle "
+             f"{QUALITY_ANGLE}, area {QUALITY_AREA:g}): {len(F)} triangles, "
+             f"{len(V)} vertices in {t_tri:.3f} s (host); min angle "
+             f"{amin:.4f} deg, areas in [{areas.min():.3e}, "
+             f"{areas.max():.3e}], sum - exact {area_err:.3e}")
+    if not (len(F) >= QUALITY_MIN_TRIANGLES
+            and amin >= QUALITY_ANGLE - 1e-6 and areas.min() > 0
+            and areas.max() <= QUALITY_AREA + 1e-12 and area_err < 1e-9):
+        raise RuntimeError("20b: the quality mesh misses a gate")
+    mesh, t_mesh = timed(lambda: FEMMesh(V, F, degree=2))
+    sim, t_sim = timed(lambda: ElasticitySimulator(
+        mesh, Material.isotropic(2, E_2D, NU_2D), device=dev))
+    sim.apply_boundary_conditions(parse_bc(CANTILEVER_2D_BC, dim=2))
+    label = f"20b quality mesh P2 ({mesh.num_elements} triangles)"
+    u, res, wall, counts, applies = counted_solve(
+        sim, f"{label}, the default call", ROWS_2D, tol=1e-10)
+    relres = check_solution(sim, u, label)
+    card_log(f"{label}: FEMMesh P2 {t_mesh:.3f} s ({mesh.num_nodes} nodes, "
+             f"host), simulator {t_sim:.3f} s, the default call {wall:.3f} "
+             f"s, {res.rounds} rounds, {res.iters} inner iterations, round "
+             f"history {[(f'{r:.2e}', i) for r, i in res.history]}, f64 "
+             f"relres {relres:.3e}; launches A {counts['gather_rows']}, B "
+             f"{counts['segment_sum_rows']}, E {counts['element_stiffness']}")
+    out = dict(triangles=len(F), vertices=len(V), nodes=mesh.num_nodes,
+               min_angle=amin, max_area=float(areas.max()),
+               area_err=area_err, triangulate_s=t_tri, femmesh_s=t_mesh,
+               simulator_s=t_sim, solve_s=wall, rounds=res.rounds,
+               inner_iters=res.iters, history=list(res.history),
+               relres=relres, applies=applies)
+    return out, {"20b": counts}, sim, u
+
+
+def drive_sampler(dev, sim, u, tmp):
+    """20c: ``FieldSampler`` on the 20b mesh (build, ``locate`` of
+    SAMPLE_POINTS seeded points, the P2 field x^2 - y exact inside the
+    domain, ``sample_nodal`` on the card against ``sample_matrix``), then
+    ``cli.msh_processor`` on the solution written by ``save_msh``, each
+    printed or written number against the same quantity computed here on
+    the card."""
+    from meshfem_tpu_torch.analysis.field_sampler import FieldSampler
+    from meshfem_tpu_torch.cli import msh_processor
+    from meshfem_tpu_torch.io import meshio, msh_fields
+    from meshfem_tpu_torch.mesh import FEMMesh
+    from meshfem_tpu_torch.physics.elasticity import von_mises
+
+    mesh = sim.mesh
+    fs, t_build = timed(lambda: FieldSampler(mesh))
+    # seeded points in the domain, and a few in its holes: a point whose
+    # bucket holds no element is tested against every element (the
+    # reference's fallback), ~1e3 times the cost of one in the domain
+    rng = np.random.default_rng(20)
+    cand = rng.random((2 * SAMPLE_POINTS, 2))
+    in_hole = np.zeros(len(cand), dtype=bool)
+    for (a, b), (c, d) in QUALITY_HOLES:
+        in_hole |= ((cand[:, 0] > a - 1e-9) & (cand[:, 0] < c + 1e-9)
+                    & (cand[:, 1] > b - 1e-9) & (cand[:, 1] < d + 1e-9))
+    pts = cand[~in_hole][:SAMPLE_POINTS]
+    _, t_loc = timed(lambda: fs.locate(pts))
+    holes_pts = cand[in_hole][:HOLE_POINTS]
+    _, t_hole = timed(lambda: fs.locate(holes_pts))
+    # the gates sample the first SAMPLE_CHECKED points (each sample call
+    # locates its points again, at the same Python-loop cost)
+    sub = pts[:SAMPLE_CHECKED]
+    X = torch.as_tensor(mesh.node_positions, device=dev)
+    f = X[:, 0] ** 2 - X[:, 1]
+    fv = fs.sample_nodal(f, sub)
+    exact = torch.as_tensor(sub[:, 0] ** 2 - sub[:, 1], device=dev)
+    err_f = float((fv - exact).abs().max())
+    (us, t_sample) = timed(lambda: fs.sample_nodal(u, sub))
+    S = fs.sample_matrix(sub)
+    us_host = S @ u.cpu().numpy()
+    err_u = float(np.abs(us.cpu().numpy() - us_host).max()
+                  / np.abs(us_host).max())
+    card_log(f"20c FieldSampler on {mesh.num_elements} P2 triangles: build "
+             f"{t_build:.3f} s, locate of {len(pts)} points in the domain "
+             f"{t_loc:.3f} s ({t_loc / len(pts) * 1e6:.1f} us a point), of "
+             f"{len(holes_pts)} in its holes {t_hole:.3f} s "
+             f"({t_hole / len(holes_pts) * 1e6:.1f} us a point), "
+             f"sample_nodal(u) at {len(sub)} {t_sample:.3f} s (host "
+             f"seconds); x^2 - y there max abs err {err_f:.3e}; "
+             f"sample_nodal(u on the card) against sample_matrix @ u "
+             f"{err_u:.3e} relative")
+    if not (err_f <= 1e-12 and err_u <= 1e-12 and us.device == u.device):
+        raise RuntimeError("20c: the field sampler misses a gate")
+
+    # the solution on the P1 mesh of the vertices (msh_processor builds
+    # its geometry from the file's elements), with the element stresses
+    nv = mesh.num_vertices
+    uv = u[:nv]
+    stress = sim.average_stress_field(u)
+    path = os.path.join(tmp, "solution.msh")
+    out_path = os.path.join(tmp, "vm.msh")
+    meshio.save_msh(path, mesh.V, mesh.F, fields=[
+        {"name": "u", "data": uv.cpu().numpy(), "where": "node",
+         "kind": "vector"},
+        {"name": "stress", "data": stress.cpu().numpy(),
+         "where": "element", "kind": "vector"}])
+    x, y = SAMPLE_AT
+    argv = [path, "-e", "u", "norm", "max", "print",
+            "-e", "stress", "vonMises", "smoothedElementField",
+            "elementAverage", f"outMSH:{out_path}",
+            "-e", "u", f"sample:{x!r},{y!r}", "norm", "print",
+            "--device", str(dev)]
+    text, t_cli, paths = counted("20c msh_processor",
+                                 lambda: run_main(msh_processor.main, argv))
+    # the same quantities here on the card
+    p1 = FEMMesh(mesh.V, mesh.F)
+    Ft = torch.as_tensor(mesh.F, device=dev)
+    vm = von_mises(stress, 2)
+    vol = p1.geometry(dev).volume
+    w = torch.zeros(nv, dtype=vol.dtype, device=dev)
+    acc = torch.zeros(nv, dtype=vol.dtype, device=dev)
+    for c in range(3):
+        w.index_add_(0, Ft[:, c], vol)
+        acc.index_add_(0, Ft[:, c], vm * vol)
+    vm_elem = (acc / w)[Ft].mean(dim=1)
+    unorm = float(torch.linalg.vector_norm(uv, dim=1).max())
+    at = FieldSampler(p1).sample_nodal(uv, [[x, y]])[0]
+    errs = dict(
+        norm_max=abs(printed_value(text, "max(norm(u))") - unorm)
+        / abs(unorm),
+        sample_norm=abs(printed_value(text, "norm(sample(u))")
+                        - float(torch.linalg.vector_norm(at)))
+        / float(torch.linalg.vector_norm(at)))
+    got = msh_fields.read_fields(out_path)
+    got = got["elementAverage(smoothed(vonMises(stress)))"]["data"][:, 0]
+    errs["vonMises_elementAverage"] = float(
+        np.abs(got - vm_elem.cpu().numpy()).max()
+        / float(vm_elem.abs().max()))
+    card_log(f"20c msh_processor (norm max, vonMises smoothedElementField "
+             f"elementAverage outMSH, sample:{x},{y} norm; --device "
+             f"{dev}): {t_cli:.3f} s; against the card here: "
+             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if not max(errs.values()) <= 1e-12:
+        raise RuntimeError(f"20c: msh_processor differs: {errs}")
+    return dict(build_s=t_build, locate_s=t_loc, points=len(pts),
+                locate_us_per_point=t_loc / len(pts) * 1e6,
+                hole_points=len(holes_pts),
+                hole_us_per_point=t_hole / len(holes_pts) * 1e6,
+                sampled_points=len(sub), sample_nodal_s=t_sample,
+                x2_minus_y_err=err_f, sample_vs_matrix=err_u,
+                msh_processor_s=t_cli, msh_processor_errs=errs), \
+        {"20c_msh_processor": paths}
+
+
+def drive_tool_clis(dev, bench, tmp):
+    """20d: ``mesh_convert`` on the bench mesh against the in-process
+    filters (bit for bit), ``tools triangulate`` on a .poly, and ``tools
+    isotropic_validation`` on a quality-meshed reflected cell, homogenized
+    on the card, against ``homogenize`` here (1e-12)."""
+    from meshfem_tpu_torch.analysis import homogenization as hom
+    from meshfem_tpu_torch.cli import tools
+    from meshfem_tpu_torch.fem import tensor_projection
+    from meshfem_tpu_torch.io import meshio
+    from meshfem_tpu_torch.mesh import FEMMesh, filters
+    from meshfem_tpu_torch.mesh.triangulate import triangulate_pslg
+    from meshfem_tpu_torch.physics import Material
+
+    out, paths = {}, {}
+    src, dst = os.path.join(tmp, "bench.msh"), os.path.join(tmp, "conv.msh")
+    meshio.save_msh(src, bench.V, bench.F)
+    text, t_conv = run_module("meshfem_tpu_torch.cli.mesh_convert",
+                              [src, dst, *CONVERT_FLAGS])
+    # the CLI's order: --clean and --reorient, then --reflect, then the sort
+    V, F = meshio.load(src)
+    V, F = filters.merge_duplicate_vertices(V, F, eps=1e-12)
+    V, F = filters.remove_dangling_vertices(V, F)
+    V, F = filters.reorient_negative_elements(V, F)
+    V, F = filters.reflect(V, F, axes=[0])
+    F = F[np.lexsort(tuple(F[:, c] for c in range(F.shape[1] - 1, -1, -1)))]
+    Vc, Fc = meshio.load(dst)
+    same = bool(np.array_equal(Vc, V) and np.array_equal(Fc, F))
+    card_log(f"20d mesh_convert {' '.join(CONVERT_FLAGS)} on the bench mesh "
+             f"({len(bench.F)} tets): {t_conv:.3f} s (python -m, host); "
+             f"{len(Fc)} tets, {len(Vc)} vertices, equal to the in-process "
+             f"filters to the bit: {same}")
+    if not same or len(Fc) != 2 * len(bench.F):
+        raise RuntimeError("20d: mesh_convert differs from the filters")
+    out["mesh_convert"] = dict(s=t_conv, tets=len(Fc), vertices=len(Vc),
+                               bitwise=same)
+
+    outline, holes = square_pslg()
+    poly, tri_out = os.path.join(tmp, "plate.poly"), os.path.join(tmp,
+                                                                  "t.msh")
+    write_poly(poly, [outline, *holes])
+    text, t_tri = timed(lambda: run_main(tools.main, [
+        "triangulate", poly, "--area", "1e-4", "-o", tri_out]))
+    Vt, Ft = meshio.load(tri_out)
+    Vr, Fr = triangulate_pslg(outline, holes=holes, target_area=1e-4)
+    same_t = bool(np.array_equal(Vt[:, :2], Vr) and np.array_equal(Ft, Fr))
+    card_log(f"20d tools triangulate: {t_tri:.3f} s (host), "
+             f"{len(Ft)} triangles, equal to triangulate_pslg: {same_t}")
+    if not same_t:
+        raise RuntimeError("20d: tools triangulate differs")
+    out["triangulate"] = dict(s=t_tri, triangles=len(Ft), bitwise=same_t)
+
+    (Vq, Fq), t_q = timed(lambda: triangulate_pslg(
+        quadrant_outline(), target_area=CELL_AREA, min_angle=QUALITY_ANGLE))
+    Vq, Fq = filters.reflect(Vq, Fq)
+    cell_path = os.path.join(tmp, "cell.msh")
+    meshio.save_msh(cell_path, Vq, Fq)
+    card_log(f"20d the isotropic_validation cell: a quadrant meshed in "
+             f"{t_q:.3f} s and reflected in x and y: {len(Fq)} triangles")
+    if len(Fq) < CELL_MIN_TRIANGLES:
+        raise RuntimeError("20d: the cell is too small")
+    argv = ["isotropic_validation", cell_path, "--young", str(E_2D),
+            "--poisson", str(NU_2D), "--device", str(dev)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        text, t_iso, paths["20d_isotropic_validation"] = counted(
+            "20d tools isotropic_validation",
+            lambda: run_main(tools.main, argv), ROWS_2D)
+        mat = Material.isotropic(2, E_2D, NU_2D)
+        Vl, Fl = meshio.load(cell_path)
+        r, t_hom, paths["20d_homogenize"] = counted(
+            "20d homogenize", lambda: hom.homogenize(
+                FEMMesh(Vl[:, :2], Fl, degree=2), mat, device=dev),
+            ROWS_2D)
+    body = text.split("homogenized tensor:")[1].split("relative")[0]
+    printed = np.asarray([float(t) for t in
+                          body.replace("[", " ").replace("]", " ").split()])
+    Ch = r.Ch.cpu().numpy()
+    err = float(np.abs(printed.reshape(3, 3) - Ch).max()
+                / np.abs(Ch).max())
+    dist = float(tensor_projection.isotropy_distance(r.Ch))
+    d_err = abs(printed_value(text, "relative isotropy distance") - dist) \
+        / dist
+    card_log(f"20d tools isotropic_validation (P2, {len(Fq)} triangles, "
+             f"--device {dev}): {t_iso:.3f} s, homogenize here {t_hom:.3f} "
+             f"s; printed tensor against homogenize {err:.3e} of max|Ch|, "
+             f"distance {dist:.6g} ({d_err:.1e} at its 6 printed digits); "
+             f"block CG iterations {r.cg_iters}")
+    if not (err <= 1e-12 and d_err <= 1e-5):
+        raise RuntimeError("20d: isotropic_validation differs")
+    out["isotropic_validation"] = dict(
+        s=t_iso, homogenize_s=t_hom, triangles=len(Fq), err=err,
+        distance=dist, Ch=Ch.tolist(), cg_iters=list(r.cg_iters),
+        quadrant_s=t_q)
+    return out, paths
+
+
+def drive_phase20(dev, core_s):
+    """Phase 20a-d; returns (summary, launch counts per path, the 20b
+    simulator that 20e checks kernels on)."""
+    import tempfile
+
+    out, paths, parts = {}, {}, {}
+    t0 = time.time()
+    t = time.time()
+    out["host_core"], bench = drive_hostcore(dev, core_s)
+    parts["20a"] = time.time() - t
+    t = time.time()
+    out["quality_solve"], p, sim, u = drive_quality_solve(dev)
+    paths.update(p)
+    parts["20b"] = time.time() - t
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        out["sampler"], p = drive_sampler(dev, sim, u, tmp)
+        paths.update(p)
+        parts["20c"] = time.time() - t
+        t = time.time()
+        out["clis"], p = drive_tool_clis(dev, bench, tmp)
+        paths.update(p)
+        parts["20d"] = time.time() - t
+    out["parts_s"] = parts
+    out["phase_s"] = time.time() - t0
+    card_log(f"phase 20 (20a-d): {out['phase_s']:.1f} s, by part "
+             + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return out, paths, sim
+
+
+def kernels_phase20(dev, entry, sim, paths, gen):
+    """20e: kernels A, B and E at the 20b quality mesh's shapes, each held
+    against its plain version (A exactly; B in f32 rows bit for bit
+    against B in planes and to 1e-5 of its plain version, in f64 to
+    1e-12; E within one float32 ulp of the float64 ``Ke`` of its own
+    inputs) and timed with ``entry``."""
+    from meshfem_tpu_torch import kernels
+    from meshfem_tpu_torch.ops import element_matrices as em
+
+    src_dir = "meshfem_tpu_torch/csrc/"
+    A_TPU, B_TPU = ("meshfem_tpu/sparse/route.py:139",
+                    "meshfem_tpu/sparse/route.py:162")
+    counts = paths["20b"]
+    launches = lambda name: own_mode(counts, name)
+    rk = sim.routed_kernel()
+    E, N, nn, d, K1 = (sim.mesh.num_elements, sim.num_dofs,
+                       sim.mesh.nodes_per_elem, 2, 3)
+    shape = f"20b quality mesh P2: {E} triangles, {N} nodes"
+    out = {}
+    # A in node rows at 2 values a node, out of planes as the solve runs it
+    ids_em, S = rk.ids_em, rk.ids_em.shape[0]
+    src2 = torch.randn((2, N), generator=gen, device=dev)
+    rows2 = src2.t().contiguous()
+    for S_ in (S, S - 1):
+        ids_ = ids_em[:S_].contiguous()
+        ref = kernels.gather_rows_plain(rows2, ids_)
+        if not (torch.equal(kernels.gather_rows(rows2, ids_), ref)
+                and torch.equal(kernels.gather_rows(src2, ids_,
+                                                    planes_in=True), ref)):
+            raise RuntimeError(f"20e gather_rows (2 values, S = {S_}) != "
+                               f"plain")
+    ids_long = ids_em.long()
+    entry("gather_rows/quality/2", src_dir + "gather_planes.cu", A_TPU,
+          launches("gather_rows"), 0.0,
+          lambda: kernels.gather_rows(src2, ids_em, planes_in=True),
+          lambda: kernels.gather_rows_plain(src2, ids_em, True),
+          lambda: torch.index_select(rows2, 0, ids_long),
+          S * 4 + 2 * N * 4 + 2 * S * 4, 0, odd_S_checked=S - 1,
+          mode="rows out [S, 2] from planes [2, N], as apply_planes runs it",
+          launches_path="20b quality mesh, the default call",
+          library_call="torch.index_select",
+          shape=f"{shape}; src [2, {N}] f32, ids_em [{S}] int32")
+    # B in node rows at 2 values a node, into planes
+    perm_em, offs = rk.plan_em.perm, rk.plan_em.offsets
+    fr = torch.randn((S, 2), generator=gen, device=dev)
+    out["rows_f32_2"] = check_b_rows(fr, rk, offs, "20e B rows f32 (2 "
+                                     "values)")
+    acc = torch.zeros((N, 2), device=dev)
+    entry("segment_sum_rows/quality/2", src_dir + "segment_sum_csr.cu",
+          B_TPU, launches("segment_sum_rows/quality/2"), out["rows_f32_2"],
+          lambda: kernels.segment_sum_rows(fr, perm_em, offs,
+                                           planes_out=True),
+          lambda: kernels.segment_sum_rows_plain(fr, perm_em, offs, True),
+          lambda: acc.index_add_(0, ids_long, fr),
+          2 * S * 4 + S * 4 + (N + 1) * 4 + 2 * N * 4, 2 * S,
+          mode="rows [S, 2] -> planes [2, N], as apply_planes runs it",
+          launches_path="20b quality mesh, the default call, float32 "
+                        "launches",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"{shape}; src [{S}, 2] f32 -> [2, {N}]")
+    # B in float64 on the EBE plan: the refinement's residuals
+    plan64 = sim._kernel.plan
+    R = plan64.num_rows
+    dr = torch.randn((R, 2), generator=gen, device=dev, dtype=torch.float64)
+    out["rows_f64_2"] = check_rows_on_plan(plan64, torch.float64,
+                                           "20e B rows f64 (2 values)", gen,
+                                           P=2)
+    dst64 = sim._kernel.elem_dofs.reshape(-1)
+    acc64 = torch.zeros((N, 2), device=dev, dtype=torch.float64)
+    entry("segment_sum_rows/f64/quality/2", src_dir + "segment_sum_csr.cu",
+          B_TPU + " (f64: the XLA scatter of meshfem_tpu/sparse/scatter.py)",
+          launches("segment_sum_rows/f64/quality/2"), out["rows_f64_2"],
+          lambda: plan64.sum_rows(dr),
+          lambda: kernels.segment_sum_rows_plain(dr, plan64.perm,
+                                                 plan64.offsets),
+          lambda: acc64.index_add_(0, dst64, dr),
+          2 * R * 8 + R * 4 + (N + 1) * 4 + 2 * N * 8, 2 * R,
+          flop_rate=F64_FLOP_PER_S,
+          mode="f64 rows [R, 2] -> rows [N, 2]: the EBE residual",
+          launches_path="20b quality mesh, the default call, float64 "
+                        "launches",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"{shape}; src [{R}, 2] f64 -> [{N}, 2]")
+    # E on the quality mesh's geometry
+    g32 = sim.geom.grad_lambda.float().contiguous()
+    v32 = sim.geom.volume.float().contiguous()
+    D_host = sim.D.cpu()
+    Ke32 = kernels.element_stiffness(g32, v32, D_host, 2)
+    e_ref = kernels.element_stiffness_plain(g32, v32, D_host, 2)
+    scale = float(e_ref.abs().max())
+    err_e = float((Ke32 - e_ref).abs().max())
+    ulps = ulps_from(Ke32, em.element_elasticity_fused(
+        g32.double(), v32.double(), sim.D, 2))
+    del Ke32, e_ref
+    card_log(f"20e E on the quality mesh ({E} triangles): max abs err "
+             f"{err_e:.3e} against plain (max|Ke| {scale:.3e}), {ulps:.3f} "
+             f"ulp of each entry from the f64 Ke of the same float32 "
+             f"inputs")
+    if not (err_e <= 1e-5 * scale and ulps <= 1.0):
+        raise RuntimeError("20e: element_stiffness on the quality mesh "
+                           "disagrees")
+    nd = nn * d
+    M32 = torch.as_tensor(em.fused_matrix_for(sim.D, 2, 2),
+                          dtype=torch.float32, device=dev)
+    entry("element_stiffness/quality", src_dir + "element_stiffness.cu",
+          "meshfem_tpu/kernels/element_stiffness.py:42",
+          launches("element_stiffness"), err_e,
+          lambda: kernels.element_stiffness(g32, v32, D_host, 2),
+          lambda: kernels.element_stiffness_plain(g32, v32, D_host, 2),
+          lambda: em.element_elasticity_fused_apply(g32, v32, M32, nn),
+          (K1 * d + 1 + nd * nd) * E * 4 + 9 * 8,
+          (2 * ((K1 * d) ** 2 * d * d + nd * nd * K1 * K1) + nd * nd) * E,
+          algorithm_flops=(2 * (K1 * (K1 + 1) // 2 * (d * d + d ** 4)
+                                + nd * nd * K1 * K1) + nd * nd) * E,
+          algorithm_flop_rate=F64_FLOP_PER_S, max_ulps_vs_f64=ulps,
+          mode="f32 Ke [E, 12, 12] of the quality mesh, one per dense "
+               "routed operator build",
+          launches_path="20b quality mesh, the default call",
+          library_call="ops.element_matrices.element_elasticity_fused_apply",
+          shape=f"{shape}: grad_lambda [{E}, 3, 2], vol [{E}] f32")
+    out.update(E_err=err_e, E_ulps=ulps)
+    out["checked"] = ["gather_rows/quality/2", "segment_sum_rows/quality/2",
+                      "segment_sum_rows/f64/quality/2",
+                      "element_stiffness/quality"]
+    return out
+
+
 def check_b_rows(src, op, offsets, label):
     """Kernel B in rows on a routed operator's element-major plan: twice
     bit for bit, bit for bit against B in planes on the same contributions
@@ -5926,7 +6556,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from meshfem_tpu_torch import kernels
+    from meshfem_tpu_torch import kernels, native
     from meshfem_tpu_torch.fem import elasticity_tensor as et
     from meshfem_tpu_torch.analysis import homogenization as hom
     from meshfem_tpu_torch.kernels import _build
@@ -5948,10 +6578,31 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     # -- 2. build, and the main path's problem -----------------------------
+    # the host core (g++, mesh connectivity and Ruppert) builds beside nvcc
+    global CARD
+    CARD = smi
+    core = {}
+
+    def build_core():
+        t = time.time()
+        try:
+            core["so"] = native.build()
+        except Exception as exc:          # reported below, as a failure
+            core["error"] = exc
+        core["s"] = time.time() - t
+
+    core_thread = threading.Thread(target=build_core)
+    core_thread.start()
     t0 = time.time()
     so = _build.build()
     _build.load()
     log(f"kernels built in {time.time() - t0:.1f} s -> {so.name}")
+    core_thread.join()
+    if "error" in core or native.get_lib() is None:
+        raise RuntimeError(f"the host core did not build or load: "
+                           f"{core.get('error')}")
+    log(f"host core built in {core['s']:.1f} s (beside nvcc) -> "
+        f"{core['so'].name}")
     ptxas = {}                        # source -> its -Xptxas -v lines
     ptx_log = so.with_suffix(".log")
     if ptx_log.exists():
@@ -7128,6 +7779,14 @@ def main() -> int:
     p19["kernels_s"] = time.time() - t0
     summary["phase19"] = p19
     del objs19
+
+    # -- 20. the host tools: core, quality mesh, sampler, mesh CLIs -------
+    p20, paths20, sim20 = drive_phase20(dev, core["s"])
+    t0 = time.time()
+    p20["kernel_checks"] = kernels_phase20(dev, entry, sim20, paths20, gen)
+    p20["kernels_s"] = time.time() - t0
+    summary["phase20"] = p20
+    del sim20
     summary.update(
         dense_bmm_ms=timer(lambda: torch.bmm(rk.KeP, ue_dense)),
         dense_bmm_bound_ms=rk.KeP.numel() * 4 / HBM_BYTES_PER_S * 1e3,
@@ -7150,6 +7809,8 @@ def main() -> int:
                                        for p, c in paths18.items()}
         r["launches_phase19_paths"] = {p: own_mode(c, r["name"])
                                        for p, c in paths19.items()}
+        r["launches_phase20_paths"] = {p: own_mode(c, r["name"])
+                                       for p, c in paths20.items()}
     summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))

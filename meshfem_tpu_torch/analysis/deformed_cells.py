@@ -13,7 +13,10 @@ cell-problem energy, so the partial derivative is the total one) by
 ``torch.autograd`` through ``mesh.geometry.simplex_geometry``, where the
 reference takes ``jax.grad``; the element-corner gather it differentiates
 is a ``GatherPlan``, so its backward on the card is kernel B, never an
-accumulating ``index_put_``.
+accumulating ``index_put_``.  The energy form is
+``mechanisms.energy_form_at_nodes`` (``w Ke w``), exact on P2 cells, where
+the reference's centroid-strain form (``deformed_cells.py:67``) is exact
+only for P1.
 """
 
 from __future__ import annotations
@@ -23,14 +26,12 @@ import torch
 
 from .. import config
 from ..fem import elasticity_tensor as et
-from ..fem.flattening import shear_doubler
 from ..mesh import periodic as per
 from ..mesh.femmesh import FEMMesh
-from ..mesh.geometry import simplex_geometry
-from ..ops import element_matrices as em
 from ..physics.elasticity import ElasticitySimulator
 from ..physics.materials import Material
 from . import homogenization as hom
+from . import mechanisms as mech
 
 
 def homogenize_deformed(mesh: FEMMesh, material, jacobian,
@@ -69,41 +70,16 @@ def homogenize_deformed(mesh: FEMMesh, material, jacobian,
 def _energy_form_tensor(mesh: FEMMesh, D, w, node_positions):
     """[fl, fl] energy-form homogenized tensor at ``node_positions`` [N, dim]
     with the fluctuation displacements w [fl, N, dim] FROZEN:
-        Ehat(i, j) = 1/|Y| int (eps(w_i) + B_i) : C : (eps(w_j) + B_j).
-    Differentiable in ``node_positions``: the element corners come
-    through the mesh's ``GatherPlan`` (kernel B in the backward on the
-    card).  As in the reference (``deformed_cells.py:67``) each element's
-    strains are taken at its centroid, which integrates exactly only
-    where they are constant: on P1 cells Ehat is the stress-form tensor,
-    on P2 cells it is not (ROADMAP Queue 3; ``mechanisms.energy_form_Eh``
-    integrates the P2 energy exactly)."""
-    fl = w.shape[0]
-    dim = mesh.dim
-    X = node_positions
-    dev = X.device
-    corners = mesh.corner_gather(dev)(X).reshape(
-        mesh.num_elements, mesh.K + 1, X.shape[-1])
-    grad_lambda, volume = simplex_geometry(corners, mesh.K)
-    # the average strain of each w_i on each element (strains of degree
-    # <= 1: the centroid value)
-    centroid = np.full((1, mesh.K + 1), 1.0 / (mesh.K + 1))
-    B = em.element_strain_matrix(grad_lambda, mesh.degree, centroid)[:, 0]
-    en = torch.as_tensor(mesh.elem_nodes, device=dev)
-    w = w.to(X.dtype)
-    eps_w = torch.stack([torch.einsum("eanc,enc->ea", B, w[i][en])
-                         for i in range(fl)])            # [fl, E, fl]
-    # plus the macroscopic canonical strains
-    basis = torch.stack([hom.canonical_strain(dim, i, X.dtype)
-                         for i in range(fl)]).to(dev)    # [fl, fl]
-    total = eps_w + basis[:, None, :]
-    S = torch.as_tensor(shear_doubler(dim), dtype=X.dtype, device=dev)
-    D = torch.as_tensor(D, dtype=X.dtype, device=dev)
-    if D.dim() == 2:
-        sig = torch.einsum("ab,jeb->jea", D * S[None, :], total)
-    else:
-        sig = torch.einsum("eab,jeb->jea", D * S[None, :], total)
-    Ehat = torch.einsum("iea,a,jea,e->ij", total, S, sig, volume)
-    return Ehat / mesh.bbox().volume()
+        Ehat(i, j) = 1/|Y| int (eps(w_i) + B_i) : C : (eps(w_j) + B_j),
+    |Y| the mesh's bounding box.  It is ``mechanisms.energy_form_at_nodes``,
+    which integrates the P2 energy exactly, so Ehat is the stress-form
+    tensor on P1 and P2 cells alike.  The reference
+    (``deformed_cells.py:67``) takes each element's strains at its
+    centroid, exact only for P1; on P2 cells the port leaves it.
+    Differentiable in ``node_positions``: the element corners come through
+    the mesh's ``GatherPlan`` (kernel B in the backward on the card)."""
+    return mech.energy_form_at_nodes(mesh, D, w, node_positions,
+                                     mesh.bbox().volume())
 
 
 def homogenized_tensor_shape_gradient(sim, w, weights):
@@ -125,7 +101,7 @@ def homogenized_tensor_shape_gradient(sim, w, weights):
 def homogenized_tensor_at(sim, w, node_positions=None):
     """Stress-form-normalized tensor from the energy form (the autodiff
     path of the shape gradient; agrees with
-    ``homogenized_tensor_stress_form`` for converged w on P1 cells), at
+    ``homogenized_tensor_stress_form`` for converged w, P1 or P2), at
     the mesh's positions or at ``node_positions``."""
     mesh = sim.mesh
     X = torch.as_tensor(mesh.node_positions if node_positions is None

@@ -25,10 +25,11 @@ with the nodal fluctuations w held fixed (they solve the cell problems,
 where the form is stationary, so the partial derivative is the total
 one), at the node positions ``FEMMesh.node_positions_from_vertices(Xv)``
 and over a constant |Y| with no gradient.  ``w Ke w`` integrates the P2
-strains' product exactly; the centroid-strain form of
-``deformed_cells._energy_form_tensor`` does so only for P1 (ROADMAP Queue
-3).  Its Jacobian, ``jax.jacrev`` in the reference, is fl^2 reverse
-passes of ``torch.autograd.grad``.  Every gather these passes
+strains' product exactly (the reference's centroid-strain form,
+``meshfem_tpu/analysis/deformed_cells.py:67``, does so only for P1; the
+port's ``deformed_cells._energy_form_tensor`` calls
+``energy_form_at_nodes``).  dEh, ``jax.jacrev`` in the reference, is
+fl^2 reverse passes of ``torch.autograd.grad``.  Every gather these passes
 differentiate (the vertex endpoints, the element corners) is a
 ``GatherPlan``, so on the card each backward sums by kernel B in a fixed
 order and dEh repeats bit for bit.
@@ -68,12 +69,27 @@ def energy_form_Eh(mesh: FEMMesh, D, w, Xv=None,
     vertex derivative by hand).  |Y| is ``base_cell_volume`` (default: the
     input mesh's bounding box), a constant, as the reference's
     ``stop_gradient`` makes it."""
-    dim = mesh.dim
-    fl = flat_len(dim)
     dev = config.device_for(device, Xv if isinstance(Xv, torch.Tensor)
                             else w)
     X = mesh.node_positions_from_vertices(mesh.V if Xv is None else Xv,
                                           device=dev)
+    if base_cell_volume is None:
+        base_cell_volume = mesh.bbox().volume()
+    return energy_form_at_nodes(mesh, D, w, X, base_cell_volume)
+
+
+def energy_form_at_nodes(mesh: FEMMesh, D, w, X,
+                         base_cell_volume: float) -> torch.Tensor:
+    """The energy form of ``energy_form_Eh`` at node positions ``X`` [N,
+    dim] (vertices and P2 edge nodes, on X's device), differentiable in
+    ``X``; only the vertex rows enter (the corner gather), so the edge-node
+    rows of a gradient are zero.  ``D`` is [fl, fl] or per element [E,
+    fl, fl].  ``w Ke w`` integrates the P2 strains' product exactly; the
+    cross terms need only each element's average strain, which for
+    strains of degree <= 1 is the centroid value."""
+    dim = mesh.dim
+    fl = flat_len(dim)
+    dev = X.device
     corners = mesh.corner_gather(dev)(X).reshape(
         mesh.num_elements, mesh.K + 1, dim)
     grad_lambda, vol = simplex_geometry(corners, mesh.K)
@@ -90,9 +106,10 @@ def energy_form_Eh(mesh: FEMMesh, D, w, Xv=None,
     cross = torch.einsum("e,jei->ij", vol, et.double_contract(D, sa))
     canon = torch.stack([hom.canonical_strain(dim, i, X.dtype)
                          for i in range(fl)]).to(dev)
-    const = et.double_contract(D, canon).T * vol.sum()
-    if base_cell_volume is None:
-        base_cell_volume = mesh.bbox().volume()
+    # sig[(e,) i] = C : e^i; a per-element material weighs each element
+    sig = et.double_contract(D[..., None, :, :], canon)
+    const = (torch.einsum("e,eia->ai", vol, sig) if D.dim() == 3
+             else sig.T * vol.sum())
     return (term_ww + cross + cross.T + const) / float(base_cell_volume)
 
 

@@ -3,10 +3,11 @@
 Counterpart of ``meshfem_tpu/mesh/femmesh.py`` in the reference node order
 (vertices first, then edge nodes in sorted-edge order, ``femmesh.py:83-100``).
 Connectivity is numpy on the host; element geometry is a torch computation
-on the requested device.  The P2 edge numbering is the reference's numpy
-fallback (``np.unique`` of the sorted edge keys, ``femmesh.py:94``), which
-numbers edges exactly as the reference's native host core does (both sort
-the (min, max) vertex pairs).  The region queries (``nodes_in_box``,
+on the requested device.  The P2 edge numbering comes from the port's host
+core (``native.unique_edges``) where it can be had, as in the reference
+(``femmesh.py:87-93``), else from ``np.unique`` of the sorted edge keys
+(``femmesh.py:94``); both sort the (min, max) vertex pairs, so they number
+edges alike.  The region queries (``nodes_in_box``,
 ``boundary_elems_in_box``) and barycenters are numpy on the host; volumes
 and the lumped nodal measure are torch on the requested device, the latter
 summed by ``ScatterPlan`` (kernel B on the card).  ``vertex_nodes`` and
@@ -30,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, native
 from ..fem import shape_functions, simplex
 from ..sparse.scatter import GatherPlan, ScatterPlan
 from . import geometry as geom
@@ -96,8 +97,13 @@ class FEMMesh:
             pairs = np.asarray(simplex.simplex_edges(K))
             ev = np.stack([F[:, pairs[:, 0]], F[:, pairs[:, 1]]], axis=-1)
             ev = ev.reshape(-1, 2)
-            key = np.min(ev, axis=1) * nv + np.max(ev, axis=1)
-            uniq, inverse = np.unique(key, return_inverse=True)
+            nat = native.unique_edges(ev)
+            if nat is not None:
+                inverse, uniq_pairs = nat
+                uniq = uniq_pairs[:, 0] * nv + uniq_pairs[:, 1]
+            else:
+                key = np.min(ev, axis=1) * nv + np.max(ev, axis=1)
+                uniq, inverse = np.unique(key, return_inverse=True)
             self.num_edges = len(uniq)
             self._edge_keys = uniq
             edge_node = nv + inverse.reshape(len(F), -1)

@@ -10,9 +10,11 @@ Counterpart of ``meshfem_tpu/mesh/simplicial.py``:
   opposite corner ``c``; ``O[hf]`` is the mate half-face or ``-1 - b`` for
   boundary face ``b``.
 
-Faces are matched by the numpy lexsort of the reference's fallback
-(``simplicial.py:40-58``); the reference's native host core gives the same
-pairing on manifold meshes, so boundary edges and faces come out in the
+Faces are matched, and edges numbered, by the port's host core
+(``native.match_faces`` / ``native.unique_edges``) where it can be had, as
+the reference does (``simplicial.py:40-43``), and otherwise by the numpy
+lexsort and ``np.unique`` of the reference's fallback; both give the same
+arrays on manifold meshes, so boundary edges and faces come out in the
 reference's order (increasing half-entity index), wound outward.
 """
 
@@ -22,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import native
 from ..fem import simplex
 from .geometry import BBox
 
@@ -33,7 +36,10 @@ TET_FACE_CORNERS = np.array(
 
 def _match_faces(face_verts: np.ndarray) -> np.ndarray:
     """Pair half-entities with identical vertex sets: [H, k] -> opposite
-    [H] (-1 where unmatched)."""
+    [H] (-1 where unmatched); raises on a non-manifold face."""
+    nat = native.match_faces(face_verts)
+    if nat is not None:
+        return nat
     H = face_verts.shape[0]
     key = np.sort(face_verts, axis=1)
     order = np.lexsort(key.T[::-1])
@@ -54,6 +60,9 @@ def _unique_edges(E: np.ndarray, pairs) -> np.ndarray:
     pairs = np.asarray(pairs)
     e = np.stack([E[:, pairs[:, 0]].ravel(), E[:, pairs[:, 1]].ravel()],
                  axis=1)
+    nat = native.unique_edges(e)
+    if nat is not None:
+        return nat[1]
     return np.unique(np.sort(e, axis=1), axis=0)
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``meshfem_tpu/solvers/cg.py``: ``cg`` (:43) with its
 warm start, absolute tolerance, breakdown guard, stall and divergence
-detection and best-iterate return, ``cg_fixed_iters`` (:195),
+detection and best-iterate return (the stall counted only once the
+residual has fallen below its start, where the reference counts it
+from the first iteration), ``cg_fixed_iters`` (:195),
 ``cg_operator`` (:224, the Jacobi Dirichlet solve), ``cg_operator_fixed``
 (:250), ``mask_projector``, ``nullspace_projector`` (:274, the rigid-mode
 projection), ``solve_dirichlet`` (:296) and ``cg_block`` (:309, all
@@ -70,6 +72,7 @@ def cg(A: Callable, b, x0=None, *, M_inv: Callable | None = None,
     rr_best = rr.clone()
     x_best = x.clone()
     stall = torch.zeros((), dtype=torch.int32, device=b.device)
+    moved = torch.zeros((), dtype=torch.bool, device=b.device)
     k = 0
     cont = (rr > stop2) & torch.isfinite(rr)
     while k < maxiter and bool(cont):
@@ -90,7 +93,13 @@ def cg(A: Callable, b, x0=None, *, M_inv: Callable | None = None,
         rr = _dot(r, r)
         improved = rr < 0.999 * rr_best
         x_best = torch.where(improved, x, x_best)
-        stall = torch.where(improved, 0, stall + 1)
+        # the floor lies below the starting residual, and a PCG residual
+        # can stay above it for thousands of iterations (a slender or
+        # finely meshed cantilever): no stall is counted before the
+        # residual has first fallen below where it started (the
+        # reference counts from the first iteration and returns x0)
+        moved = moved | improved
+        stall = torch.where(improved | ~moved, 0, stall + 1)
         rr_best = torch.minimum(rr, rr_best)
         done = (~good) | (stall >= STALL_WINDOW) \
             | (rr > DIVERGE_FACTOR * rr_best)

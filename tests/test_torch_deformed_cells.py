@@ -27,11 +27,13 @@ from meshfem_tpu.mesh import FEMMesh as RFEMMesh, generators as rgen
 from meshfem_tpu.ops.structured import validate_kuhn_grid as r_validate
 from meshfem_tpu.physics import (ElasticitySimulator as RSim,
                                  Material as RMaterial)
+from meshfem_tpu.physics.materials import MaterialField as RMaterialField
 
 from meshfem_tpu_torch.analysis import deformed_cells as dc
 from meshfem_tpu_torch.analysis import homogenization as hom
 from meshfem_tpu_torch.mesh import FEMMesh, generators
 from meshfem_tpu_torch.physics import ElasticitySimulator, Material
+from meshfem_tpu_torch.physics.materials import MaterialField
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -287,6 +289,118 @@ def test_shape_gradient_matches_jax_grad(hole_w):
     Ch_stress = hom.homogenized_tensor_stress_form(
         psim, torch.as_tensor(w), base_cell_volume=1.0)
     assert np.abs(Eh.numpy() - Ch_stress.numpy()).max() <= 1e-8
+
+
+def _void_tet(n=4, r=0.3):
+    """grid_tet(n) without the tets whose centroid lies within ``r`` of the
+    centre, vertices renumbered."""
+    V, T = generators.grid_tet(n, n, n)
+    T = T[((V[T].mean(axis=1) - 0.5) ** 2).sum(axis=1) > r ** 2]
+    used = np.unique(T)
+    remap = -np.ones(len(V), dtype=np.int64)
+    remap[used] = np.arange(len(used))
+    return V[used], remap[T]
+
+
+def _perturbed_slot(n=8, a=0.2, b=0.42, tilt=0.35, seed=0):
+    """grid_tri(n) without a tilted elliptical slot about the centre, its
+    interior vertices moved by up to an eighth of a cell, seeded."""
+    V, F = generators.grid_tri(n, n)
+    c = V[F].mean(axis=1) - 0.5
+    x = np.cos(tilt) * c[:, 0] + np.sin(tilt) * c[:, 1]
+    y = -np.sin(tilt) * c[:, 0] + np.cos(tilt) * c[:, 1]
+    F = F[(x / a) ** 2 + (y / b) ** 2 > 1]
+    used = np.unique(F)
+    remap = -np.ones(len(V), dtype=np.int64)
+    remap[used] = np.arange(len(used))
+    V, F = V[used].copy(), remap[F]
+    inner = np.all((V > 1e-9) & (V < 1 - 1e-9), axis=1)
+    rng = np.random.default_rng(seed)
+    V[inner] += 0.25 / n * (rng.random((int(inner.sum()), 2)) - 0.5)
+    return V, F
+
+
+def _young_field(num_elements, seed=7):
+    """Per-element Young's moduli in [1, 9), seeded; Poisson 0.3."""
+    young = 1.0 + 8.0 * np.random.default_rng(seed).random(num_elements)
+    return young, np.full(num_elements, 0.3)
+
+
+def _cell(V, F, dim, degree, field):
+    """Both packages' periodic simulators on one cell (an isotropic
+    material, or a seeded per-element one) and the port's fluctuations
+    solved to 1e-13."""
+    if field:
+        young, nu = _young_field(len(F))
+        pmat = MaterialField.isotropic_field(dim, torch.as_tensor(young),
+                                             torch.as_tensor(nu))
+        rmat = RMaterialField.isotropic_field(dim, young, nu)
+    else:
+        pmat = Material.isotropic(dim, 5.0, 0.3)
+        rmat = RMaterial.isotropic(dim, 5.0, 0.3)
+    psim = hom.periodic_simulator(FEMMesh(V, F, degree=degree), pmat,
+                                  device="cpu")
+    rsim = rhom.periodic_simulator(RFEMMesh(V, F, degree=degree), rmat)
+    w, _ = hom.solve_cell_problems(psim, tol=1e-13)
+    return psim, rsim, w - w.mean(dim=1, keepdim=True)
+
+
+@pytest.fixture(scope="module",
+                params=["tet4_void", "tri8_slot", "tri8_slot_field"])
+def p2_cell(request):
+    """A P2 periodic cell, both packages' simulators and the port's
+    fluctuations solved to 1e-13 (``_field``: a per-element material)."""
+    if request.param == "tet4_void":
+        (V, F), dim = _void_tet(), 3
+    else:
+        (V, F), dim = _perturbed_slot(), 2
+    return _cell(V, F, dim, 2, request.param.endswith("_field"))
+
+
+def test_p2_energy_form_is_the_stress_form(p2_cell):
+    """On P2 cells the energy form integrates the P2 strains exactly: the
+    port's ``homogenized_tensor_at`` is the stress-form tensor (1e-10
+    relative), where the reference's centroid-strain form misses it by
+    more than 1e-3; the shape gradient is the central difference of the
+    port's form, w frozen, along two seeded directions (1e-6)."""
+    psim, rsim, w = p2_cell
+    Ch = hom.homogenized_tensor_stress_form(psim, w, base_cell_volume=1.0)
+    Eh = dc.homogenized_tensor_at(psim, w)
+    assert _rel(Eh.numpy(), Ch.numpy()) <= 1e-10
+    Eh_ref = rdc.homogenized_tensor_at(rsim, jnp.asarray(w.numpy()))
+    assert _rel(np.asarray(Eh_ref), Ch.numpy()) > 1e-3
+
+    fl = w.shape[0]
+    W = np.random.default_rng(3).standard_normal((fl, fl))
+    g = dc.homogenized_tensor_shape_gradient(psim, w, W)
+    X0 = torch.as_tensor(psim.mesh.node_positions)
+    assert g.shape == X0.shape
+    assert not g[psim.mesh.num_vertices:].any()   # edge-node rows
+
+    def J(X):
+        return float((torch.as_tensor(W) * dc.homogenized_tensor_at(
+            psim, w, X)).sum())
+
+    rng = np.random.default_rng(4)
+    h = 1e-6
+    for _ in range(2):
+        d = torch.as_tensor(rng.standard_normal(tuple(X0.shape)))
+        fd = (J(X0 + h * d) - J(X0 - h * d)) / (2 * h)
+        ad = float((g * d).sum())
+        assert abs(fd - ad) <= 1e-6 * abs(ad)
+
+
+def test_p1_energy_form_with_a_per_element_material():
+    """A per-element material on the P1 slot cell: the energy form is the
+    stress-form tensor (1e-10 relative) and, P1 strains being constant,
+    the reference's centroid-strain form too."""
+    psim, rsim, w = _cell(*_perturbed_slot(), 2, 1, field=True)
+    assert psim.D.dim() == 3
+    Ch = hom.homogenized_tensor_stress_form(psim, w, base_cell_volume=1.0)
+    Eh = dc.homogenized_tensor_at(psim, w)
+    assert _rel(Eh.numpy(), Ch.numpy()) <= 1e-10
+    Eh_ref = rdc.homogenized_tensor_at(rsim, jnp.asarray(w.numpy()))
+    assert _rel(Eh.numpy(), np.asarray(Eh_ref)) <= 1e-10
 
 
 # ---------------------------------------------------------------------------

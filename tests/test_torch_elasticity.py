@@ -268,3 +268,71 @@ def test_port_stands_alone(reference_solution):
     for op in ("routed", "ebe"):
         assert _rel(out[op], u_ref) < 1e-8
         assert _rel(out[op + "_vm"], vm_ref) < 1e-8
+
+
+def _slender_cantilever(mod_mesh, mod_sim, mod_mat, device=None):
+    """A 288 x 1 cantilever, grid_tri(160, 1) P1: x = 0 clamped, the tip
+    nodes loaded in -y.  Jacobi PCG's residual stays above |b| for more
+    than 2,048 iterations here."""
+    V, F = generators.grid_tri(160, 1, hi=(288.0, 1.0))
+    mesh = mod_mesh(V, F, degree=1)
+    kw = {} if device is None else {"device": device}
+    sim = mod_sim(mesh, mod_mat.isotropic(2, 200.0, 0.3), **kw)
+    X = np.asarray(mesh.node_positions)
+    sim.fix_nodes(np.flatnonzero(X[:, 0] < 1e-9))
+    load = np.zeros((mesh.num_nodes, 2))
+    load[X[:, 0] > X[:, 0].max() - 1e-9, 1] = -1.0
+    return sim, load
+
+
+def _free_relres(sim, u, load):
+    free = ~np.asarray(sim.dirichlet_mask)
+    r = (np.asarray(load) - np.asarray(sim.apply_K(u))) * free
+    return float(np.linalg.norm(r) / np.linalg.norm(np.asarray(load) * free))
+
+
+def test_cg_stall_is_not_counted_before_the_residual_falls():
+    """The reference's stall guard counts from the first iteration against
+    |b|, so when the residual stays above |b| for STALL_WINDOW iterations
+    its default call stops and returns x0: relative residual 1.0.  The
+    port counts the stall only once the residual has fallen below its
+    start.  Its same call runs on to tol in the recursive residual; the
+    true residual stops at float64 Jacobi CG's floor on this slender beam
+    (1.8e-6), where the reference's stays at 1."""
+    from meshfem_tpu_torch.solvers.cg import STALL_WINDOW   # the reference's
+
+    rsim, load = _slender_cantilever(RFEMMesh, RSim, RMat)
+    rsim.neumann_load = jnp.asarray(load)
+    u_ref, rres = rsim.solve(operator="ebe", tol=1e-10)
+    assert int(rres.iters) == STALL_WINDOW
+    assert not np.asarray(u_ref).any()
+    assert _free_relres(rsim, u_ref, load) == 1.0
+
+    sim, _ = _slender_cantilever(FEMMesh, ElasticitySimulator, Material,
+                                 "cpu")
+    sim.neumann_load = torch.as_tensor(load)
+    u, res = sim.solve(operator="ebe", tol=1e-10)
+    assert res.iters > 2 * STALL_WINDOW
+    assert res.resnorm <= 1e-10 * np.linalg.norm(load)
+    assert _free_relres(sim, u, load) <= 1e-5
+
+
+def test_cg_runs_past_a_long_transient_to_tol():
+    """``cg`` itself on a diagonal system (kappa 3.3e6) whose load sits on
+    the low modes: the residual stays above |b| for ~2,200 iterations.
+    The reference's ``cg`` returns x0 there; the port's reaches a true
+    relative residual of 1e-10."""
+    from meshfem_tpu.solvers import cg as rcg
+    from meshfem_tpu_torch.solvers import cg as pcg
+
+    lam = np.logspace(np.log10(3e-7), 0.0, 2000)
+    b = np.where(lam < 3e-6, 1.0, 0.1)
+    rres = rcg.cg(lambda v: jnp.asarray(lam) * v, jnp.asarray(b), tol=1e-10,
+                  maxiter=30000)
+    assert int(rres.iters) == pcg.STALL_WINDOW
+    assert not np.asarray(rres.x).any()
+    lam_t = torch.as_tensor(lam)
+    res = pcg.cg(lambda v: lam_t * v, torch.as_tensor(b), tol=1e-10,
+                 maxiter=30000)
+    rel = np.linalg.norm(b - lam * res.x.numpy()) / np.linalg.norm(b)
+    assert res.iters > 2 * pcg.STALL_WINDOW and rel <= 1e-10

@@ -203,9 +203,11 @@ of which raises on failure:
    ``apply_channels`` against the float64 EBE ``apply_K`` (1e-12), card
    against CPU at 8^2 (1e-8), its build, solve, ms per block iteration
    and peak memory printed; (f) the cuts' witness: the cantilever at the
-   sizes above them (P1 at twice and four times ``CANT_P1_N``, P2 at two,
-   four (factored) and eight times ``CANT_P2_N``), one routed solve each,
-   its rounds and where its refinement stopped printed, not gated; (e) in
+   sizes above them (P1 at twice and four times ``CANT_P1_N``, P2 at four
+   (factored) and eight times ``CANT_P2_N``), one routed solve each, its
+   rounds and where its refinement stopped printed, not gated (cut for
+   time: P2 at twice ``CANT_P2_N``, a second 12-round witness of the
+   float32 floor, 21 s); (e) in
    phase 14, kernels A-E held against
    their plain versions at their 2D shapes on the uncut meshes
    (grid_tri(1024, 256) P1 and grid_tri(512, 128) P2) and the 13c cell:
@@ -336,11 +338,13 @@ of which raises on failure:
    on the void cell against a central difference of the frozen-w energy
    form along a random direction (1e-5), twice equal to the bit and under
    ``torch.profiler`` with no library scatter (its corner gather is a
-   ``GatherPlan``, kernel B in the backward); (f) ``cli.homogenize`` (with
-   ``-o``) and ``cli.deformed_cells`` (``--jacobian``, and
+   ``GatherPlan``, kernel B in the backward); (f) ``cli.homogenize`` and
+   ``cli.deformed_cells`` (``--jacobian``, and
    ``--parametrizedTransform`` with two jacobians on stdin) on the void
    cell written by ``io.meshio.save_msh``, their printed ``Ch`` against
-   16d's and phase 7's to the printed digits; (g) kernel A on the P1 -> P2
+   16d's and phase 7's to the printed digits, and ``cli.homogenize -o``
+   on a grid_tet(12) void cell (cut for time: ``-o`` on the full cell
+   wrote 492 MB); (g) kernel A on the P1 -> P2
    prolongation and the aggregation prolongation, kernel B on the P2 -> P1
    restriction, the aggregation restriction (6 values) and the float64
    Gershgorin row sums, each bit for bit against its plain version (B
@@ -498,7 +502,40 @@ of which raises on failure:
    B also f64) and E on the quality mesh's plans and geometry, each held
    against its plain version and timed; every kernel line carries
    ``launches_phase20_paths``;
-21. last, ``{"ok": true, "device": {...}}``.
+21. the package's last surface, every card path counted, each number
+   printed beside the card's name and power limit: (a) the bench mesh in
+   each ``node_order`` ("reference", "morton", "rcb", and "firsttouch"
+   over ``reorder_mesh(order="rcb")``'s elements): the host seconds of
+   the ``FEMMesh`` build, then phase 4's routed clamped solve (A, B and E
+   required) to an f64 relative residual <= 1e-10, its rounds, inner
+   iterations, seconds and ms an iteration; the reference-order solution
+   permuted through ``node_perm`` and put through the order's f64 EBE
+   residual operator equal to the permuted reference-order residual to
+   1e-12 of |b| (for "firsttouch" the reference order of the same
+   reordered V, T, the solution carried across by node position); (b)
+   the five examples (``meshfem_tpu_torch.examples``) at their default
+   arguments, in this process through ``runpy`` in a scratch directory,
+   counted, their printed lines logged and each gated on what it checks
+   (the cantilever's relres <= 1e-10, the voxel cell's cubic spread <=
+   1e-8, compliance falling, positive eigenvalues, an SPD tensor); every
+   kernel call of each run captured (its first call in each shape, dtype
+   and layout; every launch must pass through the capture) and run again
+   on the inputs the example gave it, held against its plain version (A
+   exactly, B bit for bit against B in planes and the CPU's plain sum
+   and to 1e-5 / 1e-12 of the card's), the largest call of each kernel
+   and dtype timed as ``<kernel>[/f64]/example/<name>``; (c)
+   ``utils.timer.Timer`` sections around 21a's builds and solves against
+   the host clock of the same spans, ``utils.checkpoint``'s solver state
+   (21a's reference u and residual, card -> npz -> card, equal to the
+   bit) and its binary triplet dump of ``to_scipy()`` at grid_tet(16) P2
+   (read back equal), ``vis.write_html_viewer`` and
+   ``vis.save_mesh_png`` (where matplotlib is installed) of the bench
+   mesh's boundary triangles with von Mises, each timed; (d) on each
+   order's plans and geometry, kernels A
+   (f32 rows at 3 values), B (f32 rows, and f64 rows on the EBE plan)
+   and E, each held against its plain version and timed; every kernel
+   line carries ``launches_phase21_paths``;
+22. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -693,7 +730,6 @@ def clamped_problem(size, device):
     """bench.py:397-404: clamp x = 0, load the far face in -y.  ``size`` is
     n for grid_tet(n, n, n) or "bar" for bar_tet(6, 2, 2)."""
     from meshfem_tpu_torch.mesh import FEMMesh, generators
-    from meshfem_tpu_torch.physics import ElasticitySimulator, Material
 
     if size == "bar":
         V, T = generators.bar_tet(6, 2, 2)
@@ -703,17 +739,26 @@ def clamped_problem(size, device):
     mesh = FEMMesh(V, T, degree=2)
     t_mesh = time.time() - t0
     t0 = time.time()
+    sim = clamped_sim(mesh, device)
+    t_sim = time.time() - t0
+    return sim, t_mesh, t_sim
+
+
+def clamped_sim(mesh, device):
+    """The simulator of ``clamped_problem`` on a given 3D mesh (its x = 0
+    face clamped, its far face loaded in -y); synchronised."""
+    from meshfem_tpu_torch.physics import ElasticitySimulator, Material
+
     sim = ElasticitySimulator(mesh, Material.isotropic(3, 200.0, 0.3),
                               device=device)
     if sim.device.type == "cuda":
         torch.cuda.synchronize()
-    t_sim = time.time() - t0
     X = mesh.node_positions
     sim.fix_nodes(np.flatnonzero(X[:, 0] < 1e-9))
     load = np.zeros((mesh.num_nodes, 3))
     load[X[:, 0] > X[:, 0].max() - 1e-9, 1] = -1.0
     sim.neumann_load = torch.as_tensor(load, device=sim.device)
-    return sim, t_mesh, t_sim
+    return sim
 
 
 def check_solution(sim, u, label, gate=1e-10):
@@ -1328,31 +1373,39 @@ def own_mode(counts, name):
 
 
 def check_rows_on_plan(plan, dtype, label, gen, P=3):
-    """Kernel B in rows on a path's own ``plan`` and shapes: random
-    contribution rows ``[R, P]`` in ``dtype`` on the card must sum bit for
-    bit as B in planes sums them, and as the plain version sums them on
-    the CPU (in the kernel's order); the plain version on the card (float
-    atomics) must agree to 1e-5 (float32) or 1e-12 (float64) of max|y|.
-    Returns the max abs error against the card's plain version."""
-    from meshfem_tpu_torch import kernels
-
+    """Kernel B in rows on a path's own ``plan`` and shapes, on random
+    contribution rows ``[R, P]`` in ``dtype`` on the card
+    (``check_rows_sum``).  Returns the max abs error against the card's
+    plain version."""
     src = torch.randn((plan.num_rows, P), generator=gen, device=gen.device,
                       dtype=dtype)
-    y = kernels.segment_sum_rows(src, plan.perm, plan.offsets)
-    yp = kernels.segment_sum_csr(src.t().contiguous(), plan.perm,
-                                 plan.offsets)
-    y_cpu = kernels.segment_sum_rows_plain(src.cpu(), plan.perm.cpu(),
-                                           plan.offsets.cpu())
-    ref = kernels.segment_sum_rows_plain(src, plan.perm, plan.offsets)
+    return check_rows_sum(src, plan.perm, plan.offsets, label)
+
+
+def check_rows_sum(src, perm, offsets, label, planes_out=False):
+    """Kernel B in rows on the card: its sum of ``src`` must equal bit for
+    bit B in planes' sum and the plain version's on the CPU (in the
+    kernel's order); the plain version on the card (float atomics) must
+    agree to 1e-5 (float32) or 1e-12 (float64) of max|y|.  Returns the max
+    abs error against the card's plain version."""
+    from meshfem_tpu_torch import kernels
+
+    y = kernels.segment_sum_rows(src, perm, offsets, planes_out)
+    if planes_out:
+        y = y.t()
+    yp = kernels.segment_sum_csr(src.t().contiguous(), perm, offsets)
+    y_cpu = kernels.segment_sum_rows_plain(src.cpu(), perm.cpu(),
+                                           offsets.cpu())
+    ref = kernels.segment_sum_rows_plain(src, perm, offsets)
     err = float((y - ref).abs().max())
-    gate = (1e-5 if dtype == torch.float32 else 1e-12) \
+    gate = (1e-5 if src.dtype == torch.float32 else 1e-12) \
         * float(ref.abs().max())
     if not (torch.equal(y.t(), yp) and torch.equal(y.cpu(), y_cpu)):
-        raise RuntimeError(f"{label}: segment_sum_rows {dtype} on the path's "
-                           f"plan != segment_sum_csr / the CPU plain sum bit "
-                           f"for bit")
+        raise RuntimeError(f"{label}: segment_sum_rows {src.dtype} on the "
+                           f"path's plan != segment_sum_csr / the CPU plain "
+                           f"sum bit for bit")
     if not err <= gate:
-        raise RuntimeError(f"{label}: segment_sum_rows {dtype} disagrees "
+        raise RuntimeError(f"{label}: segment_sum_rows {src.dtype} disagrees "
                            f"with plain: {err:.3e}")
     return err
 
@@ -2461,8 +2514,9 @@ def drive_pixels(dev):
 # the sizes the 13a / 13b cuts stop short of, each solved once through
 # ``solve(operator="routed", tol=1e-10)`` and reported, not gated: the
 # witness of the cut (deg, n, contraction switches)
+# one 12-round witness of the float32 floor (P1 at twice the cut); the P2
+# one at twice its cut (18,154 inner iterations, 21 s) was dropped for time
 CUT_WITNESS = ((1, 2 * CANT_P1_N, {}), (1, 4 * CANT_P1_N, {}),
-               (2, 2 * CANT_P2_N, {}),
                (2, 4 * CANT_P2_N, {"MESHFEM_FACTORED": "1"}),
                (2, 8 * CANT_P2_N, {}))
 
@@ -3865,8 +3919,14 @@ def drive_deformed(dev, cell, hsim, Ch_cell, Ch_tri):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             text_h, t_h, paths["16f_cli_homogenize"] = counted(
-                "16f cli.homogenize", lambda: run_cli(
-                    cli_h.main, args + ["-o", f"{tmp}/w.msh"]), AMG_PATH)
+                "16f cli.homogenize", lambda: run_cli(cli_h.main, args),
+                AMG_PATH)
+            # -o on a grid_tet(12) void cell: the full cell's fluctuations
+            # made a 492 MB file
+            meshio.save_msh(f"{tmp}/small.msh", *void_cell(12))
+            _, t_o = timed(lambda: run_cli(
+                cli_h.main, [f"{tmp}/small.msh"] + args[1:]
+                + ["-o", f"{tmp}/w.msh"]))
             S = np.asarray(DEFORM_SHEAR)
             text_j, t_j, paths["16f_cli_deformed_jacobian"] = counted(
                 "16f cli.deformed_cells --jacobian", lambda: run_cli(
@@ -3894,7 +3954,8 @@ def drive_deformed(dev, cell, hsim, Ch_cell, Ch_tri):
                                       res3["identity"].Ch.cpu()[iu]),
         parametrized_rotation=rel_err(torch.as_tensor(ch_lines[2]),
                                       res3["rotation"].Ch.cpu()[iu]))
-    log(f"16f CLIs: homogenize {t_h:.3f} s (-o wrote {out_w} bytes), "
+    log(f"16f CLIs: homogenize {t_h:.3f} s, on a grid_tet(12) void cell "
+        f"with -o {t_o:.3f} s ({out_w} bytes written), "
         f"deformed_cells --jacobian {t_j:.3f} s, --parametrizedTransform "
         f"(2 jacobians) {t_p:.3f} s; printed Ch against 16d / phase 7: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
@@ -3903,7 +3964,8 @@ def drive_deformed(dev, cell, hsim, Ch_cell, Ch_tri):
             v for k, v in errs.items() if k != "homogenize") <= 1e-7):
         raise RuntimeError(f"16f: a CLI's printed Ch differs: {errs}")
     out["clis"] = dict(homogenize_s=t_h, jacobian_s=t_j,
-                       parametrized_s=t_p, msh_bytes=out_w, errs=errs)
+                       parametrized_s=t_p, small_o_s=t_o, msh_bytes=out_w,
+                       errs=errs)
 
     # the sheared void cell's simulator (node_positions), for 16g
     dof_map, _, _ = periodic.match_periodic_nodes(cell.node_positions,
@@ -6506,6 +6568,580 @@ def kernels_phase20(dev, entry, sim, paths, gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the package's last surface: node orders on the bench mesh, the
+# five examples on the card, the checkpoint, matrix, timer and viewer
+# utilities at bench size
+# ---------------------------------------------------------------------------
+
+NODE_ORDERS = ("reference", "morton", "rcb", "firsttouch")
+PERMUTED_RESIDUAL_GATE = 1e-12    # relative to |b|
+EXAMPLES = ("cantilever", "homogenize_voxels", "topology_optimization",
+            "vibrational_modes", "homogenize_microstructure")
+MATRIX_N = 16                     # 21c's dump_matrix mesh, grid_tet(16) P2
+
+
+def free_residual(sim, u):
+    """The clamped problem's float64 residual ``free * (b - K u)``, with
+    the f64 EBE operator."""
+    free = torch.as_tensor(~sim.dirichlet_mask, dtype=torch.float64,
+                           device=sim.device)
+    return (sim.neumann_load - sim.apply_K(u)) * free
+
+
+def position_map(a, b):
+    """``m`` with ``b[m] == a`` row for row, for two arrays holding the
+    same rows (node positions in two numberings, equal to the bit)."""
+    ia, ib = np.lexsort(a.T[::-1]), np.lexsort(b.T[::-1])
+    if not np.array_equal(a[ia], b[ib]):
+        raise RuntimeError("21a: the two meshes' node positions differ")
+    m = np.empty(len(a), dtype=np.int64)
+    m[ia] = ib
+    return m
+
+
+def drive_node_orders(dev, entry, gen, tmr):
+    """21a: the bench mesh in each node order, built (host seconds) and
+    solved as phase 4 does (``operator="routed"``, counted); each solve's
+    float64 relative residual <= 1e-10; the reference-order solution,
+    permuted through ``node_perm``, through each order's f64 EBE residual
+    operator equal to the permuted reference-order residual to
+    ``PERMUTED_RESIDUAL_GATE`` of |b| (for ``"firsttouch"``, built over
+    ``reorder_mesh(order="rcb")``'s elements, the reference order of the
+    same V, T, the solution carried across by node position); then the
+    kernels on each order's plans (``kernels_phase21``).  The builds and
+    solves run inside sections of ``tmr`` (``utils.timer.Timer``), each
+    order's section against the host clock of the same span."""
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.mesh.reorder import reorder_mesh
+
+    V, T = generators.grid_tet(BENCH_N, BENCH_N, BENCH_N)
+    (V2, T2, _, _), t_reorder = timed(lambda: reorder_mesh(V, T,
+                                                           order="rcb"))
+    out, paths, checked = {}, {}, []
+    ref = None
+    for order in NODE_ORDERS:
+        Vo, To = (V2, T2) if order == "firsttouch" else (V, T)
+        label = f"21a {order}"
+        t_span = time.time()
+        with tmr.section(order):
+            with tmr.section("mesh"):
+                t0 = time.time()
+                mesh = FEMMesh(Vo, To, degree=2, node_order=order)
+                t_mesh = time.time() - t0
+            with tmr.section("simulator"):
+                sim = clamped_sim(mesh, dev)
+            with tmr.section("solve"):
+                u, res, wall, counts, applies = drive_solve(
+                    sim, label, ("gather_rows", "segment_sum_rows",
+                                 "element_stiffness"))
+        span = time.time() - t_span
+        relres = check_solution(sim, u, label)
+        paths[f"21a_{order}"] = counts
+        if order == "reference":
+            ref = (sim, u, free_residual(sim, u))
+        if order == "firsttouch":
+            # the reference order of the reordered V, T, and phase 21a's
+            # reference solution carried onto it by node position
+            sim0, u0, _ = ref
+            mesh_r = FEMMesh(V2, T2, degree=2)
+            sim_r = clamped_sim(mesh_r, dev)
+            m = torch.as_tensor(position_map(mesh_r.node_positions,
+                                             sim0.mesh.node_positions),
+                                device=dev)
+            u_r = u0[m]
+            base = (sim_r, u_r, free_residual(sim_r, u_r))
+        else:
+            base = ref
+        sim_b, u_b, r_b = base
+        perm = torch.as_tensor(mesh.node_perm, device=dev)
+        same_setup = bool(
+            np.array_equal(sim.dirichlet_mask[mesh.node_perm],
+                           sim_b.dirichlet_mask)
+            and torch.equal(sim.neumann_load[perm], sim_b.neumann_load))
+        u_o = torch.empty_like(u_b)
+        u_o[perm] = u_b
+        r_o = free_residual(sim, u_o)
+        b_norm = float(torch.linalg.norm(sim_b.neumann_load))
+        gap = float(torch.linalg.norm(r_o[perm] - r_b)) / b_norm
+        card_log(f"{label}: FEMMesh {t_mesh:.3f} s (host), section "
+                 f"{tmr.sections[order]:.3f} s against {span:.3f} s of host "
+                 f"clock; solve {wall:.3f} s, {res.rounds} rounds, "
+                 f"{res.iters} inner iterations, "
+                 f"{wall / max(res.iters, 1) * 1e3:.3f} ms an iteration, "
+                 f"f64 relres {relres:.3e}; the permuted reference-order "
+                 f"residual {gap:.3e} of |b|, loads and clamps permuted "
+                 f"equal {same_setup}")
+        if not (same_setup and gap <= PERMUTED_RESIDUAL_GATE):
+            raise RuntimeError(f"{label}: not the reference operator up to "
+                               f"the numbering ({gap:.3e})")
+        out[order] = dict(femmesh_s=t_mesh, section_s=tmr.sections[order],
+                          span_s=span, solve_s=wall, rounds=res.rounds,
+                          inner_iters=res.iters,
+                          ms_per_iter=wall / max(res.iters, 1) * 1e3,
+                          relres=relres, permuted_residual_gap=gap,
+                          applies=applies)
+        checked += kernels_phase21(dev, entry, order, sim, counts, gen)
+        del sim, u, u_o, r_o, base, sim_b, u_b, r_b
+        if order == "firsttouch":
+            del sim_r, u_r
+    out["reorder_mesh_s"] = t_reorder
+    return out, paths, checked, ref
+
+
+def kernels_phase21(dev, entry, order, sim, counts, gen):
+    """21d: kernels A (f32 rows at 3 values, out of planes as the solve
+    runs it), B (f32 rows at 3 values into planes, and f64 rows at 3 on
+    the EBE plan) and E on one node order's plans and geometry, each held
+    against its plain version (A exactly; B f32 bit for bit against B in
+    planes and to 1e-5 of plain, f64 to 1e-12; E within one float32 ulp
+    of the float64 ``Ke`` of its own inputs) and timed with ``entry``."""
+    from meshfem_tpu_torch import kernels
+    from meshfem_tpu_torch.ops import element_matrices as em
+
+    src_dir = "meshfem_tpu_torch/csrc/"
+    A_TPU, B_TPU = ("meshfem_tpu/sparse/route.py:139",
+                    "meshfem_tpu/sparse/route.py:162")
+    launches = lambda name: own_mode(counts, name)
+    rk = sim.routed_kernel()
+    E, N = sim.mesh.num_elements, sim.num_dofs
+    shape = f"grid_tet({BENCH_N}) P2 in node order {order!r}"
+    path = f"21a node order {order!r}, the routed clamped solve"
+    ids_em, S = rk.ids_em, rk.ids_em.shape[0]
+    src3 = torch.randn((3, N), generator=gen, device=dev)
+    if not torch.equal(kernels.gather_rows(src3, ids_em, planes_in=True),
+                       kernels.gather_rows_plain(src3, ids_em, True)):
+        raise RuntimeError(f"21d gather_rows ({order}) != plain")
+    ids_long = ids_em.long()
+    entry(f"gather_rows/order/{order}", src_dir + "gather_planes.cu", A_TPU,
+          launches("gather_rows"), 0.0,
+          lambda: kernels.gather_rows(src3, ids_em, planes_in=True),
+          lambda: kernels.gather_rows_plain(src3, ids_em, True),
+          lambda: torch.index_select(src3.t(), 0, ids_long),
+          S * 4 + 3 * N * 4 + 3 * S * 4, 0,
+          mode="rows out [S, 3] from planes [3, N], as apply_planes runs it",
+          launches_path=path, library_call="torch.index_select",
+          shape=f"{shape}; src [3, {N}] f32, ids_em [{S}] int32")
+    perm_em, offs = rk.plan_em.perm, rk.plan_em.offsets
+    fr = torch.randn((S, 3), generator=gen, device=dev)
+    err_b = check_b_rows(fr, rk, offs, f"21d B rows f32 ({order})")
+    acc = torch.zeros((N, 3), device=dev)
+    entry(f"segment_sum_rows/order/{order}", src_dir + "segment_sum_csr.cu",
+          B_TPU, launches(f"segment_sum_rows/order/{order}"), err_b,
+          lambda: kernels.segment_sum_rows(fr, perm_em, offs,
+                                           planes_out=True),
+          lambda: kernels.segment_sum_rows_plain(fr, perm_em, offs, True),
+          lambda: acc.index_add_(0, ids_long, fr),
+          3 * S * 4 + S * 4 + (N + 1) * 4 + 3 * N * 4, 3 * S,
+          mode="rows [S, 3] -> planes [3, N], as apply_planes runs it",
+          launches_path=path + ", float32 launches",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"{shape}; src [{S}, 3] f32 -> [3, {N}]")
+    plan64 = sim._kernel.plan
+    R = plan64.num_rows
+    dr = torch.randn((R, 3), generator=gen, device=dev, dtype=torch.float64)
+    err_b64 = check_rows_on_plan(plan64, torch.float64,
+                                 f"21d B rows f64 ({order})", gen, P=3)
+    dst64 = sim._kernel.elem_dofs.reshape(-1)
+    acc64 = torch.zeros((N, 3), device=dev, dtype=torch.float64)
+    entry(f"segment_sum_rows/f64/order/{order}",
+          src_dir + "segment_sum_csr.cu",
+          B_TPU + " (f64: the XLA scatter of meshfem_tpu/sparse/scatter.py)",
+          launches(f"segment_sum_rows/f64/order/{order}"), err_b64,
+          lambda: plan64.sum_rows(dr),
+          lambda: kernels.segment_sum_rows_plain(dr, plan64.perm,
+                                                 plan64.offsets),
+          lambda: acc64.index_add_(0, dst64, dr),
+          3 * R * 8 + R * 4 + (N + 1) * 4 + 3 * N * 8, 3 * R,
+          flop_rate=F64_FLOP_PER_S,
+          mode="f64 rows [R, 3] -> rows [N, 3]: the EBE residual, whose "
+               "plan follows the mesh's node order",
+          launches_path=path + ", float64 launches",
+          library_call="Tensor.index_add_ (float atomics)",
+          shape=f"{shape}; src [{R}, 3] f64 -> [{N}, 3]")
+    g32 = sim.geom.grad_lambda.float().contiguous()
+    v32 = sim.geom.volume.float().contiguous()
+    D_host = sim.D.cpu()
+    Ke32 = kernels.element_stiffness(g32, v32, D_host, 2)
+    e_ref = kernels.element_stiffness_plain(g32, v32, D_host, 2)
+    scale = float(e_ref.abs().max())
+    err_e = float((Ke32 - e_ref).abs().max())
+    ulps = ulps_from(Ke32, em.element_elasticity_fused(
+        g32.double(), v32.double(), sim.D, 2))
+    del Ke32, e_ref
+    card_log(f"21d E ({order}): max abs err {err_e:.3e} against plain "
+             f"(max|Ke| {scale:.3e}), {ulps:.3f} ulp of each entry from the "
+             f"f64 Ke of the same float32 inputs")
+    if not (err_e <= 1e-5 * scale and ulps <= 1.0):
+        raise RuntimeError(f"21d: element_stiffness ({order}) disagrees")
+    M32 = torch.as_tensor(em.fused_matrix_for(sim.D, 3, 2),
+                          dtype=torch.float32, device=dev)
+    entry(f"element_stiffness/order/{order}",
+          src_dir + "element_stiffness.cu",
+          "meshfem_tpu/kernels/element_stiffness.py:42",
+          launches("element_stiffness"), err_e,
+          lambda: kernels.element_stiffness(g32, v32, D_host, 2),
+          lambda: kernels.element_stiffness_plain(g32, v32, D_host, 2),
+          lambda: em.element_elasticity_fused_apply(g32, v32, M32, 10),
+          (12 + 1 + 900) * E * 4 + 36 * 8, (2 * (144 * 9 + 900 * 16) + 900) * E,
+          algorithm_flops=(2 * (10 * (9 + 81) + 900 * 16) + 900) * E,
+          algorithm_flop_rate=F64_FLOP_PER_S, max_ulps_vs_f64=ulps,
+          mode="f32 Ke [E, 30, 30], one per dense routed operator build",
+          launches_path=path,
+          library_call="ops.element_matrices.element_elasticity_fused_apply",
+          shape=f"{shape}: grad_lambda [{E}, 4, 3], vol [{E}] f32")
+    return [f"gather_rows/order/{order}", f"segment_sum_rows/order/{order}",
+            f"segment_sum_rows/f64/order/{order}",
+            f"element_stiffness/order/{order}"]
+
+
+def example_checks(name, text):
+    """21b's gate on what each example prints: the value it gates on."""
+    lines = text.splitlines()
+    if name == "cantilever":
+        v = float(text.split("relres=")[1].split()[0])
+        ok = v <= 1e-10
+    elif name == "homogenize_voxels":
+        v = printed_value(text, "cubic check")
+        ok = v <= 1e-8
+    elif name == "topology_optimization":
+        c = [float(x) for x in text.split("compliance ")[1].split()[:3:2]]
+        v, ok = c[1] / c[0], c[1] < c[0]
+    elif name == "vibrational_modes":
+        row = next(ln for ln in lines if ln.startswith("smallest nonzero"))
+        lam = [float(x) for x in row.split("[")[1].rstrip("]").split()]
+        v, ok = min(lam), min(lam) > 0
+    else:
+        row = next(ln for ln in lines if ln.startswith("SPD check"))
+        lo = float(row.split("[")[1].split(",")[0])
+        v, ok = lo, lo > 0
+    return v, ok
+
+
+class KernelCapture:
+    """While active, counts the kernel wrappers' CUDA calls and keeps a
+    copy of the inputs of each wrapper's first CUDA call in each distinct
+    shape, dtype, stride and layout.  Each wrapper is rebound, in every
+    loaded module of the port but the one defining it (whose launch counts
+    are attributes of the original function), to a stand-in that records
+    and then calls it; a module imported while active takes the stand-in
+    from the ``kernels`` package, and every stand-in is unbound at exit."""
+
+    def __init__(self):
+        import inspect
+
+        from meshfem_tpu_torch import kernels
+
+        self.originals = {w.__name__: w for w in kernels.WRAPPERS}
+        self.defining = {w.__module__ for w in kernels.WRAPPERS}
+        self.calls = dict.fromkeys(self.originals, 0)
+        self.inputs = {}      # key -> (wrapper name, {argument: value})
+        self.stand_ins = {name: self._stand_in(name, w, inspect.signature(w))
+                          for name, w in self.originals.items()}
+
+    def _stand_in(self, name, fn, sig):
+        def stand_in(*args, **kw):
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            arg = bound.arguments
+            first = next(iter(arg.values()))
+            if isinstance(first, torch.Tensor) \
+                    and first.device.type == "cuda":
+                self.calls[name] += 1
+                key = (name,) + tuple(
+                    (k, tuple(v.shape), v.dtype, v.stride())
+                    if isinstance(v, torch.Tensor) else (k, repr(v))
+                    for k, v in arg.items())
+                if key not in self.inputs:
+                    self.inputs[key] = (name, {
+                        k: v.clone() if isinstance(v, torch.Tensor) else v
+                        for k, v in arg.items()})
+            return fn(*args, **kw)
+        return stand_in
+
+    def _rebind(self, old, new):
+        for mod in list(sys.modules.values()):
+            mname = getattr(mod, "__name__", None) or ""
+            if not mname.startswith("meshfem_tpu_torch") \
+                    or mname in self.defining:
+                continue
+            for name in self.originals:
+                if mod.__dict__.get(name) is old[name]:
+                    setattr(mod, name, new[name])
+
+    def __enter__(self):
+        self._rebind(self.originals, self.stand_ins)
+        return self
+
+    def __exit__(self, *exc):
+        self._rebind(self.stand_ins, self.originals)
+
+
+def check_captured(label, capture, counts, entry):
+    """21b: every launch of the example's counted run went through the
+    capture (its CUDA calls per wrapper equal the launch counts), and each
+    captured call of kernels A and B is run again on the inputs the path
+    gave it and held against its plain version (A exactly, on the card
+    and on the CPU; B with ``check_rows_sum``); a wrapper without a check
+    here fails the run.  The largest call of each kernel and dtype is
+    timed with ``entry`` as the line ``<wrapper>[/f64]/example/<name>``.
+    Returns (the names of the kernel lines, the calls checked)."""
+    from meshfem_tpu_torch import kernels
+
+    for name, n in capture.calls.items():
+        if n != counts[name]:
+            raise RuntimeError(f"{label}: {counts[name]} {name} launches, "
+                               f"{n} of them seen by the capture")
+    src_dir = "meshfem_tpu_torch/csrc/"
+    largest = {}
+    for name, arg in capture.inputs.values():
+        src = next(iter(arg.values()))
+        if name == "gather_rows":
+            y = kernels.gather_rows(**arg)
+            if not (torch.equal(y, kernels.gather_rows_plain(**arg))
+                    and torch.equal(y.cpu(), kernels.gather_rows_plain(
+                        **{k: v.cpu() if isinstance(v, torch.Tensor) else v
+                           for k, v in arg.items()}))):
+                raise RuntimeError(f"{label}: gather_rows {src.dtype} "
+                                   f"{tuple(src.shape)} != plain")
+            err = 0.0
+        elif name == "segment_sum_rows":
+            err = check_rows_sum(arg["src"], arg["perm"], arg["offsets"],
+                                 label, arg["planes_out"])
+        else:
+            raise RuntimeError(f"{label}: {name} launched on the example's "
+                               f"path, and 21b has no check for it")
+        k = (name, src.dtype)
+        if k not in largest or src.numel() > largest[k][1]["src"].numel():
+            largest[k] = (err, arg)
+    ex = label.split()[-1]
+    names = []
+    for (name, dtype), (err, arg) in largest.items():
+        f64 = dtype == torch.float64
+        es = 8 if f64 else 4
+        line = f"{name}{'/f64' if f64 else ''}/example/{ex}"
+        path = f"{label}, {'float64' if f64 else 'float32'} launches"
+        if name == "gather_rows":
+            src, ids, planes_in = arg["src"], arg["ids"], arg["planes_in"]
+            rows = src.t() if planes_in else src
+            (N, P), S = rows.shape, ids.shape[0]
+            ids_long = ids.long()
+            library = None if bool((ids < 0).any()) else (
+                lambda rows=rows, ids_long=ids_long:
+                torch.index_select(rows, 0, ids_long))
+            entry(line, src_dir + "gather_planes.cu",
+                  "meshfem_tpu/sparse/route.py:139", own_mode(counts, line),
+                  err, lambda arg=arg: kernels.gather_rows(**arg),
+                  lambda arg=arg: kernels.gather_rows_plain(**arg), library,
+                  S * 4 + N * P * es + S * P * es, 0,
+                  mode=f"the largest of the example's {dtype} gathers, on "
+                       f"the inputs it gave",
+                  launches_path=path,
+                  library_call=None if library is None
+                  else "torch.index_select",
+                  shape=f"src {list(src.shape)} {dtype}"
+                        f"{' planes' if planes_in else ''}, ids [{S}] int32")
+        else:
+            src, perm, offs = arg["src"], arg["perm"], arg["offsets"]
+            (R, P), N = src.shape, offs.shape[0] - 1
+            library = None
+            if perm.numel() == R:
+                dst = torch.empty(R, dtype=torch.long, device=src.device)
+                dst[perm.long()] = torch.repeat_interleave(
+                    torch.arange(N, device=src.device),
+                    (offs[1:] - offs[:-1]).long())
+                acc = torch.zeros((N, P), dtype=dtype, device=src.device)
+                library = (lambda acc=acc, dst=dst, src=src:
+                           acc.index_add_(0, dst, src))
+            entry(line, src_dir + "segment_sum_csr.cu",
+                  "meshfem_tpu/sparse/route.py:162" + (
+                      " (f64: the XLA scatter of meshfem_tpu/sparse/"
+                      "scatter.py)" if f64 else ""),
+                  own_mode(counts, line), err,
+                  lambda arg=arg: kernels.segment_sum_rows(**arg),
+                  lambda arg=arg: kernels.segment_sum_rows_plain(**arg),
+                  library,
+                  P * R * es + R * 4 + (N + 1) * 4 + P * N * es, P * R,
+                  flop_rate=F64_FLOP_PER_S if f64 else F32_FLOP_PER_S,
+                  mode=f"the largest of the example's {dtype} sums, on the "
+                       f"inputs it gave",
+                  launches_path=path,
+                  library_call=None if library is None
+                  else "Tensor.index_add_ (float atomics)",
+                  shape=f"src [{R}, {P}] {dtype} -> [{N}, {P}]")
+        names.append(line)
+    return names, len(capture.inputs)
+
+
+def drive_examples(dev, tmp, entry):
+    """21b: the five examples at their default arguments on the card, in
+    this process as ``tests/test_examples.py`` runs the reference's
+    (``runpy``, ``sys.argv``), in a scratch working directory; seconds,
+    printed lines and launches of each, and each one's own check; every
+    kernel call of each run captured (``KernelCapture``) and held against
+    its plain version on the inputs the example gave it
+    (``check_captured``).  Returns (summary, launch counts per path, the
+    names of the kernel lines added)."""
+    import contextlib
+    import io
+    import runpy
+
+    out, paths, checked = {}, {}, []
+    cwd, argv = os.getcwd(), sys.argv
+    os.chdir(tmp)
+    try:
+        for name in EXAMPLES:
+            module = f"meshfem_tpu_torch.examples.{name}"
+            buf = io.StringIO()
+            sys.argv = [module]
+
+            def run():
+                with contextlib.redirect_stdout(buf), \
+                        warnings.catch_warnings():
+                    warnings.simplefilter("ignore", RuntimeWarning)
+                    runpy.run_module(module, run_name="__main__")
+
+            label = f"21b {name}"
+            with KernelCapture() as capture:
+                _, wall, counts = counted(label, run)
+            paths[f"21b_{name}"] = counts
+            text = buf.getvalue()
+            value, ok = example_checks(name, text)
+            card_log(f"{label}: {wall:.2f} s, gated value {value:.6g} "
+                     f"({'ok' if ok else 'FAILED'}); launches "
+                     f"{ {k: v for k, v in counts.items() if v} }"
+                     f"; printed:\n" + text.rstrip())
+            if not ok:
+                raise RuntimeError(f"{label}: its check failed")
+            lines, n_calls = check_captured(label, capture, counts, entry)
+            card_log(f"{label}: {n_calls} distinct kernel calls held "
+                     f"against plain on the example's own inputs; lines "
+                     f"{lines}")
+            checked += lines
+            out[name] = dict(s=wall, gated=value, kernel_calls=n_calls,
+                             lines=text.rstrip().splitlines())
+    finally:
+        os.chdir(cwd)
+        sys.argv = argv
+    return out, paths, checked
+
+
+def drive_utilities(dev, ref, tmp):
+    """21c: the checkpoint round trip of the bench solve's u and residual
+    (card -> npz -> card, equal to the bit), the binary triplet dump of
+    ``to_scipy()`` at grid_tet(16) P2 and back (equal), and the viewer
+    (``write_html_viewer``, ``save_mesh_png``) of the bench mesh's boundary
+    triangles colored by the von Mises stress of the tet behind each;
+    host seconds of each."""
+    import importlib.util
+
+    import scipy.sparse as sp
+
+    from meshfem_tpu_torch import vis
+    from meshfem_tpu_torch.mesh import FEMMesh, generators
+    from meshfem_tpu_torch.utils import checkpoint
+
+    sim, u, r = ref
+    out = {}
+    path = os.path.join(tmp, "state.npz")
+    _, t_save = timed(lambda: checkpoint.save_solver_state(
+        path, {"u": u, "residual": r}))
+    back, t_load = timed(lambda: checkpoint.load_solver_state(path, dev))
+    equal = (back["u"].device == u.device and torch.equal(back["u"], u)
+             and torch.equal(back["residual"], r))
+    card_log(f"21c checkpoint of u and the residual ({u.numel()} + "
+             f"{r.numel()} f64): save {t_save:.3f} s "
+             f"({os.path.getsize(path)} bytes), load to the card "
+             f"{t_load:.3f} s, equal to the bit {equal}")
+    if not equal:
+        raise RuntimeError("21c: the solver state did not round-trip")
+    out["checkpoint"] = dict(save_s=t_save, load_s=t_load,
+                             bytes=os.path.getsize(path))
+    small = clamped_sim(FEMMesh(*generators.grid_tet(MATRIX_N, MATRIX_N,
+                                                     MATRIX_N), degree=2),
+                        dev)
+    A = small.to_scipy()
+    mpath = os.path.join(tmp, "K.bin")
+    _, t_dump = timed(lambda: checkpoint.dump_matrix(mpath, A))
+    B, t_read = timed(lambda: checkpoint.read_matrix(mpath))
+    same = (B.shape == A.shape and (sp.csr_matrix(B) != A).nnz == 0)
+    card_log(f"21c dump_matrix / read_matrix of to_scipy() at "
+             f"grid_tet({MATRIX_N}) P2 ({A.shape[0]} rows, {A.nnz} entries): "
+             f"{t_dump:.3f} / {t_read:.3f} s, {os.path.getsize(mpath)} bytes, "
+             f"equal {same}")
+    if not same:
+        raise RuntimeError("21c: the matrix dump did not round-trip")
+    out["matrix"] = dict(rows=A.shape[0], nnz=A.nnz, dump_s=t_dump,
+                         read_s=t_read)
+    del small, A, B
+    vm = sim.von_mises_field(u)[torch.as_tensor(sim.mesh.bdry_elem_vol_elem,
+                                                device=dev)]
+    html = os.path.join(tmp, "bench.html")
+    png = os.path.join(tmp, "bench.png")
+    _, t_html = timed(lambda: vis.write_html_viewer(html, sim.mesh,
+                                                    field=vm))
+    # save_mesh_png renders with matplotlib, which a card's machine may
+    # not have: then it is not measured, and said so
+    if importlib.util.find_spec("matplotlib") is None:
+        t_png, png_note = None, "not measured (no matplotlib installed)"
+    else:
+        _, t_png = timed(lambda: vis.save_mesh_png(png, sim.mesh, vm))
+        png_note = f"{t_png:.3f} s ({os.path.getsize(png)} bytes)"
+    card_log(f"21c viewer of the bench mesh's {len(vm)} boundary triangles "
+             f"with von Mises: write_html_viewer {t_html:.3f} s "
+             f"({os.path.getsize(html)} bytes), save_mesh_png {png_note}")
+    if not (len(vm) == sim.mesh.num_boundary_elements
+            and os.path.getsize(html) > 0
+            and (t_png is None or os.path.getsize(png) > 0)):
+        raise RuntimeError("21c: the viewer files are wrong")
+    out["viewer"] = dict(triangles=len(vm), html_s=t_html, png_s=t_png,
+                         html_bytes=os.path.getsize(html))
+    return out
+
+
+def drive_phase21(dev, entry, gen):
+    """Phase 21a-d; returns (summary, launch counts per path, the names
+    of the kernel lines 21b and 21d added)."""
+    import tempfile
+
+    from meshfem_tpu_torch.utils.timer import Timer as SectionTimer
+
+    out, parts = {}, {}
+    t0 = time.time()
+    tmr = SectionTimer()
+    tmr.enabled = True
+    t = time.time()
+    out["node_orders"], paths, checked, ref = drive_node_orders(
+        dev, entry, gen, tmr)
+    parts["21a"] = time.time() - t
+    spans = sum(out["node_orders"][o]["span_s"] for o in NODE_ORDERS)
+    sections = sum(tmr.sections[o] for o in NODE_ORDERS)
+    inner = max(abs(tmr.sections[o] - sum(
+        tmr.sections[f"{o}/{p}"] for p in ("mesh", "simulator", "solve")))
+        for o in NODE_ORDERS)
+    card_log(f"21c Timer: the four orders' sections {sections:.3f} s "
+             f"against {spans:.3f} s of host clock over the same spans; "
+             f"each order's parts sum to it within {inner:.4f} s; counts "
+             f"{tmr.counts}")
+    if not (0.99 * spans - 0.05 <= sections <= spans and inner <= 0.05):
+        raise RuntimeError("21c: the Timer's sections miss the host clock")
+    out["timer"] = dict(sections_s=sections, host_s=spans,
+                        parts_gap_s=inner)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        out["examples"], p, lines = drive_examples(dev, tmp, entry)
+        paths.update(p)
+        checked += lines
+        parts["21b"] = time.time() - t
+        t = time.time()
+        out["utilities"] = drive_utilities(dev, ref, tmp)
+        parts["21c"] = time.time() - t
+    out["parts_s"] = parts
+    out["phase_s"] = time.time() - t0
+    card_log(f"phase 21 (21a-d): {out['phase_s']:.1f} s, by part "
+             + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return out, paths, checked
+
 def check_b_rows(src, op, offsets, label):
     """Kernel B in rows on a routed operator's element-major plan: twice
     bit for bit, bit for bit against B in planes on the same contributions
@@ -7787,6 +8423,11 @@ def main() -> int:
     p20["kernels_s"] = time.time() - t0
     summary["phase20"] = p20
     del sim20
+
+    # -- 21. the last surface: node orders, the examples, the utilities ---
+    p21, paths21, checked21 = drive_phase21(dev, entry, gen)
+    p21["kernel_checks"] = checked21
+    summary["phase21"] = p21
     summary.update(
         dense_bmm_ms=timer(lambda: torch.bmm(rk.KeP, ue_dense)),
         dense_bmm_bound_ms=rk.KeP.numel() * 4 / HBM_BYTES_PER_S * 1e3,
@@ -7811,6 +8452,8 @@ def main() -> int:
                                        for p, c in paths19.items()}
         r["launches_phase20_paths"] = {p: own_mode(c, r["name"])
                                        for p, c in paths20.items()}
+        r["launches_phase21_paths"] = {p: own_mode(c, r["name"])
+                                       for p, c in paths21.items()}
     summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))

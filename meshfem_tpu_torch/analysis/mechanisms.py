@@ -34,10 +34,9 @@ differentiate (the vertex endpoints, the element corners) is a
 ``GatherPlan``, so on the card each backward sums by kernel B in a fixed
 order and dEh repeats bit for bit.
 
-The port's ``FEMMesh`` keeps the reference node order only, so the
-reference's rebuild of a mesh in another ``node_order`` before the loop is
-the identity here and is left out.  Entry points run on the CUDA device
-unless ``device="cpu"``.
+A mesh in another ``node_order`` is rebuilt in the reference order before
+the loop, as in the reference, since the loop rebuilds the mesh at each
+step.  Entry points run on the CUDA device unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -204,6 +203,14 @@ def _cell_problems(m, D0, dof_map, cell, tol, dev):
         sim, w, base_cell_volume=cell.volume())
 
 
+def _in_reference_order(mesh: FEMMesh) -> FEMMesh:
+    """``mesh`` renumbered in the reference node order: the linkage loops
+    rebuild the mesh at each step, so ``dof_map`` must keep meaning."""
+    if mesh.node_order == "reference":
+        return mesh
+    return FEMMesh(np.asarray(mesh.V), mesh.F, degree=mesh.degree)
+
+
 def open_linkage(mesh: FEMMesh, material, num_steps: int = 20,
                  opening_speed: float = 0.01, orthotropic_cell: bool = False,
                  tol: float = 1e-7, permit_mismatch: bool = False,
@@ -219,6 +226,7 @@ def open_linkage(mesh: FEMMesh, material, num_steps: int = 20,
     the input mesh and held (the reference's manualPeriodicVertices)."""
     dev = config.resolve_device(device)
     D0 = _base_tensor(material)
+    mesh = _in_reference_order(mesh)
     dim = mesh.dim
     edges = _unique_edges(mesh)
     V0 = np.asarray(mesh.V, np.float64)
@@ -287,6 +295,7 @@ def optimize_linkage(mesh: FEMMesh, material, num_steps: int = 20,
     over periodically identified vertices."""
     dev = config.resolve_device(device)
     D0 = _base_tensor(material)
+    mesh = _in_reference_order(mesh)
     dim = mesh.dim
     edges = _unique_edges(mesh)
     V0 = np.asarray(mesh.V, np.float64)

@@ -21,8 +21,11 @@ The area pairing sums its boundary-edge terms into nodes through one
 ``ScatterPlan`` (kernel B), not ``index_add_``.  As in the reference the
 maps are of the vertices: ``harmonic`` on a P2 mesh fixes the boundary
 vertices only (its boundary edge nodes stay free), and the Jacobian
-reads the vertex values.  Entry points run on the CUDA device unless
-``device="cpu"`` (or ``uv`` is a CPU tensor).
+reads the vertex values.  Vertex ids (boundary loops and edges, the
+pins, ``F``) become node ids through ``mesh.vertex_nodes``, so a mesh in
+any ``node_order`` gives the reference order's maps, renumbered (the
+reference reads vertex ids as node ids).  Entry points run on the CUDA
+device unless ``device="cpu"`` (or ``uv`` is a CPU tensor).
 """
 
 from __future__ import annotations
@@ -44,11 +47,11 @@ def _conformal_operator(mesh: FEMMesh, device=None):
     L = operators.laplacian(mesh, device=device)
     dev = L.Ke.device
     edges = mesh.cell.boundary_edges()          # [B, 2] CCW
+    en = mesh.vertex_nodes[edges]               # their node ids
     N = mesh.num_nodes
-    i = torch.as_tensor(edges[:, 0], device=dev)
-    j = torch.as_tensor(edges[:, 1], device=dev)
-    plan = ScatterPlan.build(np.concatenate([edges[:, 0], edges[:, 1]]), N,
-                             dev)
+    i = torch.as_tensor(en[:, 0], device=dev)
+    j = torch.as_tensor(en[:, 1], device=dev)
+    plan = ScatterPlan.build(np.concatenate([en[:, 0], en[:, 1]]), N, dev)
 
     def area_pair(z):
         """Gradient of Area(u, v) = 1/2 sum (u_i v_j - u_j v_i): the terms
@@ -77,10 +80,11 @@ def harmonic(mesh: FEMMesh, tol: float = 1e-11,
     seg = np.linalg.norm(np.roll(pts, -1, axis=0) - pts, axis=1)
     s = np.concatenate([[0], np.cumsum(seg)[:-1]]) / seg.sum()
     theta = 2 * np.pi * s
+    nodes = mesh.vertex_nodes[loop]
     fixed = np.zeros(mesh.num_nodes, dtype=bool)
-    fixed[loop] = True
+    fixed[nodes] = True
     vals = np.zeros((mesh.num_nodes, 2))
-    vals[loop] = np.stack([np.cos(theta), np.sin(theta)], axis=1)
+    vals[nodes] = np.stack([np.cos(theta), np.sin(theta)], axis=1)
     fixed_t = torch.as_tensor(fixed, device=dev)
     vals_t = torch.as_tensor(vals, device=dev)
     diag = L.diagonal()
@@ -94,9 +98,10 @@ def harmonic(mesh: FEMMesh, tol: float = 1e-11,
 
 def lscm(mesh: FEMMesh, pin_nodes=None, tol: float = 1e-11,
          device=None) -> torch.Tensor:
-    """Least-squares conformal map with two pinned vertices
-    (``Parametrization.hh:35``): [N, 2], unpreconditioned CG of at most
-    20,000 iterations, as the reference's."""
+    """Least-squares conformal map with two pinned nodes
+    (``Parametrization.hh:35``; by default the nodes of the two
+    farthest-apart boundary vertices): [N, 2], unpreconditioned CG of at
+    most 20,000 iterations, as the reference's."""
     H, L, _ = _conformal_operator(mesh, device)
     if pin_nodes is None:
         # pin the two farthest-apart boundary vertices
@@ -104,7 +109,8 @@ def lscm(mesh: FEMMesh, pin_nodes=None, tol: float = 1e-11,
         p = mesh.V[bverts]
         d2 = ((p[:, None] - p[None, :]) ** 2).sum(-1)
         a, b = np.unravel_index(np.argmax(d2), d2.shape)
-        pin_nodes = [int(bverts[a]), int(bverts[b])]
+        pin_nodes = [int(mesh.vertex_nodes[bverts[a]]),
+                     int(mesh.vertex_nodes[bverts[b]])]
     dev = L.Ke.device
     fixed = np.zeros((mesh.num_nodes, 2), dtype=bool)
     fixed[pin_nodes] = True
@@ -181,6 +187,7 @@ def _param_jacobian(mesh: FEMMesh, uv, device=None) -> torch.Tensor:
         n = n / np.linalg.norm(n, axis=1, keepdims=True)
         e2 = np.cross(n, e1)
     frame = torch.as_tensor(np.stack([e1, e2], axis=1), device=dev)
-    uve = uv[torch.as_tensor(mesh.F, device=dev)]        # [E, 3, 2]
+    corners = torch.as_tensor(mesh.vertex_nodes[mesh.F], device=dev)
+    uve = uv[corners]                                    # [E, 3, 2]
     duv = torch.einsum("enc,end->ecd", uve, gp)          # [E, 2, dim]
     return torch.einsum("ecd,efd->ecf", duv, frame)

@@ -28,6 +28,37 @@ REAL = torch.float64
 SOLVE = torch.float32
 INDEX = torch.int32
 
+_real = REAL
+
+
+def real_dtype() -> torch.dtype:
+    """Dtype for geometry and assembly (``REAL`` unless ``set_real_dtype``
+    changed it; reference ``config.py:44``)."""
+    return _real
+
+
+def index_dtype() -> torch.dtype:
+    """Dtype of the connectivity streams the kernels read (``INDEX``)."""
+    return INDEX
+
+
+def accum_dtype() -> torch.dtype:
+    """Dtype for scalar reductions inside the solvers (``REAL``)."""
+    return REAL
+
+
+def set_real_dtype(dtype) -> None:
+    """Change what ``real_dtype()`` returns, and nothing else, as in the
+    reference (``config.py:63``): the modules read ``REAL``."""
+    global _real
+    _real = dtype
+
+
+def x64_enabled() -> bool:
+    """Float64 is always on in the port (the reference's
+    ``MESHFEM_TPU_X64`` switch has no counterpart)."""
+    return True
+
 
 def default_device() -> torch.device:
     """The CUDA device; raises when CUDA is missing (never picks the CPU)."""

@@ -12,6 +12,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 def flat_len(dim: int) -> int:
@@ -70,7 +71,45 @@ def shear_doubler(dim: int) -> np.ndarray:
     return np.where(r == c, 1.0, 2.0)
 
 
-def flat_to_sym(v, dim: int):
-    """[..., flat] tensor -> [..., d, d] full symmetric tensor."""
-    f2f = full_to_flat_map(dim)
+def sqrt_shear_doubler(dim: int) -> np.ndarray:
+    return np.sqrt(shear_doubler(dim))
+
+
+_DIM_OF_FLAT = {1: 1, 3: 2, 6: 3}
+
+
+def sym_to_flat(m, dim: int | None = None):
+    """[..., d, d] symmetric -> [..., flat] in MeshFEM Voigt order (raw
+    components)."""
+    r, c, _ = _tables(m.shape[-1] if dim is None else dim)
+    return m[..., r, c]
+
+
+def flat_to_sym(v, dim: int | None = None):
+    """[..., flat] -> [..., d, d] full symmetric tensor."""
+    f2f = full_to_flat_map(_DIM_OF_FLAT[v.shape[-1]] if dim is None
+                           else dim)
     return v[..., f2f]
+
+
+def flat_trace(v, dim: int | None = None):
+    """Trace of flattened symmetric matrices [..., flat] -> [...]."""
+    dim = _DIM_OF_FLAT[v.shape[-1]] if dim is None else dim
+    return v[..., :dim].sum(dim=-1)
+
+
+def _shear(v, dim):
+    dim = _DIM_OF_FLAT[v.shape[-1]] if dim is None else dim
+    return torch.as_tensor(shear_doubler(dim), dtype=v.dtype,
+                           device=v.device)
+
+
+def flat_frobenius_sq(v, dim: int | None = None):
+    """Squared Frobenius norm of flattened symmetric matrices (shear
+    counted twice)."""
+    return (_shear(v, dim) * v * v).sum(dim=-1)
+
+
+def flat_double_contract(a, b, dim: int | None = None):
+    """a : b = sum_ij a_ij b_ij for flattened symmetric matrices."""
+    return (_shear(a, dim) * a * b).sum(dim=-1)

@@ -8,7 +8,8 @@ over leading axes (a field of per-element interpolants) and over value
 shapes (scalar, vector and symmetric-matrix values, in place of
 ``SymmetricMatrixInterpolant``).  Values are torch tensors; the tables
 come from ``shape_functions`` on the host, in the values' dtype and
-device.  The port carries degrees 1 and 2.
+device.  Degrees 0 to 4, as the shape functions; ``restrict_to_boundary``
+takes degrees 1 and 2 only.
 """
 
 from __future__ import annotations
@@ -119,9 +120,14 @@ class Interpolant:
 def restrict_to_boundary(K: int, deg: int, face: int) -> np.ndarray:
     """Node indices, within the volume element, of the interpolant
     restricted to boundary sub-simplex ``face`` (in place of
-    ``InterpolantRestriction.hh``)."""
+    ``InterpolantRestriction.hh``), for degree 1 or 2.  The reference's map
+    (``interpolant.py:98``) returns the face's corners alone at any other
+    degree, which is not the face's node set; this one raises there."""
     from ..mesh.simplicial import TET_FACE_CORNERS, TRI_FACE_CORNERS
 
+    if deg not in (1, 2):
+        raise ValueError(f"restrict_to_boundary takes degree 1 or 2, "
+                         f"not {deg}")
     corners = (TRI_FACE_CORNERS if K == 2 else TET_FACE_CORNERS)[face]
     idx = [int(c) for c in corners]
     if deg == 2:

@@ -1,8 +1,9 @@
 """Symmetric Gauss quadrature rules on K-simplices (host tables).
 
-Counterpart of ``meshfem_tpu/fem/quadrature.py`` (``rule_np`` :36; reference
-``GaussQuadrature.hh``).  Points are barycentric coordinates and weights
-sum to 1, so ``integral = vol * sum_i w_i f(p_i)``.
+Counterpart of ``meshfem_tpu/fem/quadrature.py`` (``rule_np`` :36,
+``rule`` :110, ``integrate`` :116; reference ``GaussQuadrature.hh``).
+Points are barycentric coordinates and weights sum to 1, so
+``integral = vol * sum_i w_i f(p_i)``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ import itertools
 import math
 
 import numpy as np
+import torch
+
+from .. import config
 
 MAX_DEGREE = {1: 5, 2: 5, 3: 4}
 
@@ -94,3 +98,22 @@ def rule_np(K: int, degree: int) -> tuple[np.ndarray, np.ndarray]:
         raise AssertionError(f"weights of rule ({K}, {degree}) sum to "
                              f"{W.sum()}")
     return P, W
+
+
+def rule(K: int, degree: int, dtype=torch.float64, device=None):
+    """(points, weights) of ``rule_np`` as tensors on ``device`` (the CUDA
+    device unless the caller asks for another)."""
+    P, W = rule_np(K, degree)
+    dev = config.resolve_device(device)
+    return (torch.as_tensor(P, dtype=dtype, device=dev),
+            torch.as_tensor(W, dtype=dtype, device=dev))
+
+
+def integrate(K: int, degree: int, f, volume=1.0, device=None):
+    """Integral over the simplex, ``volume * sum_i w_i f(p_i)``; ``f`` maps
+    a barycentric point [K+1] (a float64 tensor) to a value of any shape."""
+    P, W = rule(K, degree, device=device)
+    vals = torch.stack([torch.as_tensor(f(P[q]), dtype=W.dtype,
+                                        device=W.device)
+                        for q in range(P.shape[0])])
+    return volume * torch.tensordot(W, vals, dims=1)

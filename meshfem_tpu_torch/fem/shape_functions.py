@@ -1,14 +1,16 @@
-"""Lagrange shape functions on K-simplices (host tables).
+"""Lagrange shape functions on K-simplices, K = 1, 2, 3 and degree 0..4
+(host tables).
 
 Counterpart of ``meshfem_tpu/fem/shape_functions.py``: the degree-``deg``
 basis on the barycentric lattice ``alpha / deg`` comes from inverting the
 Vandermonde matrix of homogeneous barycentric monomials.  Node order is
-GMSH-consistent: vertices, then edge nodes in edge order.  The port
-carries P1/P2 bases: their values (``eval_shape_np`` :131, and
-``eval_shape`` :164 in torch, differentiable in the barycentric points),
-barycentric gradients (``grad_shape_np`` :137), exact integrals
-(``integrated_shape_np`` :176) and node positions
-(``node_positions_barycentric`` :193).
+GMSH-consistent: vertices, then edge nodes in edge order (start to end),
+then face-interior nodes in ``_TET_FACES`` order, then interior nodes;
+degree 0 is one node at the centroid.  The tables give values
+(``eval_shape_np``, and ``eval_shape`` in torch, differentiable in the
+barycentric points), barycentric gradients (``grad_shape_np``), exact
+integrals (``integrated_shape_np``) and node positions
+(``node_positions_barycentric``).
 """
 
 from __future__ import annotations
@@ -22,13 +24,38 @@ import torch
 from . import simplex
 
 
+# Faces of the tetrahedron, in the order their interior nodes are numbered
+_TET_FACES = ((0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3))
+
+
+def _interior(nv: int, deg: int, verts) -> list[tuple[int, ...]]:
+    """Multi-indices over ``nv`` variables, |alpha| = deg, strictly
+    positive on ``verts`` and zero elsewhere (lexicographic on ``verts``)."""
+    out: list[tuple[int, ...]] = []
+
+    def rec(prefix, remaining, slots):
+        if slots == 1:
+            a = [0] * nv
+            for v, c in zip(verts, prefix + [remaining]):
+                a[v] = c
+            out.append(tuple(a))
+            return
+        for c in range(1, remaining - slots + 2):
+            rec(prefix + [c], remaining - c, slots - 1)
+
+    if deg >= len(verts):
+        rec([], deg, len(verts))
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def node_multi_indices(K: int, deg: int) -> tuple[tuple[int, ...], ...]:
-    """Barycentric multi-indices (|alpha| = deg) of a P1/P2 element's
-    nodes in GMSH order.  Node position = alpha / deg."""
-    if deg not in (1, 2):
-        raise ValueError("this port carries degree 1 and 2 elements")
+    """Barycentric multi-indices (|alpha| = deg) of the element's nodes in
+    GMSH order.  Node position = alpha / deg; degree 0 has one node (the
+    centroid, see ``node_positions_barycentric``)."""
     nv = K + 1
+    if deg == 0:
+        return (tuple([0] * nv),)
     nodes: list[tuple[int, ...]] = []
     for v in range(nv):
         a = [0] * nv
@@ -40,6 +67,14 @@ def node_multi_indices(K: int, deg: int) -> tuple[tuple[int, ...], ...]:
             a[s] = deg - t
             a[e] = t
             nodes.append(tuple(a))
+    if K == 2:
+        nodes.extend(_interior(nv, deg, (0, 1, 2)))
+    if K == 3:
+        for f in _TET_FACES:
+            nodes.extend(_interior(nv, deg, f))
+        nodes.extend(_interior(nv, deg, (0, 1, 2, 3)))
+    if len(nodes) != simplex.num_nodes(K, deg):
+        raise AssertionError(f"({K}, {deg}): {len(nodes)} nodes")
     return tuple(nodes)
 
 
@@ -76,6 +111,8 @@ def _eval_monomials(exps: np.ndarray, lambdas: np.ndarray) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _lagrange_tables(K: int, deg: int):
     """(exps [M, nv], coeffs [M, n]) with phi_j = sum_m coeffs[m, j] mono_m."""
+    if deg == 0:
+        return np.zeros((1, K + 1), dtype=np.int64), np.ones((1, 1))
     exps = _monomial_exponents(K, deg)
     nodes = np.array(node_multi_indices(K, deg), dtype=np.float64) / deg
     V = _eval_monomials(exps, nodes)
@@ -140,4 +177,6 @@ def integrated_shape_np(K: int, deg: int) -> np.ndarray:
 
 def node_positions_barycentric(K: int, deg: int) -> np.ndarray:
     """[n_nodes, K+1] barycentric coordinates of the element nodes."""
+    if deg == 0:
+        return np.full((1, K + 1), 1.0 / (K + 1))
     return np.array(node_multi_indices(K, deg), dtype=np.float64) / deg

@@ -11,6 +11,10 @@ EDGE_START_NODE = (0, 1, 2, 0, 2, 1)
 EDGE_END_NODE = (1, 2, 0, 3, 3, 3)
 
 
+def num_vertices(K: int) -> int:
+    return K + 1
+
+
 def num_edges(K: int) -> int:
     return (K * (K + 1)) // 2
 

@@ -19,14 +19,16 @@ from .sparse.routed_ebe import RoutedEBE
 
 
 def simulator_from_arrays(arrays: dict, device=None) -> ElasticitySimulator:
-    """ElasticitySimulator from ``V``, ``T``, ``degree``, ``D`` (constant
+    """ElasticitySimulator from ``V``, ``T``, ``degree``, ``node_order``
+    (default ``"reference"``), ``D`` (constant
     [fl, fl] or per element [E, fl, fl]) and optionally ``dof_map`` (a
     periodic node -> dof map), ``dirichlet_mask``, ``dirichlet_values``,
     ``neumann_load``, ``no_rigid_motion``, ``region_nodes`` (the dof ids of
     each Dirichlet region, the reference's ``_region_nodes``, which
     ``report_region_surface_forces`` sums over) and ``Ke`` (shares the
     exact element stiffness instead of re-assembling it)."""
-    mesh = FEMMesh(arrays["V"], arrays["T"], degree=int(arrays["degree"]))
+    mesh = FEMMesh(arrays["V"], arrays["T"], degree=int(arrays["degree"]),
+                   node_order=str(arrays.get("node_order", "reference")))
     D = torch.tensor(np.asarray(arrays["D"]), dtype=config.REAL)
     Ke = arrays.get("Ke")
     if Ke is not None:

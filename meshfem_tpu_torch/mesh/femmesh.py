@@ -1,7 +1,14 @@
 """FEMMesh: degree-1/2 Lagrange nodes over a triangle or tetrahedral mesh.
 
-Counterpart of ``meshfem_tpu/mesh/femmesh.py`` in the reference node order
-(vertices first, then edge nodes in sorted-edge order, ``femmesh.py:83-100``).
+Counterpart of ``meshfem_tpu/mesh/femmesh.py``.  Nodes are numbered as in
+the reference: vertices first, then edge nodes in sorted-edge order
+(``femmesh.py:83-100``), and then, for ``node_order="morton"|"rcb"|
+"firsttouch"``, all nodes renumbered along Morton codes, RCB leaves or
+first touch in element order (``femmesh.py:123-167``).  ``node_perm`` maps
+a reference-order node id to its id in the active order and
+``vertex_nodes`` a vertex to its node; the element and boundary corner
+tables (``F``, ``bdry_elems``) keep vertex ids, so every read of a node
+array at corners goes through ``vertex_nodes``.
 Connectivity is numpy on the host; element geometry is a torch computation
 on the requested device.  The P2 edge numbering comes from the port's host
 core (``native.unique_edges``) where it can be had, as in the reference
@@ -19,9 +26,7 @@ takes; its endpoint gather, like the element-corner gather of
 backward on the card, so a gradient sums in a fixed order).  Triangle
 meshes take their boundary edges from ``TriMesh`` in its order (outward
 wound), and may be embedded in 3D (``embedding_dim``),
-where the geometry gives tangential gradients and unsigned areas.  The
-reference's other node orders (``node_order="morton"|"rcb"|"firsttouch"``)
-are not ported: this ``FEMMesh`` keeps the reference order.
+where the geometry gives tangential gradients and unsigned areas.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from .. import config, native
 from ..fem import shape_functions, simplex
 from ..sparse.scatter import GatherPlan, ScatterPlan
 from . import geometry as geom
+from .reorder import _morton_codes, rcb_order
 from .simplicial import TetMesh, TriMesh
 
 
@@ -63,10 +69,14 @@ class FEMMesh:
 
     ``embedding_dim`` pads the positions with zero coordinates (a flat
     triangle mesh in 3D) or drops trailing ones, as the reference does.
+    ``node_order`` is ``"reference"``, ``"morton"``, ``"rcb"`` or
+    ``"firsttouch"`` (the last numbers nodes by their first element, so
+    it wants spatially sorted elements, e.g. ``reorder_mesh(order="rcb")``).
     """
 
     def __init__(self, V, F, degree: int = 1,
-                 embedding_dim: int | None = None):
+                 embedding_dim: int | None = None,
+                 node_order: str = "reference"):
         F = np.ascontiguousarray(F, dtype=np.int64)
         V = np.atleast_2d(np.ascontiguousarray(V, dtype=np.float64))
         K = F.shape[1] - 1
@@ -127,9 +137,39 @@ class FEMMesh:
         self.is_bdry_node = np.zeros(self.num_nodes, dtype=bool)
         self.is_bdry_node[self.bdry_nodes] = True
         self._plans = {}
-        # vertex i -> its node id: the identity in the reference node
-        # order, the only one ported
-        self.vertex_nodes = np.arange(nv, dtype=np.int64)
+        self._renumber(node_order)
+
+    def _renumber(self, node_order: str) -> None:
+        """Set ``node_perm`` (reference id -> id in ``node_order``) and
+        ``vertex_nodes``, and renumber the node arrays (reference
+        ``femmesh.py:123-167``)."""
+        nv, n = len(self.V), self.num_nodes
+        if node_order == "reference":
+            old_of_new = np.arange(n)
+        elif node_order == "morton":
+            old_of_new = np.argsort(_morton_codes(self.node_positions),
+                                    kind="stable")
+        elif node_order == "rcb":
+            old_of_new = rcb_order(self.node_positions)
+        elif node_order == "firsttouch":
+            uniq, first = np.unique(self.elem_nodes.reshape(-1),
+                                    return_index=True)
+            old_of_new = uniq[np.argsort(first, kind="stable")]
+            if len(old_of_new) < n:                      # unused nodes last
+                old_of_new = np.concatenate(
+                    [old_of_new, np.setdiff1d(np.arange(n), old_of_new)])
+        else:
+            raise ValueError(f"unknown node_order {node_order!r}")
+        self.node_order = node_order
+        new_of_old = np.empty(n, dtype=np.int64)
+        new_of_old[old_of_new] = np.arange(n)
+        self.elem_nodes = new_of_old[self.elem_nodes]
+        self.node_positions = self.node_positions[old_of_new]
+        self.bdry_elem_nodes = new_of_old[self.bdry_elem_nodes]
+        self.bdry_nodes = np.sort(new_of_old[self.bdry_nodes])
+        self.is_bdry_node = self.is_bdry_node[old_of_new]
+        self.vertex_nodes = new_of_old[:nv]
+        self.node_perm = new_of_old
 
     def _boundary_nodes_of(self, belems: np.ndarray) -> np.ndarray:
         """Boundary (K-1)-simplex -> volume node indices (vertices, then
@@ -174,8 +214,8 @@ class FEMMesh:
         by default, or the device of a ``node_positions`` tensor).
         ``node_positions [N, dim]``, node-indexed, re-embeds the mesh at
         perturbed positions (reference ``geometry(node_positions)``,
-        ``femmesh.py:209``); the corner tables hold vertex ids, which are
-        the first node ids in the reference order.  A triangle surface in
+        ``femmesh.py:209``); the corner tables hold vertex ids, read
+        through ``vertex_nodes``.  A triangle surface in
         3D takes the in-plane normals of its boundary edges
         (``geometry.embedded_boundary_normals``)."""
         dev = config.device_for(device, node_positions)
@@ -185,9 +225,10 @@ class FEMMesh:
         if tuple(X.shape) != (self.num_nodes, self.dim):
             raise ValueError(f"node_positions must be [{self.num_nodes}, "
                              f"{self.dim}], got {tuple(X.shape)}")
-        corners = X[torch.as_tensor(self.F, device=dev)]   # vertices first
+        vn = self.vertex_nodes
+        corners = X[torch.as_tensor(vn[self.F], device=dev)]
         grad_lambda, volume = geom.simplex_geometry(corners, self.K)
-        bcorners = X[torch.as_tensor(self.bdry_elems, device=dev)]
+        bcorners = X[torch.as_tensor(vn[self.bdry_elems], device=dev)]
         if self.dim == self.K:
             normal, bvol = geom.boundary_normals(bcorners)
         else:
@@ -200,11 +241,13 @@ class FEMMesh:
         """[N, 2] vertex ids (va, vb) whose midpoint is node i (va == vb
         for vertex nodes)."""
         nv = len(self.V)
-        ends = np.empty((self.num_nodes, 2), dtype=np.int64)
-        ends[:nv] = np.arange(nv)[:, None]
+        ends_old = np.empty((self.num_nodes, 2), dtype=np.int64)
+        ends_old[:nv] = np.arange(nv)[:, None]
         if self.num_nodes > nv:
-            ends[nv:, 0] = self._edge_keys // nv
-            ends[nv:, 1] = self._edge_keys % nv
+            ends_old[nv:, 0] = self._edge_keys // nv
+            ends_old[nv:, 1] = self._edge_keys % nv
+        ends = np.empty_like(ends_old)
+        ends[self.node_perm] = ends_old
         return ends
 
     def _gather_plan(self, name, ids, num_sources, device) -> GatherPlan:
@@ -219,9 +262,9 @@ class FEMMesh:
 
     def corner_gather(self, device) -> GatherPlan:
         """Node rows -> element-corner rows ``[E * (K+1)]`` (the corner
-        table holds vertex ids, the first node ids in the reference
-        order)."""
-        return self._gather_plan("corners", self.F.reshape(-1),
+        table's vertex ids mapped to nodes through ``vertex_nodes``)."""
+        return self._gather_plan("corners",
+                                 self.vertex_nodes[self.F].reshape(-1),
                                  self.num_nodes, device)
 
     def endpoint_gather(self, device) -> GatherPlan:

@@ -25,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from .. import config
 from ..fem import shape_functions as sf
 from ..fem.flattening import flat_rows_cols, full_to_flat_map
 
@@ -183,6 +184,36 @@ def element_elasticity_fused_apply(grad_lambda, volume, M, n: int):
     gg = torch.einsum("eka,elb->ekalb", grad_lambda,
                       grad_lambda).reshape(E, gdim * gdim)
     Ke = torch.matmul(gg * volume[:, None], M)
+    return Ke.reshape(E, n * dim, n * dim)
+
+
+def fused_matrix_sym_for(D, K: int, deg: int, dtype=torch.float64,
+                         device=None):
+    """``fused_matrix_for`` folded over the symmetric pairs of the Gram
+    tensor ``gg[(k,a),(l,b)] = g_ka g_lb`` (reference :192): ``gdim (gdim +
+    1) / 2`` rows instead of ``gdim^2``, half the assembly product.
+    Returns ``(M_sym [npairs, (nd)^2], idx_a [npairs], idx_b [npairs])`` on
+    ``device`` (the CUDA device unless the caller asks for another)."""
+    M = fused_matrix_for(D, K, deg)
+    gdim = int(round(M.shape[0] ** 0.5))
+    ia, ib = np.triu_indices(gdim)
+    M2 = M.reshape(gdim, gdim, -1)
+    Ms = M2[ia, ib] + np.where((ia != ib)[:, None], M2[ib, ia], 0.0)
+    dev = config.resolve_device(device)
+    return (torch.as_tensor(Ms, dtype=dtype, device=dev),
+            torch.as_tensor(ia, device=dev), torch.as_tensor(ib, device=dev))
+
+
+def element_elasticity_fused_apply_sym(grad_lambda, volume, M_sym, idx_a,
+                                       idx_b, n: int):
+    """Fused assembly through the symmetric-pair matrix
+    (``fused_matrix_sym_for``; reference :213): one ``[E, npairs]``
+    product and one ``torch.matmul`` (TF32 off).  On no default path, as
+    in the reference."""
+    E, K1, dim = grad_lambda.shape
+    gflat = grad_lambda.reshape(E, K1 * dim)
+    gg = gflat[:, idx_a] * gflat[:, idx_b]                  # [E, npairs]
+    Ke = torch.matmul(gg, M_sym) * volume[:, None]
     return Ke.reshape(E, n * dim, n * dim)
 
 

@@ -84,7 +84,10 @@ class TwoLevel:
         nullspace).  ``node_order [num_dofs]``: when the outer solve runs
         in a PERMUTED dof order (the routed operator's internal order,
         ``RoutedEBE.order``), the fine-side transfer indices and smoother
-        blocks follow it; the coarse side is order-free.  ``apply_A``
+        blocks follow it; the coarse side is order-free.  It is a dof
+        permutation under the reference's keyword (``from_simulator`` of
+        ``meshfem_tpu/solvers/twolevel.py:69``), not a name of a
+        ``FEMMesh`` numbering (``FEMMesh(node_order=...)``).  ``apply_A``
         overrides the fine operator of the multiplicative cycle (the
         routed operator in its own order)."""
         import scipy.sparse as sp

@@ -25,10 +25,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
+from .. import config
 from ..kernels import gather_rows, segment_sum_csr, segment_sum_rows
 
 _INT32_MAX = 2 ** 31 - 1
@@ -185,3 +187,29 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, tangent, _):
         return gather_rows(tangent.contiguous(), ctx.plan.ids)
+
+
+PLAN_CACHE_SIZE = 16
+_PLAN_CACHE: OrderedDict = OrderedDict()
+
+
+def plan_for(ids, num_segments: int, device=None) -> ScatterPlan:
+    """A ``ScatterPlan`` cached by content (reference :102): keyed on a
+    SHA-1 of the id bytes, the id count, ``num_segments`` and the device,
+    so two different id arrays never share a plan.  The cache keeps the
+    ``PLAN_CACHE_SIZE`` plans used last, so it pins a bounded amount of
+    device memory.  (The reference's ``g1``, its pyramid's group size, has
+    no counterpart: the CSR plan has no groups.)"""
+    import hashlib
+
+    dev = config.resolve_device(device)
+    ids = np.ascontiguousarray(np.asarray(ids).reshape(-1))
+    key = (hashlib.sha1(ids.tobytes()).hexdigest(), ids.size,
+           int(num_segments), str(dev))
+    plan = _PLAN_CACHE.pop(key, None)
+    if plan is None:
+        plan = ScatterPlan.build(ids, num_segments, dev)
+    _PLAN_CACHE[key] = plan
+    while len(_PLAN_CACHE) > PLAN_CACHE_SIZE:
+        _PLAN_CACHE.popitem(last=False)
+    return plan

@@ -535,7 +535,28 @@ of which raises on failure:
    (f32 rows at 3 values), B (f32 rows, and f64 rows on the EBE plan)
    and E, each held against its plain version and timed; every kernel
    line carries ``launches_phase21_paths``;
-22. last, ``{"ok": true, "device": {...}}``.
+22. the validation suites, every card path counted, each number printed
+   beside the card's name and power limit: the eight modules of
+   ``meshfem_tpu_torch.experiments`` (``laplace_convergence``,
+   ``elasticity_convergence``, ``fit_validation``,
+   ``circular_sector_homog``, ``animate_cstrain``,
+   ``conductivity_inverse``, ``extrusion_validation``,
+   ``stress_extrusion_validation``) at their default arguments, in this
+   process through ``runpy`` in a scratch directory (where the stand-in
+   meshes are written), each gated on its own assertions, which raise;
+   kernel B required on every run, A and E on the two extrusion suites'
+   routed 3D solves; every kernel call of each run captured and held
+   against its plain version on the experiment's own inputs (A exactly,
+   B bit for bit against B in planes and the CPU's plain sum and to 1e-5
+   / 1e-12, E within one float32 ulp of the float64 ``Ke``), the largest
+   call of each kernel and dtype timed as
+   ``<kernel>[/f64]/experiment/<name>``; the two convergence suites at
+   grid_tri(4) and (8) on the card against the CPU (Laplace errors to
+   1e-8 relative; the elasticity condition estimates to 1e-8 and its
+   errors, the solver's own at tol 1e-12, below 1e-9 on both); seconds
+   of each experiment and of the phase; every kernel line carries
+   ``launches_phase22_paths``;
+23. last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero before
 printing any result.
@@ -6877,16 +6898,19 @@ class KernelCapture:
         self._rebind(self.stand_ins, self.originals)
 
 
-def check_captured(label, capture, counts, entry):
-    """21b: every launch of the example's counted run went through the
+def check_captured(label, capture, counts, entry, kind="example"):
+    """21b and 22: every launch of the counted run went through the
     capture (its CUDA calls per wrapper equal the launch counts), and each
-    captured call of kernels A and B is run again on the inputs the path
-    gave it and held against its plain version (A exactly, on the card
-    and on the CPU; B with ``check_rows_sum``); a wrapper without a check
-    here fails the run.  The largest call of each kernel and dtype is
-    timed with ``entry`` as the line ``<wrapper>[/f64]/example/<name>``.
+    captured call of kernels A, B and E is run again on the inputs the
+    path gave it and held against its plain version (A exactly, on the
+    card and on the CPU; B with ``check_rows_sum``; E within 1e-5 of
+    max|Ke| of its plain version and one float32 ulp of each entry of the
+    float64 ``Ke`` of the same inputs); a wrapper without a check here
+    fails the run.  The largest call of each kernel and dtype is timed
+    with ``entry`` as the line ``<wrapper>[/f64]/<kind>/<name>``.
     Returns (the names of the kernel lines, the calls checked)."""
     from meshfem_tpu_torch import kernels
+    from meshfem_tpu_torch.ops import element_matrices as em
 
     for name, n in capture.calls.items():
         if n != counts[name]:
@@ -6908,9 +6932,28 @@ def check_captured(label, capture, counts, entry):
         elif name == "segment_sum_rows":
             err = check_rows_sum(arg["src"], arg["perm"], arg["offsets"],
                                  label, arg["planes_out"])
+        elif name == "element_stiffness":
+            src = arg["grad_lambda"]
+            y = kernels.element_stiffness(**arg)
+            ref = kernels.element_stiffness_plain(**arg)
+            err = float((y - ref).abs().max())
+            D64 = torch.as_tensor(arg["D"]).to(device=src.device,
+                                               dtype=torch.float64)
+            ulps = ulps_from(y, em.element_elasticity_fused(
+                src.double(), arg["volume"].double(), D64, arg["deg"]))
+            scale = float(ref.abs().max())
+            del y, ref
+            log(f"{label}: element_stiffness on grad_lambda "
+                f"{list(src.shape)}: max abs err {err:.3e} against plain "
+                f"(max|Ke| {scale:.3e}), {ulps:.3f} ulp of each entry from "
+                f"the f64 Ke of the same inputs")
+            if not (err <= 1e-5 * scale and ulps <= 1.0):
+                raise RuntimeError(f"{label}: element_stiffness disagrees "
+                                   f"with plain or the f64 Ke")
+            arg = dict(arg, src=src, ulps=ulps)
         else:
-            raise RuntimeError(f"{label}: {name} launched on the example's "
-                               f"path, and 21b has no check for it")
+            raise RuntimeError(f"{label}: {name} launched on the path, and "
+                               f"there is no check for it")
         k = (name, src.dtype)
         if k not in largest or src.numel() > largest[k][1]["src"].numel():
             largest[k] = (err, arg)
@@ -6919,9 +6962,38 @@ def check_captured(label, capture, counts, entry):
     for (name, dtype), (err, arg) in largest.items():
         f64 = dtype == torch.float64
         es = 8 if f64 else 4
-        line = f"{name}{'/f64' if f64 else ''}/example/{ex}"
+        line = f"{name}{'/f64' if f64 else ''}/{kind}/{ex}"
         path = f"{label}, {'float64' if f64 else 'float32'} launches"
-        if name == "gather_rows":
+        if name == "element_stiffness":
+            gl, vol, D, deg = (arg["grad_lambda"], arg["volume"], arg["D"],
+                               arg["deg"])
+            E, K1, d = gl.shape
+            nn = K1 if deg == 1 else K1 * (K1 + 1) // 2
+            nd = nn * d
+            M32 = torch.as_tensor(em.fused_matrix_for(D, d, deg),
+                                  dtype=torch.float32, device=gl.device)
+            entry(line, src_dir + "element_stiffness.cu",
+                  "meshfem_tpu/kernels/element_stiffness.py:42",
+                  counts[name], err,
+                  lambda: kernels.element_stiffness(gl, vol, D, deg),
+                  lambda: kernels.element_stiffness_plain(gl, vol, D, deg),
+                  lambda: em.element_elasticity_fused_apply(gl, vol, M32, nn),
+                  (K1 * d + 1 + nd * nd) * E * 4
+                  + torch.as_tensor(D).numel() * 8,
+                  (2 * ((K1 * d) ** 2 * d * d + nd * nd * K1 * K1)
+                   + nd * nd) * E,
+                  algorithm_flops=(2 * (K1 * (K1 + 1) // 2 * (d * d + d ** 4)
+                                        + nd * nd * K1 * K1) + nd * nd) * E,
+                  algorithm_flop_rate=F64_FLOP_PER_S,
+                  max_ulps_vs_f64=arg["ulps"],
+                  mode=f"the largest of the {kind}'s Ke builds, on the "
+                       f"inputs it gave",
+                  launches_path=f"{label}, one per dense routed operator",
+                  library_call="ops.element_matrices."
+                               "element_elasticity_fused_apply",
+                  shape=f"grad_lambda [{E}, {K1}, {d}], vol [{E}] f32, "
+                        f"P{deg}")
+        elif name == "gather_rows":
             src, ids, planes_in = arg["src"], arg["ids"], arg["planes_in"]
             rows = src.t() if planes_in else src
             (N, P), S = rows.shape, ids.shape[0]
@@ -6934,7 +7006,7 @@ def check_captured(label, capture, counts, entry):
                   err, lambda arg=arg: kernels.gather_rows(**arg),
                   lambda arg=arg: kernels.gather_rows_plain(**arg), library,
                   S * 4 + N * P * es + S * P * es, 0,
-                  mode=f"the largest of the example's {dtype} gathers, on "
+                  mode=f"the largest of the {kind}'s {dtype} gathers, on "
                        f"the inputs it gave",
                   launches_path=path,
                   library_call=None if library is None
@@ -6963,7 +7035,7 @@ def check_captured(label, capture, counts, entry):
                   library,
                   P * R * es + R * 4 + (N + 1) * 4 + P * N * es, P * R,
                   flop_rate=F64_FLOP_PER_S if f64 else F32_FLOP_PER_S,
-                  mode=f"the largest of the example's {dtype} sums, on the "
+                  mode=f"the largest of the {kind}'s {dtype} sums, on the "
                        f"inputs it gave",
                   launches_path=path,
                   library_call=None if library is None
@@ -7141,6 +7213,130 @@ def drive_phase21(dev, entry, gen):
     card_log(f"phase 21 (21a-d): {out['phase_s']:.1f} s, by part "
              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
     return out, paths, checked
+
+EXPERIMENTS = ("laplace_convergence", "elasticity_convergence",
+               "fit_validation", "circular_sector_homog", "animate_cstrain",
+               "conductivity_inverse", "extrusion_validation",
+               "stress_extrusion_validation")
+# the kernels each experiment's run must launch: kernel B everywhere (the
+# float64 EBE sums), A and E where the 3D extrusions take the routed
+# operator
+EXPERIMENT_KERNELS = {
+    "extrusion_validation": ("gather_rows", "segment_sum_rows",
+                             "element_stiffness"),
+    "stress_extrusion_validation": ("gather_rows", "segment_sum_rows",
+                                    "element_stiffness")}
+CONVERGENCE_CPU_N = 8         # 22: the two smallest sizes, card against CPU
+CONVERGENCE_CPU_GATE = 1e-8
+
+
+def convergence_vs_cpu(dev):
+    """22: the two convergence suites at their two smallest sizes
+    (grid_tri(4) and (8)), on the card and on the CPU.  Laplace: each L2
+    error to 1e-8 relative.  Elasticity: the printed "error" is the
+    solve's distance from the exact Galerkin solution, the solver's own
+    error at tol 1e-12 (1e-16 to 1e-12 on either device), so the two are
+    held below 1e-9 each and not against each other; the diagonal
+    condition estimates to 1e-8 relative; each solve's float64 relative
+    residual printed.  Returns the numbers."""
+    from meshfem_tpu_torch.experiments import elasticity_convergence as ec
+    from meshfem_tpu_torch.experiments import laplace_convergence as lc
+
+    n = CONVERGENCE_CPU_N
+    card, cpu = lc.convergence(n, device=dev), lc.convergence(n, device="cpu")
+    lap = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(card, cpu))
+    card_e = ec.convergence(n, device=dev)
+    cpu_e = ec.convergence(n, device="cpu")
+    rows = [(a, b) for nu in card_e for a, b in zip(card_e[nu], cpu_e[nu])]
+    cond = max(abs(a[4] - b[4]) / abs(b[4]) for a, b in rows)
+    err = max(max(a[2], b[2]) for a, b in rows)
+    relres = max(a[5] for a, _ in rows)
+    card_log(f"22 convergence suites at grid_tri(4) and (8), card against "
+             f"CPU: Laplace L2 errors {lap:.3e} relative (gate "
+             f"{CONVERGENCE_CPU_GATE:g}; card {[r[2] for r in card]}); "
+             f"elasticity condition estimates {cond:.3e} relative, largest "
+             f"distance from the Galerkin solution {err:.3e} (gate 1e-9), "
+             f"largest card relres {relres:.3e}")
+    if not (lap <= CONVERGENCE_CPU_GATE and cond <= CONVERGENCE_CPU_GATE
+            and err < 1e-9):
+        raise RuntimeError("22: the convergence suites disagree between "
+                           "the card and the CPU")
+    return dict(laplace_rel=lap, elasticity_cond_rel=cond,
+                elasticity_err_max=err, elasticity_relres_max=relres)
+
+
+def drive_phase22(dev, entry):
+    """22: the eight validation suites (``meshfem_tpu_torch.experiments``)
+    at their default arguments on the card, each in this process through
+    ``runpy`` in a scratch working directory (where the stand-in meshes
+    are written), counted, its printed lines and warnings logged, gated
+    on its own assertions (they raise, and nothing here catches them);
+    every kernel call captured and held against its plain version on the
+    experiment's own inputs (``check_captured``, lines
+    ``<kernel>[/f64]/experiment/<name>``); then the convergence suites'
+    two smallest sizes against the CPU.  Returns (summary, launch counts
+    per path, the names of the kernel lines added)."""
+    import contextlib
+    import io
+    import runpy
+    import tempfile
+
+    out, paths, checked = {}, {}, []
+    t0 = time.time()
+    cwd, argv = os.getcwd(), sys.argv
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for name in EXPERIMENTS:
+                module = f"meshfem_tpu_torch.experiments.{name}"
+                buf = io.StringIO()
+                sys.argv = [module]
+                caught = []
+
+                def run():
+                    with contextlib.redirect_stdout(buf), \
+                            warnings.catch_warnings(record=True) as w:
+                        warnings.simplefilter("always")
+                        # runpy's note on a module its package imported
+                        warnings.filterwarnings(
+                            "ignore", message=".*found in sys.modules",
+                            category=RuntimeWarning)
+                        try:
+                            runpy.run_module(module, run_name="__main__")
+                        finally:
+                            caught.extend(str(x.message) for x in w)
+
+                label = f"22 {name}"
+                with KernelCapture() as capture:
+                    _, wall, counts = counted(
+                        label, run, EXPERIMENT_KERNELS.get(
+                            name, ("segment_sum_rows",)))
+                paths[f"22_{name}"] = counts
+                text = buf.getvalue()
+                card_log(f"{label}: {wall:.2f} s; launches "
+                         f"{ {k: v for k, v in counts.items() if v} }; "
+                         f"warnings {caught}; printed:\n" + text.rstrip())
+                lines, n_calls = check_captured(label, capture, counts,
+                                                entry, kind="experiment")
+                card_log(f"{label}: {n_calls} distinct kernel calls held "
+                         f"against plain on the experiment's own inputs; "
+                         f"lines {lines}")
+                checked += lines
+                out[name] = dict(s=wall, kernel_calls=n_calls,
+                                 warnings=caught,
+                                 lines=text.rstrip().splitlines())
+        finally:
+            os.chdir(cwd)
+            sys.argv = argv
+    t = time.time()
+    out["convergence_vs_cpu"] = convergence_vs_cpu(dev)
+    out["convergence_vs_cpu"]["s"] = time.time() - t
+    out["phase_s"] = time.time() - t0
+    card_log(f"phase 22: {out['phase_s']:.1f} s; by experiment "
+             + ", ".join(f"{k} {out[k]['s']:.1f}" for k in EXPERIMENTS)
+             + f", card against CPU {out['convergence_vs_cpu']['s']:.1f}")
+    return out, paths, checked
+
 
 def check_b_rows(src, op, offsets, label):
     """Kernel B in rows on a routed operator's element-major plan: twice
@@ -8428,6 +8624,11 @@ def main() -> int:
     p21, paths21, checked21 = drive_phase21(dev, entry, gen)
     p21["kernel_checks"] = checked21
     summary["phase21"] = p21
+
+    # -- 22. the validation suites: experiments/ ---------------------------
+    p22, paths22, checked22 = drive_phase22(dev, entry)
+    p22["kernel_checks"] = checked22
+    summary["phase22"] = p22
     summary.update(
         dense_bmm_ms=timer(lambda: torch.bmm(rk.KeP, ue_dense)),
         dense_bmm_bound_ms=rk.KeP.numel() * 4 / HBM_BYTES_PER_S * 1e3,
@@ -8454,6 +8655,8 @@ def main() -> int:
                                        for p, c in paths20.items()}
         r["launches_phase21_paths"] = {p: own_mode(c, r["name"])
                                        for p, c in paths21.items()}
+        r["launches_phase22_paths"] = {p: own_mode(c, r["name"])
+                                       for p, c in paths22.items()}
     summary["seconds"] = time.time() - t_start
     log("solve " + json.dumps(summary))
     log(json.dumps({"kernels": report}))

@@ -148,3 +148,47 @@ def test_exemptions_name_reference_names():
         assert key in public, key
         assert _resolve(target) is not None, target
     assert len(MODULES) > 80
+
+
+EXPERIMENTS = REF.parent / "experiments"
+# the reference's TPU measurement harnesses, which the port does not carry
+# (their one Pallas kernel, probe_route.py's, is the port's kernel F,
+# meshfem_tpu_torch.kernels.route_window)
+TPU_PROBES = {
+    "ab_session.py": "an A/B timing session of the TPU",
+    "fill_probe.py": "a fill-rate probe of the TPU",
+    "probe_apply_ab.py": "a TPU apply timing probe",
+    "probe_contract.py": "a TPU contraction timing probe",
+    "probe_route.py": "the TPU lane-routing probe; its kernel is F",
+    "probe_routed_bench.py": "a TPU routed-operator timing probe",
+    "probe_routed_stages.py": "a TPU routed-stage timing probe",
+    "probe_scat_blk.py": "a TPU scatter timing probe",
+    "probe_scat_grp.py": "a TPU scatter timing probe",
+    "probe_structured_n.py": "a TPU structured-operator timing probe",
+    "probe_tpu.py": "a TPU device probe",
+}
+SCRIPTS = sorted(p.name for p in EXPERIMENTS.glob("*.py")
+                 if p.name not in TPU_PROBES)
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_experiment_functions_have_counterparts(script):
+    """Each public function of a validation script under ``experiments/``
+    has a counterpart of the same name in
+    ``meshfem_tpu_torch.experiments.<script>``."""
+    tree = ast.parse((EXPERIMENTS / script).read_text())
+    names = [n.name for n in tree.body
+             if isinstance(n, ast.FunctionDef) and not n.name.startswith("_")]
+    module = importlib.import_module(
+        "meshfem_tpu_torch.experiments." + script[:-len(".py")])
+    assert names
+    missing = [n for n in names if not callable(getattr(module, n, None))]
+    assert not missing, f"{script}: no counterpart in the port for {missing}"
+
+
+def test_experiment_exemptions_are_the_probes():
+    """The exempted scripts exist, each with its reason, and the rest are
+    the eight validation suites."""
+    have = {p.name for p in EXPERIMENTS.glob("*.py")}
+    assert set(TPU_PROBES) <= have and all(TPU_PROBES.values())
+    assert len(SCRIPTS) == 8

@@ -1,0 +1,8 @@
+"""Share of the traced static solve in which no kernel, copy or fill ran
+on the device (the union of their intervals, ``device_trace.py``), percent."""
+
+from fembench.readers import idle_pct
+
+
+def read(record):
+    return idle_pct(record, "solve")

@@ -834,6 +834,26 @@ def counted(label, fn, required=()):
     return out, wall, counts
 
 
+def traced(fn):
+    """``fn()`` with the port's tracer (``utils.timer.GLOBAL_TIMER``) on;
+    returns (fn's result, host seconds of the spans it recorded, summed by
+    path)."""
+    from meshfem_tpu_torch.utils.timer import GLOBAL_TIMER
+
+    was = GLOBAL_TIMER.enabled
+    GLOBAL_TIMER.take()
+    GLOBAL_TIMER.enabled = True
+    try:
+        out = fn()
+    finally:
+        GLOBAL_TIMER.enabled = was
+        spans, _ = GLOBAL_TIMER.take()
+    seconds = {}
+    for path, _, _, t0, t1 in spans:
+        seconds[path] = seconds.get(path, 0.0) + (t1 - t0) * 1e-9
+    return out, seconds
+
+
 def drive_solve(sim, label, required):
     """One counted run of the user's entry points ``sim.routed_kernel`` (the
     operator is built anew, timed apart) and ``sim.solve``: counts are
@@ -1008,15 +1028,16 @@ def structured_solve(sim, label, mg_name, required):
     """One counted run of the user's default call ``sim.solve(tol=1e-10)``
     (operator "auto"): counts zeroed just before, read just after.  The
     solve must have built ``mg_name`` in float32 and every wrapper in
-    ``required`` must have launched.  The build time (host clock) and the
-    rounds come from what the solve records (``sim._mg``,
-    ``res.history``); the ms per MG-PCG iteration from one inner solve of
-    the first round's right-hand side, timed alone after the run."""
+    ``required`` must have launched.  The build time (the host clock of
+    the solve's ``solve/build.mg`` span) and the rounds come from what the
+    solve records (``traced``, ``res.history``); the ms per MG-PCG
+    iteration from one inner solve of the first round's right-hand side,
+    timed alone after the run."""
     sim._mg = None
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        (u, res), wall, counts = counted(
-            label, lambda: sim.solve(tol=1e-10), required)
+        ((u, res), spans), wall, counts = counted(
+            label, lambda: traced(lambda: sim.solve(tol=1e-10)), required)
     mg = sim._mg[1] if sim._mg is not None else None
     if type(mg).__name__ != mg_name or mg.free_ch.dtype != torch.float32:
         raise RuntimeError(f"{label}: the default call did not build a "
@@ -1029,7 +1050,7 @@ def structured_solve(sim, label, mg_name, required):
     _, inner = mg.solve(b32, tol=1e-4, maxiter=120)
     torch.cuda.synchronize()
     inner_s = time.time() - t0
-    build_s = sim._mg[2]
+    build_s = spans["solve/build.mg"]
     out = dict(build_s=build_s, solve_s=wall,
                solve_minus_build_s=wall - build_s,
                rounds=res.rounds, round_iters=[it for _, it in res.history],
@@ -1444,17 +1465,18 @@ def drive_bc(mesh, dev):
     out, paths = {}, {}
     # -- 11a. the quick start at bench size: the default call ------------
     sim, t_bc = bc_simulator(mesh, dev, QUICKSTART_BC, "quick start (bench)")
-    (u, res), wall, paths["quickstart_bench"] = counted(
-        "quick start (bench)", lambda: sim.solve(tol=1e-10),
+    ((u, res), spans), wall, paths["quickstart_bench"] = counted(
+        "quick start (bench)", lambda: traced(lambda: sim.solve(tol=1e-10)),
         ("gather_rows", "segment_sum_rows"))
     if sim._mg is None or type(sim._mg[1]).__name__ != "StructuredMG":
         raise RuntimeError("quick start (bench): the default call did not "
                            "take the structured multigrid")
+    mg_build_s = spans["solve/build.mg"]
     relres = check_solution(sim, u, "quick start (bench)")
     reaction = sim.report_region_surface_forces(u)
     err_r = float(np.abs(reaction[0] - [0.0, 0.0, 10.0]).max() / 10.0)
     log(f"quick start (bench): structured, {wall:.3f} s (MG build "
-        f"{sim._mg[2]:.3f} s), {res.rounds} rounds, {res.iters} MG-PCG "
+        f"{mg_build_s:.3f} s), {res.rounds} rounds, {res.iters} MG-PCG "
         f"iterations, relres {res.resnorm:.3e}; clamp reaction "
         f"{reaction[0].tolist()} ({err_r:.3e} from (0, 0, 10), relative); "
         f"launches {paths['quickstart_bench']}")
@@ -1462,7 +1484,7 @@ def drive_bc(mesh, dev):
         raise RuntimeError(f"quick start (bench): reaction {reaction} is "
                            f"not (0, 0, 10)")
     out["quickstart_bench"] = dict(
-        bc_s=t_bc, solve_s=wall, mg_build_s=sim._mg[2], rounds=res.rounds,
+        bc_s=t_bc, solve_s=wall, mg_build_s=mg_build_s, rounds=res.rounds,
         mg_pcg_iters=res.iters, relres=relres,
         reaction=reaction[0].tolist(), reaction_rel_err=err_r)
 

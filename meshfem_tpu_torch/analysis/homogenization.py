@@ -26,6 +26,12 @@
 
 Triangle cells (fl = 3) take every path but the orthotropic multigrid; the
 routed block CG then moves 6 values a node.
+
+With the tracer on (``utils/timer.py``) ``homogenize`` is a ``homogenize``
+span around ``periodic`` (the periodic matching) and ``simulator`` (the
+periodic simulator: f64 ``Ke``, the EBE plan), the routed path's
+``build.routed`` and ``precond`` (block-Jacobi blocks and inverse),
+``refine`` and ``tensor`` (the stress-form tensor and strain fields).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..physics.elasticity import ElasticitySimulator
 from ..solvers import cg as cg_mod
 from ..solvers import precond as pc
 from ..solvers.refine import refine as mp_refine
+from ..utils.timer import GLOBAL_TIMER, benchmarkit
 
 @dataclasses.dataclass
 class HomogenizationResult:
@@ -165,15 +172,16 @@ def _solve_cell_problems_routed(sim, tol, maxiter, precond, project):
     fl = flat_len(dim)
     f32 = torch.float32
     rk = sim.routed_kernel(block_rhs=fl)
-    if precond == "jacobi":
-        diag_i = rk.diagonal()
-        safe = torch.where(diag_i > 0, diag_i, torch.ones_like(diag_i))
-        M_inv = lambda r: r / (safe if r.dim() == 2 else safe[..., None])
-    else:   # block Jacobi, permuted into the internal ordering
-        blocks = pc.node_block_diagonal(sim.Ke.to(f32), sim.elem_dofs,
-                                        sim.num_dofs, dim)
-        M_inv = pc.block_jacobi_apply(
-            pc.block_jacobi_inv(rk.permute_in(blocks)))
+    with GLOBAL_TIMER.section("precond"):
+        if precond == "jacobi":
+            diag_i = rk.diagonal()
+            safe = torch.where(diag_i > 0, diag_i, torch.ones_like(diag_i))
+            M_inv = lambda r: r / (safe if r.dim() == 2 else safe[..., None])
+        else:   # block Jacobi, permuted into the internal ordering
+            blocks = pc.node_block_diagonal(sim.Ke.to(f32), sim.elem_dofs,
+                                            sim.num_dofs, dim)
+            M_inv = pc.block_jacobi_apply(
+                pc.block_jacobi_inv(rk.permute_in(blocks)))
 
     B = _cell_loads(sim)                                   # [Nd, dim, fl]
 
@@ -206,11 +214,13 @@ def periodic_simulator(mesh: FEMMesh, material, cell: BBox | None = None,
                        eps: float = 1e-7, permit_mismatch: bool = False,
                        device=None) -> ElasticitySimulator:
     """ElasticitySimulator with periodic dof identification."""
-    dof_map, _, _ = per.match_periodic_nodes(
-        mesh.node_positions, cell or mesh.bbox(), eps,
-        permit_mismatch=permit_mismatch)
-    return ElasticitySimulator(mesh, material, device=device,
-                               dof_map=dof_map)
+    with GLOBAL_TIMER.section("periodic"):
+        dof_map, _, _ = per.match_periodic_nodes(
+            mesh.node_positions, cell or mesh.bbox(), eps,
+            permit_mismatch=permit_mismatch)
+    with GLOBAL_TIMER.section("simulator"):
+        return ElasticitySimulator(mesh, material, device=device,
+                                   dof_map=dof_map)
 
 
 def homogenized_tensor_stress_form(sim: ElasticitySimulator, w,
@@ -314,6 +324,7 @@ def homogenize_voxels(occupancy, E_solid: float = 1.0, nu: float = 0.3,
                       device=device)
 
 
+@benchmarkit(name="homogenize")
 def homogenize(mesh: FEMMesh, material, orthotropic_cell: bool = False,
                tol: float = 1e-11, center_fluctuations: bool = True,
                base_cell_volume: float | None = None,
@@ -336,11 +347,12 @@ def homogenize(mesh: FEMMesh, material, orthotropic_cell: bool = False,
             precond=oprecond, device=device)
     sim = periodic_simulator(mesh, material, device=device)
     w, iters = solve_cell_problems(sim, tol=tol, precond=precond)
-    if center_fluctuations:
-        w = w - w.mean(dim=1, keepdim=True)
-    Ch = homogenized_tensor_stress_form(sim, w, base_cell_volume)
-    strain_w = torch.stack([sim.average_strain_field(w[i])
-                            for i in range(w.shape[0])])
+    with GLOBAL_TIMER.section("tensor"):
+        if center_fluctuations:
+            w = w - w.mean(dim=1, keepdim=True)
+        Ch = homogenized_tensor_stress_form(sim, w, base_cell_volume)
+        strain_w = torch.stack([sim.average_strain_field(w[i])
+                                for i in range(w.shape[0])])
     return HomogenizationResult(Ch, w, strain_w, iters)
 
 

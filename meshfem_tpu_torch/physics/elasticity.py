@@ -45,7 +45,12 @@ Counterpart of ``meshfem_tpu/physics/elasticity.py::ElasticitySimulator``:
   ``rigid_modes`` places its rotations at the simulator's positions (the
   null space of its ``K``);
 * the homogenization load ``constant_strain_load``, the strain, stress and
-  von Mises fields and the strain energy.
+  von Mises fields and the strain energy;
+* tracing (``utils/timer.py``, off unless enabled): the spans ``bc``
+  (``apply_boundary_conditions``), ``solve`` with its ``validate`` (the
+  Kuhn-grid check), ``build.routed`` and ``build.mg`` (cache misses),
+  ``precond`` and ``refine``
+  (``solvers/refine.py``), and ``von_mises`` (``von_mises_field``).
 
 Dof layout: ``u[dof, component]``.  ``dof_map [N] -> Nd`` identifies nodes
 into dofs (periodic cells, ``mesh/periodic.py``); it is the identity by
@@ -58,7 +63,6 @@ builds are numpy on the host, as in the reference.
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -78,6 +82,7 @@ from ..solvers import refine as refine_mod
 from ..sparse import assembly
 from ..sparse.ebe import EBEKernel
 from ..sparse.routed_ebe import RoutedEBE
+from ..utils.timer import GLOBAL_TIMER, benchmarkit
 from . import boundary_conditions as bc_mod
 from .materials import Material, MaterialField
 
@@ -158,8 +163,7 @@ class ElasticitySimulator:
                                        self.num_dofs, self.dim)
         self._kernel32 = None           # float32 EBE, _solve_ebe_refined
         self._routed = None
-        self._mg = None                 # (Dirichlet mask bytes, multigrid,
-        #                                  build seconds on the host clock)
+        self._mg = None                 # (Dirichlet mask bytes, multigrid)
         self._amg = None                # (Dirichlet mask bytes,
         #                                  UnstructuredMG)
         self._twolevel = {}             # (precond, mask, ordered) -> TwoLevel
@@ -193,22 +197,25 @@ class ElasticitySimulator:
         if self._routed is not None and block_rhs:
             self._routed.bm = int(block_rhs)
         if self._routed is None:
-            # dof coordinates: position of (a) node carrying each dof.  The
-            # mesh's stored positions, as in the reference (:133-134), also
-            # for a deformed simulator: they set only the internal order
-            pos = np.zeros((self.num_dofs, self.mesh.node_positions.shape[1]))
-            pos[self.dof_map] = self.mesh.node_positions
-            factor = None
-            if os.environ.get("MESHFEM_FACTORED"):
-                lm = et.lame_parameters(self.D)
-                if lm is not None:
-                    factor = (self.geom.grad_lambda, self.geom.volume,
-                              lm[0], lm[1], self.mesh.degree)
-            self._routed = RoutedEBE.build(
-                None if factor is not None else self._routed_Ke(),
-                self.elem_dofs.cpu().numpy(), self.num_dofs, self.dim,
-                coords=pos, factor=factor, device=self.device,
-                block_rhs=block_rhs)
+            with GLOBAL_TIMER.section("build.routed"):
+                # dof coordinates: position of (a) node carrying each dof.
+                # The mesh's stored positions, as in the reference
+                # (:133-134), also for a deformed simulator: they set only
+                # the internal order
+                pos = np.zeros((self.num_dofs,
+                                self.mesh.node_positions.shape[1]))
+                pos[self.dof_map] = self.mesh.node_positions
+                factor = None
+                if os.environ.get("MESHFEM_FACTORED"):
+                    lm = et.lame_parameters(self.D)
+                    if lm is not None:
+                        factor = (self.geom.grad_lambda, self.geom.volume,
+                                  lm[0], lm[1], self.mesh.degree)
+                self._routed = RoutedEBE.build(
+                    None if factor is not None else self._routed_Ke(),
+                    self.elem_dofs.cpu().numpy(), self.num_dofs, self.dim,
+                    coords=pos, factor=factor, device=self.device,
+                    block_rhs=block_rhs)
         return self._routed
 
     def _routed_Ke(self):
@@ -273,6 +280,7 @@ class ElasticitySimulator:
     # Boundary conditions (reference applyBoundaryConditions,
     # LinearElasticity.hh:881-1027)
     # ------------------------------------------------------------------
+    @benchmarkit(name="bc")
     def apply_boundary_conditions(self, conds: bc_mod.BoundaryConditions):
         """Apply parsed boundary conditions (``parse_bc``): Dirichlet
         regions set ``dirichlet_mask`` / ``dirichlet_values`` (conflicts
@@ -476,6 +484,7 @@ class ElasticitySimulator:
     # ------------------------------------------------------------------
     # Solve
     # ------------------------------------------------------------------
+    @benchmarkit(name="solve")
     def solve(self, extra_load=None, tol: float = 1e-12,
               maxiter: int = 50000, x0=None, precond: str = "jacobi",
               chebyshev_degree: int = 6, operator: str = "auto"):
@@ -544,7 +553,8 @@ class ElasticitySimulator:
                 # only the Kuhn-grid validation may redirect an auto solve:
                 # a defect inside the MG stack must surface, not reroute
                 try:
-                    validate_kuhn_grid(self.mesh)
+                    with GLOBAL_TIMER.section("validate"):
+                        validate_kuhn_grid(self.mesh)
                     is_grid = True
                 except ValueError:
                     if operator == "structured":
@@ -598,15 +608,18 @@ class ElasticitySimulator:
         if self.no_rigid_motion:
             projs.append(cg_mod.nullspace_projector(self._rigid_basis()))
         project = _compose(projs)
-        if precond == "jacobi":
-            diag = self.K_diagonal()
-            safe = torch.where(diag > 0, diag, torch.ones_like(diag))
-            M_inv = lambda r: r / safe
-        elif precond in ("twolevel", "twolevel-mult"):
-            M_inv = self._twolevel_for(precond, free, project=project).M_inv
-        else:
-            M_inv = self._block_precond(self.Ke, self.apply_K, free, project,
-                                        precond, chebyshev_degree)
+        with GLOBAL_TIMER.section("precond"):
+            if precond == "jacobi":
+                diag = self.K_diagonal()
+                safe = torch.where(diag > 0, diag, torch.ones_like(diag))
+                M_inv = lambda r: r / safe
+            elif precond in ("twolevel", "twolevel-mult"):
+                M_inv = self._twolevel_for(precond, free,
+                                           project=project).M_inv
+            else:
+                M_inv = self._block_precond(self.Ke, self.apply_K, free,
+                                            project, precond,
+                                            chebyshev_degree)
         u_d = torch.where(fixed, vals, torch.zeros_like(vals))
         res = cg_mod.cg(self.apply_K, b - self.apply_K(u_d), x0,
                         M_inv=M_inv, project=project, tol=tol,
@@ -660,13 +673,14 @@ class ElasticitySimulator:
             # float32 modes in float32, elasticity.py:605-607)
             projs.append(cg_mod.nullspace_projector(Z, dtype=f32))
         project = _compose(projs)
-        if precond == "jacobi":
-            diag = k32.diagonal()
-            safe = torch.where(diag > 0, diag, torch.ones_like(diag))
-            M_inv = lambda r: r / safe
-        else:
-            M_inv = self._block_precond(k32.Ke, k32, free, project, precond,
-                                        chebyshev_degree)
+        with GLOBAL_TIMER.section("precond"):
+            if precond == "jacobi":
+                diag = k32.diagonal()
+                safe = torch.where(diag > 0, diag, torch.ones_like(diag))
+                M_inv = lambda r: r / safe
+            else:
+                M_inv = self._block_precond(k32.Ke, k32, free, project,
+                                            precond, chebyshev_degree)
         proj_hi = self._proj_hi(free, proj_rm_hi)
         u_d = torch.where(fixed, vals, torch.zeros_like(vals)).to(
             torch.float64)
@@ -709,11 +723,12 @@ class ElasticitySimulator:
         if self._mg is None or self._mg[0] != key:
             f64_dev = self.device.type == "cpu"
             cls_mg = VarStructuredMG if self.D.ndim == 3 else StructuredMG
-            t0 = time.perf_counter()
-            mg = cls_mg.build(self.mesh, self.D, fixed_mask=fixed,
-                              dtype=config.REAL if f64_dev else config.SOLVE,
-                              device=self.device)
-            self._mg = (key, mg, time.perf_counter() - t0)
+            with GLOBAL_TIMER.section("build.mg"):
+                mg = cls_mg.build(
+                    self.mesh, self.D, fixed_mask=fixed,
+                    dtype=config.REAL if f64_dev else config.SOLVE,
+                    device=self.device)
+            self._mg = (key, mg)
         mg = self._mg[1]
         dt = mg.free_ch.dtype
         if dt == torch.float64 or tol >= 1e-5:
@@ -775,36 +790,37 @@ class ElasticitySimulator:
             # modes in float32, elasticity.py:736-742)
             projs.append(cg_mod.nullspace_projector(Zp, dtype=f32))
         project = _compose(projs)
-        if precond == "jacobi":
-            diag_p = rk.diagonal_planes()
-            safe = torch.where(diag_p > 0, diag_p, torch.ones_like(diag_p))
-            M_inv = lambda r: r / safe
-        elif precond in ("twolevel", "twolevel-mult"):
-            # the two-level transfers and smoother blocks follow the
-            # internal order (rk.order); it works on [Nd, d], the CG on
-            # the planes [d, Nd]; -mult applies the routed operator itself
-            free_i = free_p.t()
-            tl = self._twolevel_for(
-                precond, free,
-                node_order=None if rk.order is None
-                else rk.order.cpu().numpy(),
-                project=lambda v: v * free_i.to(v.dtype),
-                apply_A=rk if precond.endswith("mult") else None)
-            M_inv = lambda r: tl.M_inv(r.t()).t()
-        else:   # block Jacobi, permuted into the internal ordering
-            blocks = pc.node_block_diagonal(self.Ke.to(f32), self.elem_dofs,
-                                            Nd, d)
-            bj = pc.block_jacobi_apply(pc.block_jacobi_inv(
-                rk.permute_in(blocks), free_p.t()))
-            M_inv = lambda r: bj(r.t()).t()
-            if precond == "chebyshev":
-                Ap = lambda v: project(rk.apply_planes(v))
-                M0 = M_inv
-                lmax = pc.estimate_lambda_max(
-                    Ap, lambda r: project(M0(r)), (d, Nd), dtype=f32,
-                    device=self.device)
-                M_inv = pc.chebyshev_preconditioner(
-                    Ap, M0, lmax, degree=chebyshev_degree, project=project)
+        with GLOBAL_TIMER.section("precond"):
+            if precond == "jacobi":
+                diag_p = rk.diagonal_planes()
+                safe = torch.where(diag_p > 0, diag_p, torch.ones_like(diag_p))
+                M_inv = lambda r: r / safe
+            elif precond in ("twolevel", "twolevel-mult"):
+                # the two-level transfers and smoother blocks follow the
+                # internal order (rk.order); it works on [Nd, d], the CG on
+                # the planes [d, Nd]; -mult applies the routed operator itself
+                free_i = free_p.t()
+                tl = self._twolevel_for(
+                    precond, free,
+                    node_order=None if rk.order is None
+                    else rk.order.cpu().numpy(),
+                    project=lambda v: v * free_i.to(v.dtype),
+                    apply_A=rk if precond.endswith("mult") else None)
+                M_inv = lambda r: tl.M_inv(r.t()).t()
+            else:   # block Jacobi, permuted into the internal ordering
+                blocks = pc.node_block_diagonal(self.Ke.to(f32),
+                                                self.elem_dofs, Nd, d)
+                bj = pc.block_jacobi_apply(pc.block_jacobi_inv(
+                    rk.permute_in(blocks), free_p.t()))
+                M_inv = lambda r: bj(r.t()).t()
+                if precond == "chebyshev":
+                    Ap = lambda v: project(rk.apply_planes(v))
+                    M0 = M_inv
+                    lmax = pc.estimate_lambda_max(
+                        Ap, lambda r: project(M0(r)), (d, Nd), dtype=f32,
+                        device=self.device)
+                    M_inv = pc.chebyshev_preconditioner(
+                        Ap, M0, lmax, degree=chebyshev_degree, project=project)
         u_d = torch.where(fixed, vals, torch.zeros_like(vals))
 
         if b.dtype != torch.float64 or tol >= 1e-5:
@@ -924,6 +940,7 @@ class ElasticitySimulator:
                                   else self.D[:, None],
                                   self.strain_at(u, points))
 
+    @benchmarkit(name="von_mises")
     def von_mises_field(self, u):
         return von_mises(self.average_stress_field(u), self.dim)
 

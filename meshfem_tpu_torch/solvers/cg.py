@@ -11,18 +11,23 @@ projection), ``solve_dirichlet`` (:296) and ``cg_block`` (:309, all
 right-hand sides of a block at once).
 The ``while_loop`` becomes a Python loop whose scalars stay on the device;
 the loop reads ONE flag back per iteration (its continue condition), so
-the host waits on the device once per iteration and no more.  Vectors are
+the host waits on the device once per iteration and no more.  With the
+tracer on (``utils/timer.py``) each loop adds its iterations to the
+counter ``cg.iters`` and the host's time blocked in those reads to
+``cg.readback_wait_ns``.  Vectors are
 updated in place where the reference rebinds them.  Dot products run in
 the vector's dtype, as the reference's do (``cg.py:33-40``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple
 
 import torch
 
 from ..utils.linalg import orthonormalize
+from ..utils.timer import GLOBAL_TIMER
 
 # Plain CG on kappa ~ 1e7 systems can plateau for hundreds of iterations
 # and its residual oscillates by ~sqrt(kappa) between drops, so both guards
@@ -43,6 +48,26 @@ class CGResult(NamedTuple):
 def _dot(a, b):
     """Inner product in the vector dtype (0-d tensor on the device)."""
     return torch.vdot(a.reshape(-1), b.reshape(-1))
+
+
+def _read(flag, wait):
+    """``bool(flag)``: the loop's read of its continue flag, which waits
+    for the device.  With the tracer on (``wait`` a one-element list of
+    ns) the host's wait for it is timed."""
+    if wait is None:
+        return bool(flag)
+    t0 = time.perf_counter_ns()
+    out = bool(flag)
+    wait[0] += time.perf_counter_ns() - t0
+    return out
+
+
+def _count(iters, wait):
+    """The loop's iterations and read-back wait into the tracer's
+    counters."""
+    if wait is not None:
+        GLOBAL_TIMER.add("cg.iters", iters)
+        GLOBAL_TIMER.add("cg.readback_wait_ns", wait[0])
 
 
 def cg(A: Callable, b, x0=None, *, M_inv: Callable | None = None,
@@ -75,7 +100,8 @@ def cg(A: Callable, b, x0=None, *, M_inv: Callable | None = None,
     moved = torch.zeros((), dtype=torch.bool, device=b.device)
     k = 0
     cont = (rr > stop2) & torch.isfinite(rr)
-    while k < maxiter and bool(cont):
+    wait = [0] if GLOBAL_TIMER.enabled else None     # ns
+    while k < maxiter and _read(cont, wait):
         Ap = project(A(p))
         den = _dot(p, Ap)
         # breakdown guard: non-positive / non-finite curvature means the
@@ -105,6 +131,7 @@ def cg(A: Callable, b, x0=None, *, M_inv: Callable | None = None,
             | (rr > DIVERGE_FACTOR * rr_best)
         k += 1
         cont = (rr > stop2) & (~done) & torch.isfinite(rr)
+    _count(k, wait)
     use_best = rr_best < rr
     x = torch.where(use_best, x_best, x)
     rnorm = torch.sqrt(torch.where(use_best, rr_best, rr))
@@ -248,9 +275,10 @@ def cg_block(A: Callable, B, *, M_inv: Callable | None = None,
     p = z.clone()
     rr = cdot(r, r)
     one = torch.ones_like(gamma)
+    wait = [0] if GLOBAL_TIMER.enabled else None     # ns
 
     def live_any(rr):
-        return bool(((rr > stop2) & torch.isfinite(rr)).any())
+        return _read(((rr > stop2) & torch.isfinite(rr)).any(), wait)
 
     k = 0
     prev_rr = None
@@ -273,7 +301,9 @@ def cg_block(A: Callable, B, *, M_inv: Callable | None = None,
             k += 1
         if k >= maxiter or not live_any(rr):
             break
-        if prev_rr is not None and bool((rr >= 0.999 * prev_rr).all()):
+        if prev_rr is not None and _read((rr >= 0.999 * prev_rr).all(),
+                                         wait):
             break
         prev_rr = rr
+    _count(k, wait)
     return CGResult(x, k, torch.sqrt(rr))

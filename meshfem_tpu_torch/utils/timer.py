@@ -1,14 +1,22 @@
-"""Hierarchical section timers (counterpart of ``meshfem_tpu/utils/timer.py``;
-reference ``Timer.hh`` / ``GlobalBenchmark.hh:8-46`` and
-``python/benchmark.py``).
+"""Hierarchical section timers, span records and counters: the port's
+tracer (counterpart of ``meshfem_tpu/utils/timer.py``; reference
+``Timer.hh`` / ``GlobalBenchmark.hh:8-46`` and ``python/benchmark.py``).
 
-Off unless enabled, like the reference's ``-DBENCHMARK`` builds.  Section
-names nest by ``/``.  CUDA work is asynchronous, so an enabled section
-calls ``torch.cuda.synchronize()`` at its start and its stop once CUDA is
-initialised in the process: a section then times the device work it
-launched, where the host clock alone would time the launches.
-``torch_profile_trace`` takes the place of the reference's
-``jax_profile_trace``.
+Off unless enabled, like the reference's ``-DBENCHMARK`` builds; an
+instrumented site then costs one attribute test.  Section names nest by
+``/``.  A section measures host time only: it never synchronises the
+card (a synchronise would make the very idle gaps a trace is read for),
+and the device's time is a device trace's to measure.
+
+Besides the summed ``sections`` and ``counts``, each section appends one
+span record ``(path, parent, root, start_ns, end_ns)``: its path
+(``solve/refine/inner``), the index of the record of the section it
+opened in (None at the top), the index of its top-level record (a
+top-level section is one request, and every span under it carries its
+index), and ``time.perf_counter_ns()`` at its start and its end (None
+while it is open).  ``add`` keeps named integer counters.  Records stay
+in memory until ``take`` hands them over.  ``torch_profile_trace`` takes
+the place of the reference's ``jax_profile_trace``.
 """
 
 from __future__ import annotations
@@ -21,43 +29,78 @@ import time
 import torch
 
 
-def _sync() -> None:
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+class _Section:
+    """The context manager of an enabled ``Timer.section``."""
+
+    __slots__ = ("timer", "name")
+
+    def __init__(self, timer, name):
+        self.timer, self.name = timer, name
+
+    def __enter__(self):
+        self.timer.start_section(self.name)
+
+    def __exit__(self, *exc):
+        self.timer.stop_section(self.name)
+
+
+_OFF = contextlib.nullcontext()
 
 
 class Timer:
     def __init__(self):
         self.sections: dict[str, float] = {}
         self.counts: dict[str, int] = {}
-        self._stack: list[tuple[str, float]] = []
+        self.spans: list[list] = []
+        self.counters: dict[str, int] = {}
+        # open sections: (path, start ns, index of its span record)
+        self._stack: list[tuple[str, int, int | None]] = []
         self.enabled = False
 
     def start_section(self, name: str) -> None:
         if not self.enabled:
             return
-        _sync()
-        self._stack.append((name, time.perf_counter()))
+        path = f"{self._stack[-1][0]}/{name}" if self._stack else name
+        parent = self._stack[-1][2] if self._stack else None
+        index = len(self.spans)
+        root = index if parent is None else self.spans[parent][2]
+        t0 = time.perf_counter_ns()
+        self.spans.append([path, parent, root, t0, None])
+        self._stack.append((path, t0, index))
 
     def stop_section(self, name: str | None = None) -> None:
         """Close the innermost open section (``name`` is not checked, as
         in the reference)."""
         if not self.enabled or not self._stack:
             return
-        _sync()
-        label, t0 = self._stack.pop()
-        full = "/".join([s for s, _ in self._stack] + [label])
-        self.sections[full] = self.sections.get(full, 0.0) \
-            + time.perf_counter() - t0
-        self.counts[full] = self.counts.get(full, 0) + 1
+        t1 = time.perf_counter_ns()
+        path, t0, index = self._stack.pop()
+        self.sections[path] = self.sections.get(path, 0.0) \
+            + (t1 - t0) * 1e-9
+        self.counts[path] = self.counts.get(path, 0) + 1
+        if index is not None:
+            self.spans[index][4] = t1
 
-    @contextlib.contextmanager
     def section(self, name: str):
-        self.start_section(name)
-        try:
-            yield
-        finally:
-            self.stop_section(name)
+        """``with timer.section(name):`` times the block; a shared no-op
+        context while the timer is off."""
+        return _Section(self, name) if self.enabled else _OFF
+
+    def add(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the counter ``name`` (while enabled)."""
+        if self.enabled:
+            self.counters[name] = self.counters.get(name, 0) + int(n)
+
+    def take(self) -> tuple[list, dict]:
+        """(span records, counters) since the last ``take`` or ``reset``,
+        which are cleared.  Parent and root indices point into the
+        returned list.  A section still open comes with its end None and
+        records nothing when it closes (its time still goes to
+        ``sections``)."""
+        spans, counters = self.spans, self.counters
+        self.spans, self.counters = [], {}
+        self._stack = [(path, t0, None) for path, t0, _ in self._stack]
+        return spans, counters
 
     def report(self, stream=None) -> str:
         lines = ["=== meshfem_tpu_torch benchmark report ==="]
@@ -72,6 +115,8 @@ class Timer:
     def reset(self) -> None:
         self.sections.clear()
         self.counts.clear()
+        self.spans.clear()
+        self.counters.clear()
         self._stack.clear()
 
 

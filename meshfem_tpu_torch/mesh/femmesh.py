@@ -72,6 +72,11 @@ class FEMMesh:
     ``node_order`` is ``"reference"``, ``"morton"``, ``"rcb"`` or
     ``"firsttouch"`` (the last numbers nodes by their first element, so
     it wants spatially sorted elements, e.g. ``reorder_mesh(order="rcb")``).
+
+    Every array here is fixed at construction, so facts derived from them
+    may be stored on the mesh: ``ops.structured.validate_kuhn_grid``
+    keeps its Kuhn-grid verdict in ``_kuhn_verdict`` beside the ``V`` and
+    ``F`` it read, and checks a mesh once however many solves ask.
     """
 
     def __init__(self, V, F, degree: int = 1,
@@ -137,6 +142,7 @@ class FEMMesh:
         self.is_bdry_node = np.zeros(self.num_nodes, dtype=bool)
         self.is_bdry_node[self.bdry_nodes] = True
         self._plans = {}
+        self._kuhn_verdict = None
         self._renumber(node_order)
 
     def _renumber(self, node_order: str) -> None:

@@ -44,6 +44,7 @@ from ..mesh.femmesh import FEMMesh
 from ..solvers import cg as cg_mod
 from ..sparse import assembly
 from ..sparse.scatter import ScatterPlan
+from ..utils.timer import GLOBAL_TIMER
 from . import element_matrices as em
 
 # Channel order: fractional-offset bit patterns (x, y, z).
@@ -76,7 +77,33 @@ def validate_kuhn_grid(mesh: FEMMesh):
     vertex count, element count, vertices exactly on the inferred
     lattice, and every tet a Kuhn path 000 -> 111 (nested corner bit
     patterns; the same vertex positions with flipped diagonals is a
-    different operator).  Returns (n3, h3); raises ValueError."""
+    different operator).  Returns (n3, h3); raises ValueError.
+
+    The verdict is a fact of the mesh, which ``solve`` asks for at every
+    job, so the full check (the tracer span ``kuhn_check``) runs once per
+    mesh: its outcome, ``(n3, h3)`` or the ValueError's message, is stored
+    on the mesh beside the ``V`` and ``F`` it was read from, and a later
+    call on the same two arrays (by identity) returns it or raises a
+    ValueError with the same message.  Every array of a ``FEMMesh`` is
+    fixed at construction; rebinding ``mesh.V`` or ``mesh.F`` runs the
+    check again."""
+    verts, tets = mesh.V, mesh.F
+    stored = mesh._kuhn_verdict
+    if stored is None or stored[0] is not verts or stored[1] is not tets:
+        try:
+            with GLOBAL_TIMER.section("kuhn_check"):
+                verdict = _check_kuhn_grid(mesh)
+        except ValueError as e:
+            mesh._kuhn_verdict = (verts, tets, str(e))
+            raise
+        stored = mesh._kuhn_verdict = (verts, tets, verdict)
+    if isinstance(stored[2], str):
+        raise ValueError(stored[2])
+    return stored[2]
+
+
+def _check_kuhn_grid(mesh: FEMMesh):
+    """``validate_kuhn_grid``'s checks, on the mesh as it is."""
     if mesh.K != 3 or mesh.degree != 2:
         raise ValueError("structured path supports P2 tets")
     bb = mesh.bbox()

@@ -26,7 +26,9 @@ float64 (seeded numpy inputs, the reference's own problems).
     against the reference's float64 u, 1e-7, residual < 1e-9, and the
     rounds' record (``history``) consistent with the result;
 (k) a perturbed grid solves under ``auto`` (EBE) and raises ValueError under
-    ``structured``, as do ``x0`` and an ineligible mesh.
+    ``structured``, as do ``x0`` and an ineligible mesh; ``validate_kuhn_grid``
+    checks a mesh once and replays its verdict, so two solves of one mesh
+    run one check and give the same u to the bit.
 
 The reference is imported inside its fixtures, so the ``cuda``-marked cases
 (the card's float32 apply and solves against the port's float64 ones on the
@@ -134,8 +136,11 @@ def reference_field():
 
 # -- (a) ---------------------------------------------------------------------
 
-@pytest.mark.parametrize("dims,hi", [((4, 4, 4), (1.0, 1.0, 1.0)),
-                                     ((3, 4, 5), (1.3, 0.9, 1.1))])
+GRIDS = [((4, 4, 4), (1.0, 1.0, 1.0)), ((3, 4, 5), (1.3, 0.9, 1.1))]
+DEFECTS = ["perturbed", "off_lattice", "count", "non_kuhn", "p1"]
+
+
+@pytest.mark.parametrize("dims,hi", GRIDS)
 def test_validate_kuhn_grid_matches_reference(dims, hi):
     from meshfem_tpu.mesh import FEMMesh as RMesh
     from meshfem_tpu.ops.structured import validate_kuhn_grid as rvalidate
@@ -173,21 +178,93 @@ def _defect(kind):
     return V, T
 
 
-@pytest.mark.parametrize("kind", ["perturbed", "off_lattice", "count",
-                                  "non_kuhn", "p1"])
+def _rejected(kind):
+    """(V, T, degree) of a mesh the check rejects: a defect, or a P1 grid."""
+    if kind == "p1":
+        return (*generators.grid_tet(4, 4, 4), 1)
+    return (*_defect(kind), 2)
+
+
+@pytest.mark.parametrize("kind", DEFECTS)
 def test_validate_kuhn_grid_rejects_like_reference(kind):
     from meshfem_tpu.mesh import FEMMesh as RMesh
     from meshfem_tpu.ops.structured import validate_kuhn_grid as rvalidate
 
-    V, T = _defect("count" if kind == "p1" else kind)
-    if kind == "p1":
-        V, T = generators.grid_tet(4, 4, 4)
-    deg = 1 if kind == "p1" else 2
+    V, T, deg = _rejected(kind)
     with pytest.raises(ValueError) as ref:
         rvalidate(RMesh(V, T, degree=deg))
     with pytest.raises(ValueError) as port:
         validate_kuhn_grid(FEMMesh(V, T, degree=deg))
     assert str(port.value) == str(ref.value)
+
+
+@pytest.fixture
+def full_checks(monkeypatch):
+    """The full Kuhn-grid checks run, counted: [number]."""
+    from meshfem_tpu_torch.ops import structured as st
+
+    n, full = [0], st._check_kuhn_grid
+
+    def counted(mesh):
+        n[0] += 1
+        return full(mesh)
+
+    monkeypatch.setattr(st, "_check_kuhn_grid", counted)
+    return n
+
+
+def _jittered(V, seed=23):
+    """A copy of V with its interior vertices moved by up to 1e-3, under
+    any cell of these grids: the same counts, off the lattice."""
+    lo, hi = V.min(axis=0), V.max(axis=0)
+    interior = ((V > lo + 1e-9) & (V < hi - 1e-9)).all(axis=1)
+    V = V.copy()
+    V[interior] += np.random.default_rng(seed).uniform(
+        -1e-3, 1e-3, (interior.sum(), 3))
+    return V
+
+
+@pytest.mark.parametrize("case", GRIDS + DEFECTS,
+                         ids=["cube", "box"] + DEFECTS)
+def test_validate_kuhn_grid_stores_its_verdict(case, full_checks):
+    """The check runs once per mesh: a second call gives the first's
+    (n3, h3), a fresh mesh's and the reference's, or the first's
+    ValueError message; rebinding V or F checks again."""
+    from meshfem_tpu.mesh import FEMMesh as RMesh
+    from meshfem_tpu.ops.structured import validate_kuhn_grid as rvalidate
+
+    if case in DEFECTS:
+        V, T, deg = _rejected(case)
+        mesh = FEMMesh(V, T, degree=deg)
+        with pytest.raises(ValueError) as first:
+            validate_kuhn_grid(mesh)
+        with pytest.raises(ValueError) as again:
+            validate_kuhn_grid(mesh)
+        with pytest.raises(ValueError) as ref:
+            rvalidate(RMesh(V, T, degree=deg))
+        assert str(again.value) == str(first.value) == str(ref.value)
+        assert full_checks[0] == 1
+        return
+    dims, hi = case
+    V, T = generators.grid_tet(*dims, hi=hi)
+    mesh = FEMMesh(V, T, degree=2)
+    first = validate_kuhn_grid(mesh)
+    assert validate_kuhn_grid(mesh) == first
+    assert full_checks[0] == 1
+    assert validate_kuhn_grid(FEMMesh(V, T, degree=2)) == first
+    assert full_checks[0] == 2
+    rn3, rh3 = rvalidate(RMesh(V, T, degree=2))
+    assert first[0] == tuple(rn3) == dims
+    np.testing.assert_allclose(first[1], rh3, rtol=1e-15)
+    mesh.F = mesh.F.copy()
+    assert validate_kuhn_grid(mesh) == first
+    assert full_checks[0] == 3
+    mesh.V = _jittered(mesh.V)
+    for _ in range(2):
+        with pytest.raises(ValueError,
+                           match="not a Kuhn-subdivided box grid"):
+            validate_kuhn_grid(mesh)
+    assert full_checks[0] == 4
 
 
 # -- (b) ---------------------------------------------------------------------
@@ -466,6 +543,34 @@ def test_non_grid_falls_back_and_structured_raises():
                      np.zeros((small.num_nodes, 3)))
     with pytest.raises(ValueError, match="requires a 3D P2 mesh"):
         sim_small.solve(operator="structured")
+
+
+def test_auto_solves_check_the_grid_once(full_checks):
+    """Two auto solves of one Kuhn grid: the same u to the bit from the
+    cached multigrid, one full grid check.  On the jittered grid both auto
+    solves take the EBE path alike and 'structured' raises each time, on
+    one check more."""
+    V, T, mesh, fixed, load = _clamped()
+    sim = _sim(mesh, Material.isotropic(3, 200.0, 0.3), fixed, load)
+    u1, _ = sim.solve(tol=1e-10)
+    mg = sim._mg[1]
+    u2, _ = sim.solve(tol=1e-10)
+    assert type(mg) is smg.StructuredMG and sim._mg[1] is mg
+    assert torch.equal(u1, u2)
+    assert full_checks[0] == 1
+    sim = _sim(FEMMesh(_jittered(V), T, degree=2),
+               Material.isotropic(3, 200.0, 0.3), fixed, load)
+    assert sim._structured_eligible()
+    us = []
+    for _ in range(2):
+        with pytest.raises(ValueError,
+                           match="not a Kuhn-subdivided box grid"):
+            sim.solve(operator="structured")
+        u, res = sim.solve(tol=1e-10)
+        assert sim._mg is None and res.rounds == 0
+        us.append(u)
+    assert torch.equal(us[0], us[1])
+    assert full_checks[0] == 2
 
 
 # -- on the card -------------------------------------------------------------

@@ -149,9 +149,14 @@ def test_routed_solve_spans_and_counters(routed, tracer, no_sync, reads):
     assert counters["cg.iters"] == res2.iters
 
 
+def _kuhn_checks(paths):
+    return [p for p in paths if p.endswith("/kuhn_check")]
+
+
 def test_structured_solve_spans(tracer, no_sync):
     """A Kuhn grid past 3,000 elements: the grid check and the multigrid
-    build in the solve's spans, the build once; the two-tuple cache (mask
+    build in the solve's spans, the build once; the full grid check once,
+    under the first job's ``solve/validate``; the two-tuple cache (mask
     key, multigrid)."""
     sim = _clamped(8)
     res = _job(sim, tol=1e-8)
@@ -160,13 +165,43 @@ def test_structured_solve_spans(tracer, no_sync):
     paths = _paths(spans)
     assert paths.count("solve/validate") == 1
     assert paths.count("solve/build.mg") == 1
+    assert _kuhn_checks(paths) == ["solve/validate/kuhn_check"]
     assert counters["cg.iters"] == res.iters
     key, mg = sim._mg
     assert key == sim.dirichlet_mask.tobytes()
     assert type(mg).__name__ == "StructuredMG"
     _job(sim, tol=1e-8)
     spans, counters = tracer.take()
-    assert "solve/build.mg" not in _paths(spans)
+    paths = _paths(spans)
+    assert "solve/build.mg" not in paths
+    assert paths.count("solve/validate") == 1
+    assert _kuhn_checks(paths) == []
+
+
+def test_non_grid_solve_checks_the_grid_once(tracer, no_sync):
+    """A jittered grid_tet(8) (3,072 tets, past the structured pre-filter,
+    not a Kuhn grid): the first job's grid check fails in full, the
+    second replays its verdict, and both take the same non-structured
+    path."""
+    V, T = generators.grid_tet(8, 8, 8)
+    interior = ((V > 1e-9) & (V < 1 - 1e-9)).all(axis=1)
+    rng = np.random.default_rng(23)
+    V = V.copy()
+    V[interior] += rng.uniform(-0.1, 0.1, (interior.sum(), 3)) / 8
+    sim = ElasticitySimulator(FEMMesh(V, T, degree=2),
+                              Material.isotropic(3, 200.0, 0.3), device=CPU)
+    jobs = []
+    for _ in range(2):
+        _job(sim, tol=1e-8)
+        spans, _ = tracer.take()
+        _check_tree(spans)
+        jobs.append(_paths(spans))
+    assert sim.mesh.num_elements == 3072 and sim._structured_eligible()
+    assert _kuhn_checks(jobs[0]) == ["solve/validate/kuhn_check"]
+    assert _kuhn_checks(jobs[1]) == []
+    assert [p for p in jobs[0] if not p.endswith("/kuhn_check")] == jobs[1]
+    assert jobs[1].count("solve/validate") == 1
+    assert sim._mg is None and "solve/build.mg" not in jobs[0] + jobs[1]
 
 
 def test_cg_block_counts_a_readback_an_iteration(tracer, no_sync, reads):
